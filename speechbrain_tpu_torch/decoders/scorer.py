@@ -1,0 +1,273 @@
+"""Pluggable scorers for LM fusion and joint decoding in beam search
+(port of ``BaseScorerInterface``, ``KVTransformerLMScorer``, ``CTCScorer``
+and ``ScorerBuilder`` from ``speechbrain_tpu/decoders/scorer.py``).
+
+Scorers run inside the beam-search loop: state in, state out. Full
+scorers contribute over the entire vocab; partial scorers (CTC prefix)
+score a pruned candidate set of size ``scorer_beam_scale * beam_size`` and
+are scattered back.
+"""
+
+import torch
+
+from speechbrain_tpu_torch.decoders.ctc import CTCPrefixScore
+from speechbrain_tpu_torch.decoders.permute import gather_tree
+from speechbrain_tpu_torch.decoders.seq2seq import (
+    _stamp_self_column,
+    cache_length,
+    init_ancestry,
+    permute_ancestry,
+)
+from speechbrain_tpu_torch.decoders.utils import top_k_lowest_index
+
+
+class BaseScorerInterface:
+    """Protocol of a scorer."""
+
+    # (batch, beam) of the running search; set by ScorerBuilder
+    _beam_layout = None
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        """Return (scores, new_memory). For full scorers, scores has shape
+        (n_bh, vocab); partial scorers return full-vocab scores too, with
+        their own minus-inf at tokens outside ``candidates``."""
+        raise NotImplementedError
+
+    def permute_mem(self, memory, index):
+        return gather_tree(memory, index)
+
+    def reset_mem(self, x, enc_lens):
+        return None
+
+    def is_partial(self):
+        return False
+
+
+class KVTransformerLMScorer(BaseScorerInterface):
+    """KV-cached transformer-LM shallow fusion: O(step) work per decode
+    step instead of re-running the LM over the whole token buffer.
+
+    Arguments
+    ---------
+    step_fn : (tokens (N,), cache, step) -> (logits (N, V), cache)
+        e.g. ``lm.score_step``.
+    init_cache_fn : (n, max_length) -> per-layer cache with batch-leading
+        tensors (the beam predecessor gather permutes axis 0).
+    ancestry : bool
+        Cache rows never move; ``step_fn`` takes a fourth (B_utt, beam, L)
+        ancestry argument and routes it into the LM's cached attention
+        (ops/beam_attention.py) — removes the per-step cache permute.
+    """
+
+    def __init__(self, step_fn, init_cache_fn, max_length=512,
+                 temperature=1.0, ancestry=False):
+        self.step_fn = step_fn
+        self.init_cache_fn = init_cache_fn
+        self.max_length = max_length
+        self.temperature = temperature
+        self.ancestry = ancestry
+
+    def reset_mem(self, x, enc_lens):
+        mem = {
+            "cache": self.init_cache_fn(x.shape[0], self.max_length),
+            "step": 0,
+        }
+        if self.ancestry:
+            B, K = self._beam_layout
+            # match the CACHE's (rounded-up) length
+            mem["anc"] = init_ancestry(
+                B, K, cache_length(mem["cache"]), x.device
+            )
+        return mem
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        step = memory["step"]
+        if self.ancestry:
+            anc = _stamp_self_column(memory["anc"], step)
+            logits, cache = self.step_fn(
+                inp_tokens, memory["cache"], step, anc
+            )
+        else:
+            logits, cache = self.step_fn(inp_tokens, memory["cache"], step)
+        log_probs = torch.log_softmax(logits / self.temperature, dim=-1)
+        return log_probs, {**memory, "cache": cache, "step": step + 1}
+
+    def permute_mem(self, memory, index):
+        if self.ancestry:
+            return {**memory, "anc": permute_ancestry(memory["anc"], index)}
+        return {**memory, "cache": gather_tree(memory["cache"], index)}
+
+
+class CTCScorer(BaseScorerInterface):
+    """Joint CTC prefix scoring (partial scorer). Its prefix scorer is
+    built fresh per utterance batch in ``reset_mem`` from the CTC head's
+    log-probs."""
+
+    # the prefix scorer's own mask value — NOT the searcher's minus_inf
+    CTC_MINUS_INF = -1e20
+
+    def __init__(self, ctc_fn, blank_index, eos_index, ctc_window_size=0):
+        # ctc_fn(enc_states) -> (B*, T, V) CTC log-probs (usually a Linear
+        # + log_softmax over the encoder states)
+        self.ctc_fn = ctc_fn
+        self.blank_index = blank_index
+        self.eos_index = eos_index
+        self.ctc_window_size = ctc_window_size
+        self._impl = None
+
+    @property
+    def vocab_size(self):
+        return self._impl.V
+
+    def reset_mem(self, x, enc_lens, n_bh=None):
+        log_probs = self.ctc_fn(x)
+        self._impl = CTCPrefixScore(
+            log_probs, enc_lens, self.blank_index, self.eos_index,
+            self.ctc_window_size,
+        )
+        # x may be the UNINFLATED per-utterance states with n_bh =
+        # batch*beam hypotheses: the prefix scorer shares the posteriors
+        # across each utterance's beams
+        n = n_bh or x.shape[0]
+        state = self._impl.init_state(n)
+        state["is_first"] = torch.ones((n,), dtype=torch.bool, device=x.device)
+        return state
+
+    def is_partial(self):
+        return True
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        """Score candidate extensions; returns FULL-vocab scores with
+        -1e20 at unscored tokens, so non-candidates are effectively
+        blocked from selection."""
+        # inp_tokens are the tokens just consumed (last of prefix g)
+        n_bh = inp_tokens.shape[0]
+        if candidates is None:
+            # full-vocab scoring (ctc_weight == 1.0 paths): every token is
+            # a candidate
+            candidates = torch.arange(
+                self._impl.V, device=inp_tokens.device
+            )[None].expand(n_bh, -1)
+        _, new_states = self._impl.forward_step(
+            memory["is_first"], inp_tokens, candidates, memory
+        )
+        psi = new_states["psi"]  # (n_bh, n_cand)
+        # blank is not a valid extension for joint scoring
+        if self.eos_index != self.blank_index:
+            psi = torch.where(
+                candidates == self.blank_index, self.CTC_MINUS_INF, psi
+            )
+        new_states["psi"] = psi
+        psi_full = psi.new_full((n_bh, self._impl.V), self.CTC_MINUS_INF)
+        psi_full.scatter_(1, candidates.long(), psi)
+        scores = psi_full - memory["psi_prev"][:, None]
+        new_states["candidates"] = candidates
+        new_states["is_first"] = torch.zeros_like(memory["is_first"])
+        return scores, new_states
+
+    def permute_and_select(self, new_states, hyp_index, new_tokens):
+        """Select the forward variables of the chosen (hyp, token) pairs,
+        by plain indexing."""
+        cands = new_states["candidates"][hyp_index]  # (n_bh, n_cand)
+        # find the candidate slot matching each new token
+        match = cands == new_tokens[:, None]
+        cand_idx = torch.argmax(match.to(torch.int8), dim=-1)
+        found = match.any(dim=-1)
+        # unscored chosen token: falls back to candidate slot 0's forward
+        # variables with psi_prev = minus_inf. argmax already yields 0 on
+        # no-match, so only psi needs the mask.
+        state = self._impl.select_state(new_states, hyp_index, cand_idx)
+        state["psi_prev"] = torch.where(
+            found, state["psi_prev"], self.CTC_MINUS_INF
+        )
+        state["is_first"] = torch.zeros_like(found)
+        return state
+
+
+class ScorerBuilder:
+    """Combine weighted scorers, full and partial.
+
+    Arguments
+    ---------
+    weights : dict name -> float
+    full_scorers / partial_scorers : dict name -> scorer
+    scorer_beam_scale : float
+        Candidate set size for partial scorers = scale * beam_size.
+    """
+
+    def __init__(self, weights=None, full_scorers=None, partial_scorers=None,
+                 scorer_beam_scale=2.0):
+        self.weights = dict(weights or {})
+        self.full_scorers = dict(full_scorers or {})
+        self.partial_scorers = dict(partial_scorers or {})
+        self.scorer_beam_scale = scorer_beam_scale
+
+    def _all_scorers(self):
+        return {**self.full_scorers, **self.partial_scorers}
+
+    def set_beam_layout(self, batch, beam):
+        """Record the (batch, beam) layout of the search about to run
+        (the searcher calls this before its loop)."""
+        for scorer in self._all_scorers().values():
+            scorer._beam_layout = (batch, beam)
+
+    def reset_scorer_mem(self, x, enc_lens, x_shared=None,
+                         lens_shared=None):
+        """x is the beam-inflated encoder states. When ``x_shared`` (the
+        per-utterance states) is given, scorers that can share encoder
+        products across beams (the CTC prefix scorer) are reset from it
+        instead — their per-hypothesis state still sizes to x.shape[0]."""
+        mem = {}
+        for name, scorer in self._all_scorers().items():
+            if x_shared is not None and isinstance(scorer, CTCScorer):
+                mem[name] = scorer.reset_mem(
+                    x_shared, lens_shared, n_bh=x.shape[0]
+                )
+            else:
+                mem[name] = scorer.reset_mem(x, enc_lens)
+        return mem
+
+    def score(self, inp_tokens, memories, attn, log_probs, beam_size):
+        """Add weighted scorer contributions to log_probs inside the beam
+        loop: full scorers first (with blank blocking when CTC scores the
+        full vocab), then candidate pruning from the fused log-probs,
+        then the partial scorers. Partial scorers return FULL-vocab
+        scores carrying their own minus-inf at unscored tokens, so a
+        plain add suffices."""
+        new_mem = {}
+        for name, scorer in self.full_scorers.items():
+            if name == "ctc":
+                # block blank when CTC drives full-vocab scoring
+                log_probs[:, scorer.blank_index] = CTCScorer.CTC_MINUS_INF
+            scores, sm = scorer.score(
+                inp_tokens, memories.get(name), None, attn
+            )
+            log_probs = log_probs + self.weights.get(name, 1.0) * scores
+            new_mem[name] = sm
+        if self.partial_scorers:
+            n_cand = int(beam_size * self.scorer_beam_scale)
+            n_cand = max(1, min(n_cand, log_probs.shape[-1]))
+            _, candidates = top_k_lowest_index(log_probs, n_cand)
+            for name, scorer in self.partial_scorers.items():
+                scores, sm = scorer.score(
+                    inp_tokens, memories.get(name), candidates, attn
+                )
+                log_probs = log_probs + self.weights.get(name, 1.0) * scores
+                new_mem[name] = sm
+        return log_probs, new_mem
+
+    def permute_scorer_mem(self, memories, index, new_tokens):
+        """Reorder all scorer memories after beam pruning. ``index`` is
+        the flat predecessor row per surviving hypothesis; ``new_tokens``
+        the token each chose."""
+        out = {}
+        for name, scorer in self._all_scorers().items():
+            mem = memories.get(name)
+            if mem is None:
+                out[name] = None
+            elif hasattr(scorer, "permute_and_select"):
+                # CTC-style scorers select by (hyp, token) pairs
+                out[name] = scorer.permute_and_select(mem, index, new_tokens)
+            else:
+                out[name] = scorer.permute_mem(mem, index)
+        return out

@@ -1,0 +1,28 @@
+"""Decoder helpers (port of ``speechbrain_tpu/decoders/utils.py``, plus
+the top-k the searchers share)."""
+
+import torch
+
+
+def inflate_tensor(tensor, times, dim):
+    """Repeat each entry ``times`` along ``dim`` (beam inflation).
+
+    Example
+    -------
+    >>> inflate_tensor(torch.tensor([[1, 2]]), 2, dim=0).tolist()
+    [[1, 2], [1, 2]]
+    """
+    return torch.repeat_interleave(tensor, times, dim=dim)
+
+
+def top_k_lowest_index(x, k):
+    """Top ``k`` along the last axis, sorted by descending value, taking
+    the LOWEST index among equal values, as ``jax.lax.top_k`` does.
+
+    ``torch.topk`` leaves the order of ties open. Beam search depends on
+    it: dead beams and unscored tokens sit at exactly equal large negative
+    scores, and which of them fills a beam slot decides the tokens that
+    follow. A stable descending sort keeps equal values in index order.
+    """
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]

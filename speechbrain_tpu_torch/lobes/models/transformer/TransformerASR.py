@@ -1,0 +1,214 @@
+"""Encoder-decoder Transformer/Conformer ASR wrapper (port of
+``speechbrain_tpu/lobes/models/transformer/TransformerASR.py`` without its
+dynamic-chunk, streaming and Branchformer arms): joins an input
+projection, a Transformer or Conformer encoder and a Transformer decoder,
+building the padding and causal masks from relative lengths.
+"""
+
+import torch
+import torch.nn as nn
+
+from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+    ConformerEncoder,
+)
+from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
+    NormalizedEmbedding,
+    PositionalEncoding,
+    TransformerDecoder,
+    TransformerEncoder,
+    get_key_padding_mask,
+    get_lookahead_mask,
+)
+from speechbrain_tpu_torch.nnet.attention import RelPosEncXL
+from speechbrain_tpu_torch.nnet.linear import Linear
+
+
+def make_transformer_src_tgt_masks(src, tgt=None, wav_len=None, pad_idx=0):
+    """The masks used by forward: (src_key_padding_mask,
+    tgt_key_padding_mask, src_mask, tgt_mask); ``src_mask`` is None
+    (full context)."""
+    src_key_padding_mask = None
+    if wav_len is not None:
+        src_key_padding_mask = get_key_padding_mask(wav_len, src.shape[1])
+    tgt_key_padding_mask = None
+    tgt_mask = None
+    if tgt is not None:
+        tgt_key_padding_mask = tgt == pad_idx
+        tgt_mask = get_lookahead_mask(tgt.shape[1], tgt.device)
+    return src_key_padding_mask, tgt_key_padding_mask, None, tgt_mask
+
+
+class TransformerASR(nn.Module):
+    """Encoder-decoder ASR transformer.
+
+    Inputs: src (B, T, F) features (or (B,T,F,C), flattened), tgt (B, U)
+    token ids. ``forward`` returns (encoder_out, decoder_out);
+    ``encode``/``decode`` run the halves separately (for CTC-only or beam
+    search); ``decode_step`` is the KV-cached serving step.
+
+    Example
+    -------
+    >>> net = TransformerASR(tgt_vocab=40, input_size=40, d_model=32,
+    ...     nhead=4, num_encoder_layers=2, num_decoder_layers=1, d_ffn=64,
+    ...     device="cpu").eval()
+    >>> src = torch.ones(2, 16, 40); tgt = torch.ones(2, 5, dtype=torch.long)
+    >>> enc, dec = net(src, tgt)
+    >>> enc.shape, dec.shape
+    (torch.Size([2, 16, 32]), torch.Size([2, 5, 32]))
+    """
+
+    def __init__(self, tgt_vocab, input_size, d_model=512, nhead=8,
+                 num_encoder_layers=6, num_decoder_layers=6, d_ffn=2048,
+                 dropout=0.1, activation="relu",
+                 positional_encoding="fixed_abs_sine", normalize_before=False,
+                 kernel_size=31, bias=True, encoder_module="transformer",
+                 attention_type="regularMHA", max_length=2500, causal=False,
+                 device="cuda", dtype=torch.float32, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.d_model = d_model
+        self.attention_type = attention_type
+        self.custom_src_module = Linear(d_model, input_size, **kw)
+        self.custom_tgt_module = NormalizedEmbedding(
+            d_model=d_model, vocab=tgt_vocab, **kw
+        )
+        if attention_type == "RelPosMHAXL":
+            self.pos_enc = RelPosEncXL(emb_dim=d_model)
+        elif positional_encoding == "fixed_abs_sine":
+            self.pos_enc = PositionalEncoding(
+                input_size=d_model, max_len=max_length, device=device
+            )
+        else:
+            self.pos_enc = None
+        if encoder_module == "conformer":
+            self.encoder = ConformerEncoder(
+                num_layers=num_encoder_layers, d_model=d_model, d_ffn=d_ffn,
+                nhead=nhead, kernel_size=kernel_size, bias=bias,
+                dropout=dropout, causal=causal,
+                attention_type=attention_type, **kw,
+            )
+        elif encoder_module == "transformer":
+            self.encoder = TransformerEncoder(
+                num_layers=num_encoder_layers, nhead=nhead, d_ffn=d_ffn,
+                d_model=d_model, dropout=dropout, activation=activation,
+                normalize_before=normalize_before,
+                attention_type=attention_type, **kw,
+            )
+        else:
+            raise ValueError(
+                f"encoder_module {encoder_module!r} is unknown or not "
+                "ported yet"
+            )
+        self.decoder = None
+        if num_decoder_layers > 0:
+            self.decoder = TransformerDecoder(
+                num_layers=num_decoder_layers, nhead=nhead, d_ffn=d_ffn,
+                d_model=d_model, dropout=dropout, activation=activation,
+                normalize_before=normalize_before,
+                attention_type="regularMHA", **kw,
+            )
+        # decoder uses absolute positions even with RelPos encoder
+        self.pos_enc_dec = PositionalEncoding(
+            input_size=d_model, max_len=max_length, device=device
+        )
+
+    def _embed_src(self, src):
+        if src.ndim == 4:
+            B, T, Fdim, C = src.shape
+            src = src.reshape(B, T, Fdim * C)
+        src = self.custom_src_module(src)
+        pos_embs = None
+        if self.attention_type == "RelPosMHAXL":
+            pos_embs = self.pos_enc(src)
+        elif self.pos_enc is not None:
+            src = src + self.pos_enc(src)
+        return src, pos_embs
+
+    def _memory_mask(self, encoder_out, enc_len):
+        if enc_len is None:
+            return None
+        return get_key_padding_mask(enc_len, encoder_out.shape[1])
+
+    def encode(self, src, wav_len=None, pad_idx=0):
+        """Encoder half: (B, T, F) -> (B, T, d_model)."""
+        src, pos_embs = self._embed_src(src)
+        src_key_padding_mask, _, src_mask, _ = make_transformer_src_tgt_masks(
+            src, None, wav_len, pad_idx
+        )
+        enc_out, _ = self.encoder(
+            src, src_mask=src_mask,
+            src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+        )
+        return enc_out
+
+    def decode(self, tgt, encoder_out, enc_len=None):
+        """Decoder half for beam search: returns (decoder_out, cross_attn
+        of last layer)."""
+        emb = self.custom_tgt_module(tgt)
+        emb = emb + self.pos_enc_dec(emb)
+        out, _, cross_attns = self.decoder(
+            emb, encoder_out,
+            tgt_mask=get_lookahead_mask(tgt.shape[1], tgt.device),
+            memory_key_padding_mask=self._memory_mask(encoder_out, enc_len),
+        )
+        return out, cross_attns[-1]
+
+    def init_decoder_cache(self, batch_size, max_len, dtype=None):
+        """Explicit per-layer KV buffers for incremental decoding
+        (decode_step)."""
+        return self.decoder.init_cache(batch_size, max_len, dtype)
+
+    def init_decoder_cache_with_cross(self, encoder_out, max_len,
+                                      self_batch=None, dtype=None):
+        """Decode cache with the cross-attention K/V of every layer
+        PRECOMPUTED from the encoder states: decode_step then skips the
+        per-step re-projection of the (static) memory.
+
+        For beam search, pass the UNINFLATED encoder states with
+        ``self_batch=batch*beam``: the cross K/V stay one-per-utterance
+        (the attention broadcasts them over the beams) while the
+        per-hypothesis self K/V buffers are allocated at batch*beam."""
+        cross = self.decoder(None, encoder_out, cache="precompute_cross_kv")
+        cache = self.decoder.init_cache(
+            self_batch or encoder_out.shape[0], max_len, dtype
+        )
+        return [
+            {"self": c["self"], "cross": x} for c, x in zip(cache, cross)
+        ]
+
+    def decode_step(self, tgt_tokens, encoder_out, cache, step, enc_len=None,
+                    anc=None):
+        """KV-cached decode of ONE token: tgt_tokens (B,) just consumed ->
+        (decoder out (B, D), cache, last cross-attn). ``step`` is a Python
+        int; the cache's self buffers are written in place."""
+        emb = self.custom_tgt_module(tgt_tokens[:, None])  # (B, 1, D)
+        emb = emb + self.pos_enc_dec.at(step, emb.dtype)
+        out, cache, cross_attns = self.decoder(
+            emb, encoder_out,
+            memory_key_padding_mask=self._memory_mask(encoder_out, enc_len),
+            cache=cache, cache_index=step, anc=anc,
+        )
+        return out[:, 0], cache, cross_attns[-1]
+
+    def forward(self, src, tgt, wav_len=None, pad_idx=0):
+        src_proj, pos_embs = self._embed_src(src)
+        (
+            src_key_padding_mask,
+            tgt_key_padding_mask,
+            src_mask,
+            tgt_mask,
+        ) = make_transformer_src_tgt_masks(src_proj, tgt, wav_len, pad_idx)
+        enc_out, _ = self.encoder(
+            src_proj, src_mask=src_mask,
+            src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+        )
+        if self.decoder is None or tgt is None:
+            return enc_out, None
+        emb = self.custom_tgt_module(tgt)
+        emb = emb + self.pos_enc_dec(emb)
+        dec_out, _, _ = self.decoder(
+            emb, enc_out, tgt_mask=tgt_mask,
+            tgt_key_padding_mask=tgt_key_padding_mask,
+            memory_key_padding_mask=src_key_padding_mask,
+        )
+        return enc_out, dec_out

@@ -1,0 +1,184 @@
+"""Low-level feature pipeline (port of the part of
+``speechbrain_tpu/processing/features.py`` that ``Fbank`` needs):
+windows, framing, ``STFT`` with its real power spectrogram, the mel
+filter matrix and ``Filterbank`` with dB compression and the
+per-sequence ``top_db`` clamp. Constants are built in numpy, exactly as
+the JAX package builds them, and moved to the device once.
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _ms_to_samples(sample_rate, ms):
+    return int(round(sample_rate / 1000.0 * ms))
+
+
+def hamming_window(n, dtype=np.float32):
+    """Periodic hamming window matching torch.hamming_window defaults."""
+    k = np.arange(n)
+    return (0.54 - 0.46 * np.cos(2 * np.pi * k / n)).astype(dtype)
+
+
+def hann_window(n, dtype=np.float32):
+    """Periodic Hann window of given length."""
+    k = np.arange(n)
+    return (0.5 - 0.5 * np.cos(2 * np.pi * k / n)).astype(dtype)
+
+
+def blackman_window(n, dtype=np.float32):
+    """Periodic Blackman window of given length."""
+    k = np.arange(n)
+    w = (
+        0.42
+        - 0.5 * np.cos(2 * np.pi * k / n)
+        + 0.08 * np.cos(4 * np.pi * k / n)
+    )
+    return w.astype(dtype)
+
+
+_WINDOWS = {
+    "hamming": hamming_window,
+    "hann": hann_window,
+    "blackman": blackman_window,
+}
+
+
+def frame_signal(x, frame_length, hop_length, center=True):
+    """Slice a signal (..., time) into frames (..., n_frames,
+    frame_length); a strided view of the signal, zero-padded by half a
+    frame on both sides when ``center``."""
+    if center:
+        x = F.pad(x, (frame_length // 2, frame_length // 2))
+    return x.unfold(-1, frame_length, hop_length)
+
+
+class STFT:
+    """Short-Term Fourier Transform; returns complex (batch, time, freq).
+    ``win_length`` and ``hop_length`` are in milliseconds.
+
+    Example
+    -------
+    >>> stft = STFT(sample_rate=16000, device="cpu")
+    >>> stft(torch.zeros(2, 16000)).shape
+    torch.Size([2, 101, 201])
+    """
+
+    def __init__(self, sample_rate, win_length=25, hop_length=10, n_fft=400,
+                 window_fn="hamming", normalized_stft=False, center=True,
+                 device="cuda"):
+        self.sample_rate = sample_rate
+        self.win_length = _ms_to_samples(sample_rate, win_length)
+        self.hop_length = _ms_to_samples(sample_rate, hop_length)
+        self.n_fft = n_fft
+        self.normalized_stft = normalized_stft
+        self.center = center
+        window = (
+            _WINDOWS[window_fn](self.win_length)
+            if isinstance(window_fn, str)
+            else np.asarray(window_fn(self.win_length), dtype=np.float32)
+        )
+        if self.win_length < n_fft:
+            # center the window inside the fft size (torch.stft behaviour)
+            left = (n_fft - self.win_length) // 2
+            padded = np.zeros(n_fft, dtype=np.float32)
+            padded[left: left + self.win_length] = window
+            window = padded
+        self.window = torch.from_numpy(window).to(device)
+
+    def _windowed_frames(self, x):
+        frames = frame_signal(x, self.n_fft, self.hop_length, self.center)
+        return frames * self.window
+
+    def __call__(self, x):
+        stft = torch.fft.rfft(self._windowed_frames(x), n=self.n_fft, dim=-1)
+        if self.normalized_stft:
+            stft = stft / math.sqrt(self.n_fft)
+        return stft
+
+    def power(self, x):
+        """Power spectrogram |STFT|^2, (batch, time, freq) real."""
+        stft = torch.fft.rfft(self._windowed_frames(x), n=self.n_fft, dim=-1)
+        ps = stft.real ** 2 + stft.imag ** 2
+        if self.normalized_stft:
+            ps = ps / self.n_fft
+        return ps
+
+
+def _to_mel(hz):
+    return 2595.0 * np.log10(1.0 + np.asarray(hz, dtype=np.float64) / 700.0)
+
+
+def _to_hz(mel):
+    return 700.0 * (10.0 ** (np.asarray(mel, dtype=np.float64) / 2595.0) - 1.0)
+
+
+def mel_filterbank_matrix(n_mels=40, n_fft=400, sample_rate=16000,
+                          f_min=0.0, f_max=8000.0,
+                          filter_shape="triangular", dtype=np.float32):
+    """(n_freqs, n_mels) filter matrix (numpy)."""
+    n_stft = n_fft // 2 + 1
+    mel = np.linspace(_to_mel(f_min), _to_mel(f_max), n_mels + 2)
+    hz = _to_hz(mel)
+    band = hz[1:] - hz[:-1]
+    band = band[:-1][:, None]  # (n_mels, 1)
+    f_central = hz[1:-1][:, None]
+    all_freqs = np.linspace(0, sample_rate // 2, n_stft)[None, :]
+    if filter_shape == "triangular":
+        slope = (all_freqs - f_central) / band
+        fbank = np.maximum(0.0, np.minimum(slope + 1.0, -slope + 1.0))
+    elif filter_shape == "rectangular":
+        low = f_central - band
+        high = f_central + band
+        fbank = ((all_freqs >= low) & (all_freqs <= high)).astype(np.float64)
+    elif filter_shape == "gaussian":
+        fbank = np.exp(-0.5 * ((all_freqs - f_central) / (band / 2.0)) ** 2)
+    else:
+        raise ValueError(f"Unknown filter shape {filter_shape}")
+    return fbank.T.astype(dtype)  # (n_freqs, n_mels)
+
+
+class Filterbank:
+    """Mel filterbank projection with optional dB compression:
+    multiplier 10 for power spectrograms, amin clamp, per-sequence
+    top_db.
+
+    Example
+    -------
+    >>> fb = Filterbank(device="cpu")
+    >>> fb(torch.ones(10, 101, 201)).shape
+    torch.Size([10, 101, 40])
+    """
+
+    def __init__(self, n_mels=40, log_mel=True, filter_shape="triangular",
+                 f_min=0.0, f_max=8000.0, n_fft=400, sample_rate=16000,
+                 power_spectrogram=2, amin=1e-10, ref_value=1.0, top_db=80.0,
+                 device="cuda"):
+        self.n_mels = n_mels
+        self.log_mel = log_mel
+        self.amin = amin
+        self.ref_value = ref_value
+        self.top_db = top_db
+        self.multiplier = 10.0 if power_spectrogram == 2 else 20.0
+        self.db_multiplier = math.log10(max(amin, ref_value))
+        self.fbank_matrix = torch.from_numpy(
+            np.ascontiguousarray(mel_filterbank_matrix(
+                n_mels, n_fft, sample_rate, f_min, f_max, filter_shape
+            ))
+        ).to(device)
+
+    def __call__(self, spectrogram):
+        fbanks = torch.matmul(spectrogram, self.fbank_matrix)
+        if self.log_mel:
+            fbanks = self._amplitude_to_db(fbanks)
+        return fbanks
+
+    def _amplitude_to_db(self, x):
+        x_db = self.multiplier * torch.log10(torch.clamp(x, min=self.amin))
+        x_db = x_db - self.multiplier * self.db_multiplier
+        # per-sequence max over (time, mel), clamp to max - top_db
+        maxes = torch.amax(x_db, dim=(-2, -1), keepdim=True)
+        return torch.maximum(x_db, maxes - self.top_db)

@@ -1,0 +1,272 @@
+"""Carry the JAX package's weights into the port's modules.
+
+The inverse of ``speechbrain_tpu/utils/torch_convert.py``: every function
+takes flax ``variables`` (or their ``"params"`` entry) as a nested dict of
+**numpy** arrays — a caller that holds JAX arrays converts them first with
+``jax.tree_util.tree_map(np.asarray, variables)``; nothing here imports
+JAX — and copies them into a module of this package, changing layouts on
+the way:
+
+* ``Linear``: kernel ``(in, out)`` -> weight ``(out, in)``;
+* ``Conv1d``: kernel ``WIO`` -> ``OIW``; ``Conv2d``: ``HWIO`` -> ``OIHW``
+  (depthwise included: flax already stores ``I = in/groups``);
+* ``LayerNorm``: ``scale``/``bias``, found inside flax's nested
+  ``LayerNorm_0`` scope where the JAX module wraps ``nn.LayerNorm``;
+* attention blocks: ``q_proj/k_proj/v_proj/out_proj`` (+ ``pos_proj``,
+  ``pos_bias_u/v``), kept as separate projections.
+
+A key that a module needs and the tree lacks, or one the tree holds and no
+module takes, raises ``KeyError``.
+"""
+
+import numpy as np
+import torch
+
+from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
+from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+    ConformerEncoder,
+    ConformerEncoderLayer,
+    ConvolutionModule,
+)
+from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
+    NormalizedEmbedding,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+    TransformerEncoderLayer,
+)
+from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
+    TransformerASR,
+)
+from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
+    TransformerLM,
+)
+from speechbrain_tpu_torch.nnet.attention import (
+    MultiheadAttention,
+    PositionalwiseFeedForward,
+    RelPosMHAXL,
+)
+from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d
+from speechbrain_tpu_torch.nnet.embedding import Embedding
+from speechbrain_tpu_torch.nnet.linear import Linear
+from speechbrain_tpu_torch.nnet.normalization import LayerNorm
+
+# names flax gives the unnamed attention submodule of a compact layer
+_FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0")
+
+
+class _Scope:
+    """A flax parameter sub-tree that remembers which keys were taken."""
+
+    def __init__(self, tree, path="params"):
+        if not isinstance(tree, dict):
+            raise KeyError(f"{path}: expected a dict of parameters")
+        self.tree = dict(tree)
+        self.path = path
+
+    def has(self, key):
+        return key in self.tree
+
+    def take(self, key):
+        if key not in self.tree:
+            raise KeyError(f"missing parameter {self.path}/{key}")
+        return self.tree.pop(key)
+
+    def sub(self, key):
+        return _Scope(self.take(key), f"{self.path}/{key}")
+
+    def done(self):
+        if self.tree:
+            raise KeyError(
+                f"unused parameters under {self.path}: {sorted(self.tree)}"
+            )
+
+
+def _copy(param, array, name):
+    array = np.array(array, dtype=np.float32)  # a writable copy
+    if tuple(array.shape) != tuple(param.shape):
+        raise ValueError(
+            f"{name}: shape {tuple(array.shape)} does not fit "
+            f"{tuple(param.shape)}"
+        )
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(array))
+
+
+def _load_kernel_bias(module, scope, perm):
+    _copy(
+        module.weight, np.transpose(np.asarray(scope.take("kernel")), perm),
+        f"{scope.path}/kernel",
+    )
+    if module.bias is not None:
+        _copy(module.bias, scope.take("bias"), f"{scope.path}/bias")
+    scope.done()
+
+
+def load_linear(module, scope):
+    _load_kernel_bias(module, scope, (1, 0))
+
+
+def load_conv1d(module, scope):
+    _load_kernel_bias(module, scope, (2, 1, 0))
+
+
+def load_conv2d(module, scope):
+    _load_kernel_bias(module, scope, (3, 2, 0, 1))
+
+
+def load_layernorm(module, scope):
+    inner = scope.sub("LayerNorm_0") if scope.has("LayerNorm_0") else scope
+    _copy(module.weight, inner.take("scale"), f"{inner.path}/scale")
+    _copy(module.bias, inner.take("bias"), f"{inner.path}/bias")
+    inner.done()
+    scope.done()
+
+
+def load_embedding(module, scope):
+    _copy(module.weight, scope.take("embedding"), f"{scope.path}/embedding")
+    scope.done()
+
+
+def load_normalized_embedding(module, scope):
+    load_embedding(module.emb, scope.sub("emb"))
+    scope.done()
+
+
+def _load_children(module, scope, names):
+    for name in names:
+        load(getattr(module, name), scope.sub(name))
+
+
+def load_mha(module, scope):
+    _load_children(module, scope, ("q_proj", "k_proj", "v_proj", "out_proj"))
+    scope.done()
+
+
+def load_relpos_mha(module, scope):
+    _load_children(
+        module, scope, ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")
+    )
+    for name in ("pos_bias_u", "pos_bias_v"):
+        _copy(getattr(module, name), scope.take(name), f"{scope.path}/{name}")
+    scope.done()
+
+
+def load_ffn(module, scope):
+    _load_children(module, scope, ("ffn1", "ffn2"))
+    scope.done()
+
+
+def _take_attention_scope(scope):
+    for name in _FLAX_ATTENTION_SCOPES:
+        if scope.has(name):
+            return scope.sub(name)
+    raise KeyError(
+        f"missing parameter {scope.path}/{{{'|'.join(_FLAX_ATTENTION_SCOPES)}}}"
+    )
+
+
+def load_transformer_encoder_layer(module, scope):
+    load(module.self_attn, _take_attention_scope(scope))
+    _load_children(module, scope, ("ffn", "norm1", "norm2"))
+    scope.done()
+
+
+def load_transformer_decoder_layer(module, scope):
+    load(module.self_attn, _take_attention_scope(scope))
+    _load_children(
+        module, scope, ("cross_attn", "ffn", "norm1", "norm2", "norm3")
+    )
+    scope.done()
+
+
+def load_layer_stack(module, scope):
+    """Encoder/decoder stacks: ``layer_{i}`` scopes plus the final norm."""
+    for i, layer in enumerate(module.layers):
+        load(layer, scope.sub(f"layer_{i}"))
+    load(module.norm, scope.sub("norm"))
+    scope.done()
+
+
+def load_convolution_module(module, scope):
+    _load_children(
+        module, scope, ("layer_norm", "pw1", "dw", "mid_norm", "pw2")
+    )
+    scope.done()
+
+
+def load_conformer_encoder_layer(module, scope):
+    _load_children(
+        module, scope,
+        ("norm_ff1", "ffn1", "norm_mha", "attn", "conv", "norm_ff2", "ffn2",
+         "norm_out"),
+    )
+    scope.done()
+
+
+def load_convolution_frontend(module, scope):
+    for name, conv in module.convs.items():
+        load(conv, scope.sub(name))
+    for name, norm in module.norms.items():
+        load(norm, scope.sub(name))
+    scope.done()
+
+
+def load_transformer_asr(module, scope):
+    load(module.custom_src_module, scope.sub("src_proj"))
+    load(module.custom_tgt_module, scope.sub("tgt_emb"))
+    load(module.encoder, scope.sub("encoder"))
+    if module.decoder is not None:
+        load(module.decoder, scope.sub("decoder"))
+    scope.done()
+
+
+def load_transformer_lm(module, scope):
+    load(module.emb, scope.sub("emb"))
+    if module.emb_proj is not None:
+        load(module.emb_proj, scope.sub("emb_proj"))
+    _load_children(module, scope, ("encoder", "out_proj", "out_norm", "out"))
+    scope.done()
+
+
+_LOADERS = {
+    Linear: load_linear,
+    Conv1d: load_conv1d,
+    Conv2d: load_conv2d,
+    LayerNorm: load_layernorm,
+    Embedding: load_embedding,
+    NormalizedEmbedding: load_normalized_embedding,
+    MultiheadAttention: load_mha,
+    RelPosMHAXL: load_relpos_mha,
+    PositionalwiseFeedForward: load_ffn,
+    TransformerEncoderLayer: load_transformer_encoder_layer,
+    TransformerDecoderLayer: load_transformer_decoder_layer,
+    TransformerEncoder: load_layer_stack,
+    TransformerDecoder: load_layer_stack,
+    ConvolutionModule: load_convolution_module,
+    ConformerEncoderLayer: load_conformer_encoder_layer,
+    ConformerEncoder: load_layer_stack,
+    ConvolutionFrontEnd: load_convolution_frontend,
+    TransformerASR: load_transformer_asr,
+    TransformerLM: load_transformer_lm,
+}
+
+
+def load(module, variables):
+    """Load flax ``variables`` (numpy leaves; with or without the
+    top-level ``"params"`` key) into ``module``, in place, and return the
+    module. Dispatches on the module's type."""
+    loader = _LOADERS.get(type(module))
+    if loader is None:
+        raise TypeError(
+            f"no loader for {type(module).__name__}; known: "
+            f"{sorted(t.__name__ for t in _LOADERS)}"
+        )
+    if isinstance(variables, _Scope):
+        scope = variables
+    else:
+        if set(variables) == {"params"}:
+            variables = variables["params"]
+        scope = _Scope(variables)
+    loader(module, scope)
+    return module

@@ -1,0 +1,123 @@
+"""The port stands alone: nothing of it imports JAX, flax or the JAX
+package; it imports where there is no nvcc, triton or GPU; and an entry
+point asked for a CUDA device that is not there raises instead of
+carrying on on the CPU."""
+
+import ast
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "speechbrain_tpu_torch"
+FORBIDDEN = ("jax", "flax", "speechbrain_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_module_imports_without_toolchain():
+    """In a fresh interpreter: import every module of the port and
+    chip_smoke, then check that neither JAX nor triton came along."""
+    modules = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in sorted(PORT.rglob("*.py"))
+    ]
+    modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules] + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in ('jax', 'flax', 'triton', 'speechbrain_tpu') "
+        "if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def _cuda_available():
+    return torch.cuda.is_available()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    from speechbrain_tpu_torch.lobes.features import Fbank
+    from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
+        TransformerLM,
+    )
+    from speechbrain_tpu_torch.nnet.linear import Linear
+
+    for build in (
+        lambda: Fbank(),
+        lambda: Linear(4, 4),
+        lambda: TransformerLM(vocab=8, d_model=8, nhead=2,
+                              num_encoder_layers=1, d_ffn=8),
+    ):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
+
+
+def test_searcher_refuses_states_off_its_device():
+    from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
+
+    searcher = S2SKVBeamSearcher(
+        None, None, bos_index=1, eos_index=2, min_decode_ratio=0.0,
+        max_decode_ratio=1.0, beam_size=2,
+    )
+    assert searcher.device.type == "cuda"
+    with pytest.raises(ValueError, match="runs on cuda"):
+        searcher(torch.zeros(1, 4, 8), torch.ones(1))
+
+
+def test_chip_smoke_fails_without_a_card():
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises; it does not give way to anything."""
+    import shutil
+
+    from speechbrain_tpu_torch.ops import _build
+
+    if shutil.which("nvcc") or pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_library()
+    assert importlib.import_module("speechbrain_tpu_torch.ops._build")

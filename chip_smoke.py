@@ -4,13 +4,23 @@
 
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
-on the card, runs batched ``transcribe`` — waveform -> fused Fbank ->
-convolutional front end -> 12-layer Conformer encoder -> ancestry KV beam
-search fused with a KV-cached TransformerLM and a CTC prefix scorer — at the
-full width of the conformer-large LibriSpeech recipe with random weights
-made from a seed, and times the kernels. It prints one JSON object a line
-and exits non-zero as soon as a phase fails. It needs one CUDA device and
-does not run without one; there is no CPU mode.
+on the card, and drives three paths at the full width of the
+conformer-large LibriSpeech recipe with random weights made from a seed:
+
+- ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
+  convolutional front end -> 12-layer Conformer encoder -> ancestry KV beam
+  search fused with a KV-cached TransformerLM and a CTC prefix scorer
+  (kernels ``fused_fbank`` and ``ancestry_attention``);
+- ``permute_path``: the same ``transcribe`` with ``ancestry_kv=False``, the
+  classic beam search that permutes its KV caches after every step
+  (kernels ``fused_fbank`` and ``row_gather``);
+- ``flash_path``: ``MultiheadAttention(use_pallas=True)`` over the main
+  path's encoder output and at (16, 4, 1024, 64) (kernel
+  ``flash_attention``).
+
+Then it times the kernels. It prints one JSON object a line and exits
+non-zero as soon as a phase fails. It needs one CUDA device and does not
+run without one; there is no CPU mode.
 
 The assembly (``Pipeline``) takes a ``device`` so that the CPU tests can
 hold it against the JAX package at a small size.
@@ -18,6 +28,7 @@ hold it against the JAX package at a small size.
 
 import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -36,6 +47,8 @@ from speechbrain_tpu_torch.lobes.features import Fbank
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
     CACHE_LENGTH_MULTIPLE,
+    get_key_padding_mask,
+    get_lookahead_mask,
 )
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
     TransformerASR,
@@ -43,8 +56,19 @@ from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
     TransformerLM,
 )
+from speechbrain_tpu_torch.nnet.attention import (
+    NEG_INF,
+    MultiheadAttention,
+    make_mask_bias,
+)
 from speechbrain_tpu_torch.nnet.linear import Linear
-from speechbrain_tpu_torch.ops import _build, beam_attention, mel_frontend
+from speechbrain_tpu_torch.ops import (
+    _build,
+    attention,
+    beam_attention,
+    gather,
+    mel_frontend,
+)
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
 
 SR = 16000
@@ -61,11 +85,13 @@ NORTH = dict(
     max_decode_ratio=0.2, bos=1, eos=2, blank=0, pad_multiple=128,
 )
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
-# and the float32 rate outside the tensor cores, which is the type of
-# arithmetic both kernels do.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+# the float32 rate outside the tensor cores, which is the type of arithmetic
+# B1 and B3 do, and the dense bfloat16 tensor-core rate, at which the card
+# could do flash attention's products in bfloat16.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 
 # Tolerances of kernel against plain version. float32: both accumulate in
 # float32 in another order. bfloat16: both round the float32 result once to
@@ -73,6 +99,20 @@ PEAK_FP32_FLOPS = 67e12
 B1_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # dB; the tolerance of the JAX package's own test of its fused kernel
 B3_ATOL = 5e-3
+# flash attention against its plain version (float32 throughout): the same
+# reasons as B1's
+B2_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# each kernel: (wrapper module, name of its CUDA arm, plain version)
+KERNELS = {
+    "ancestry_attention": (beam_attention, "_ancestry_attention_cuda",
+                           beam_attention.ancestry_attention_reference),
+    "fused_fbank": (mel_frontend, "_fused_fbank_cuda",
+                    mel_frontend.fused_fbank_reference),
+    "flash_attention": (attention, "_flash_attention_cuda",
+                        attention.flash_attention_reference),
+    "row_gather": (gather, "_row_gather_cuda", gather.row_gather_reference),
+}
 
 
 def emit(obj):
@@ -203,27 +243,31 @@ class Pipeline:
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route the two wrappers' CUDA arm to the kernels' plain PyTorch
-    versions (same signatures), for the comparison phases only. The
-    package itself has no such switch: on a CUDA tensor its wrappers
-    launch the kernel or raise."""
-    saved = (beam_attention._ancestry_attention_cuda,
-             mel_frontend._fused_fbank_cuda)
-    beam_attention._ancestry_attention_cuda = (
-        beam_attention.ancestry_attention_reference
-    )
-    mel_frontend._fused_fbank_cuda = mel_frontend.fused_fbank_reference
+def plain_versions(*names):
+    """Route the wrappers' CUDA arm of the named kernels (all four when
+    none is named) to the kernels' plain PyTorch versions (same
+    signatures), for the comparison phases only. The package itself has no
+    such switch: on a CUDA tensor its wrappers launch the kernel or
+    raise."""
+    names = names or tuple(KERNELS)
+    saved = {n: getattr(KERNELS[n][0], KERNELS[n][1]) for n in names}
+    for n in names:
+        module, arm, plain = KERNELS[n]
+        setattr(module, arm, plain)
     try:
         yield
     finally:
-        (beam_attention._ancestry_attention_cuda,
-         mel_frontend._fused_fbank_cuda) = saved
+        for n, fn in saved.items():
+            setattr(KERNELS[n][0], KERNELS[n][1], fn)
 
 
 def reset_launch_counts():
-    beam_attention.launches = 0
-    mel_frontend.launches = 0
+    for module, _, _ in KERNELS.values():
+        module.launches = 0
+
+
+def launch_counts():
+    return {n: module.launches for n, (module, _, _) in KERNELS.items()}
 
 
 def time_eager_ms(fn, n_variants, iters=50, warmup=5):
@@ -370,6 +414,119 @@ def check_b3():
     return worst
 
 
+def make_heads(B, T, H, hd, dtype, gen):
+    """(B, H, T, hd) head-major view of a (B, T, H*hd) tensor, strided as
+    ``MultiheadAttention._heads`` makes it."""
+    x = torch.randn((B, T, H * hd), generator=gen, device="cuda").to(dtype)
+    return x.reshape(B, T, H, hd).transpose(1, 2)
+
+
+def make_b2_bias(form, B, H, Tq, Tk, dtype, gen):
+    """The bias forms the kernel takes: none, (Tq, Tk), (B, H, Tq, Tk),
+    (B, 1, 1, Tk) key padding and (1, 1, Tq, Tk) causal. No query row is
+    masked in full."""
+    if form == "none":
+        return None
+    if form == "tq_tk":
+        return torch.randn((Tq, Tk), generator=gen, device="cuda").to(dtype)
+    if form == "full":
+        return torch.randn((B, H, Tq, Tk), generator=gen,
+                           device="cuda").to(dtype)
+    if form == "key_padding":
+        kpm = torch.zeros((B, Tk), dtype=torch.bool, device="cuda")
+        kpm[B // 2:, Tk - Tk // 3:] = True
+        return make_mask_bias(key_padding_mask=kpm, dtype=dtype)
+    causal = torch.ones((Tq, Tk), dtype=torch.bool, device="cuda").triu(
+        max(1, Tk - Tq + 1)
+    )
+    return make_mask_bias(attn_mask=causal, dtype=dtype)
+
+
+B2_FORMS = ("none", "tq_tk", "full", "key_padding", "causal")
+
+
+def check_b2():
+    """Kernel against plain version: float32 and bfloat16, head dims
+    32/64/128, every bias form, Tq != Tk and neither a multiple of the
+    64-row tile, on strided ``_heads`` views; then the three shapes of the
+    flash path."""
+    worst = {str(d): 0.0 for d in B2_ATOL}
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [
+        (2, 3, 77, 130, hd, form, dtype)
+        for dtype in B2_ATOL for hd in (32, 64, 128) for form in B2_FORMS
+    ] + [
+        (8, 8, 256, 256, 64, "key_padding", torch.bfloat16),
+        (16, 4, 1024, 1024, 64, "none", torch.bfloat16),
+        (16, 4, 1024, 1024, 64, "causal", torch.bfloat16),
+        (16, 4, 1024, 1024, 64, "causal", torch.float32),
+    ]
+    for B, H, Tq, Tk, hd, form, dtype in cases:
+        q = make_heads(B, Tq, H, hd, dtype, gen)
+        k = make_heads(B, Tk, H, hd, dtype, gen)
+        v = make_heads(B, Tk, H, hd, dtype, gen)
+        bias = make_b2_bias(form, B, H, Tq, Tk, dtype, gen)
+        out, w = attention.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = attention.flash_attention_reference(q, k, v, bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= B2_ATOL[dtype]) or out.shape != ref.shape or w:
+            raise AssertionError(
+                f"flash_attention disagrees: {(B, H, Tq, Tk, hd)} {form} "
+                f"{dtype}: max abs err {err}"
+            )
+        worst[str(dtype)] = max(worst[str(dtype)], err)
+        rows.append([[B, H, Tq, Tk, hd], form, str(dtype), err])
+    emit({"phase": "kernel_check", "kernel": "flash_attention",
+          "atol": {str(k_): v_ for k_, v_ in B2_ATOL.items()},
+          "cases_shape_bias_dtype_err": rows, "max_abs_err": worst})
+    return worst[str(torch.bfloat16)]
+
+
+def check_b4():
+    """Kernel against plain version, bitwise: float32 and bfloat16, int32
+    and int64 indices, repeated indices, n_out != N, 1-D to 3-D, a row of
+    60 bytes (not a multiple of 16) and the two cache shapes of the
+    permuting search."""
+    rows = []
+    rng = np.random.default_rng(4)
+    shapes = [(9,), (9, 40), (9, 5, 3), (80, 64, 512), (80, 64, 768)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            x = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)
+            ).cuda().to(dtype)
+            N = shape[0]
+            for n_out in (N, N + 3, N // 2):
+                idx_np = rng.integers(0, N, n_out)
+                idx_np[:2] = idx_np[0]  # a repeated index
+                for index_dtype in (torch.int32, torch.int64):
+                    idx = torch.from_numpy(idx_np).cuda().to(index_dtype)
+                    out = gather.row_gather(x, idx)
+                    torch.cuda.synchronize()
+                    equal = torch.equal(
+                        out, gather.row_gather_reference(x, idx)
+                    )
+                    rows.append([list(shape), n_out, str(dtype),
+                                 str(index_dtype), equal])
+                    if not equal:
+                        raise AssertionError(
+                            f"row_gather differs from index_select: {rows[-1]}"
+                        )
+    try:
+        gather.row_gather(x, torch.zeros(2, dtype=torch.int64))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("row_gather took a CPU index for a CUDA x")
+    emit({"phase": "kernel_check", "kernel": "row_gather",
+          "bitwise_equal_cases": len(rows),
+          "cases_shape_nout_dtype_index": rows,
+          "raises_on_cpu_index": True, "max_abs_err": 0.0})
+    return 0.0
+
+
 # -- phase 3: the main path -------------------------------------------------
 
 def make_waveforms(cfg, device):
@@ -382,70 +539,223 @@ def make_waveforms(cfg, device):
     )
 
 
-def run_main_path(cfg):
+def expected_launches(cfg, ancestry, steps, fbank_calls):
+    """Launches each kernel must make in one ``transcribe`` of ``steps``
+    decode steps: the ancestry path attends through B1 in every decoder and
+    LM layer; the permuting path gathers each layer's K and V buffers
+    through B4 once a step (the searcher permutes its memory and the LM
+    scorer's once after every step). Both run B3 once an ``Fbank`` call."""
+    counts = dict.fromkeys(KERNELS, 0)
+    counts["fused_fbank"] = fbank_calls
+    if ancestry:
+        counts["ancestry_attention"] = (
+            cfg["dec_layers"] + cfg["lm_layers"]
+        ) * steps
+    else:
+        counts["row_gather"] = (
+            2 * cfg["dec_layers"] + 2 * cfg["lm_layers"]
+        ) * steps
+    return counts
+
+
+def run_transcribe_path(cfg, ancestry):
+    """One bf16 ``transcribe`` at full width after a warm-up; the launch
+    counts of the measured run must be exactly those of
+    :func:`expected_launches`."""
+    phase = "main_path" if ancestry else "permute_path"
     wavs, lens = make_waveforms(cfg, "cuda")
-    pipe = Pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    pipe = Pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
+                    ancestry=ancestry)
     pipe.transcribe(wavs, lens)  # warm-up: cuDNN/cuBLAS set-up, allocator
     reset_launch_counts()
     pipe.fbank_calls = 0
     hyps, lengths, scores, _ = pipe.transcribe(wavs, lens)
-    b1_launches = beam_attention.launches
-    b3_launches = mel_frontend.launches
+    counts = launch_counts()
     steps = pipe.searcher.last_steps
-    per_step = cfg["dec_layers"] + cfg["lm_layers"]
+    expected = expected_launches(cfg, ancestry, steps, pipe.fbank_calls)
     ok = (
         len(hyps) == cfg["batch"]
         and np.all(np.isfinite(scores))
         and all(0 <= t < cfg["vocab"] for h in hyps for t in h)
-        and steps >= 1
-        and b1_launches == per_step * steps
-        and b3_launches == pipe.fbank_calls >= 1
+        and steps >= 1 and pipe.fbank_calls >= 1
+        and counts == expected
     )
     audio_s = cfg["batch"] * cfg["seconds"]
     total_ms = pipe.last_encode_ms + pipe.last_decode_ms
     emit({
-        "phase": "main_path", "dtype": "bfloat16", "ok": bool(ok),
+        "phase": phase, "dtype": "bfloat16", "ok": bool(ok),
         "config": {**cfg, "ctc_scorer": True,
-                   "fused_fbank": True, "ancestry_kv": True},
+                   "fused_fbank": True, "ancestry_kv": ancestry},
         "hypotheses": len(hyps), "hyp_lengths": [int(x) for x in lengths],
         "scores": [float(s) for s in scores], "steps": steps,
-        "ancestry_attention_launches": b1_launches,
-        "fused_fbank_launches": b3_launches,
+        **{f"{name}_launches": n for name, n in counts.items()},
+        "expected_launches": expected,
         "encode_ms": pipe.last_encode_ms, "decode_ms": pipe.last_decode_ms,
         "audio_seconds_per_second": audio_s / (total_ms / 1e3),
     })
     if not ok:
-        raise AssertionError("main path: a check on the bf16 run failed")
-    return {"steps": steps, "max_steps": pipe.last_max_steps,
-            "b1": b1_launches, "b3": b3_launches}
+        raise AssertionError(f"{phase}: a check on the bf16 run failed")
+    return pipe, {"steps": steps, "max_steps": pipe.last_max_steps,
+                  "decode_ms": pipe.last_decode_ms, "launches": counts}
 
 
-def run_fp32_comparison(cfg, score_atol=1e-3):
+def run_fp32_comparison(cfg, ancestry, score_atol=1e-3):
     """The same transcribe in float32, through the kernels and through the
     plain versions: tokens equal, scores within ``score_atol`` (the two
     differ by float32 summation order only; the slack is for its growth
-    through 18 layers and up to 51 steps)."""
+    through 18 layers and up to 51 steps). On the permuting path the run
+    is made once more with only B4 on its plain version: a row copy is
+    exact, so its scores must equal the kernels' bit for bit."""
+    phase = "fp32_kernel_vs_plain" + ("" if ancestry else "_permute")
     wavs, lens = make_waveforms(cfg, "cuda")
-    pipe = Pipeline(cfg, device="cuda", dtype=torch.float32, seed=0)
+    pipe = Pipeline(cfg, device="cuda", dtype=torch.float32, seed=0,
+                    ancestry=ancestry)
     reset_launch_counts()
     hyps_k, _, scores_k, _ = pipe.transcribe(wavs, lens)
-    used_kernels = beam_attention.launches > 0 and mel_frontend.launches > 0
+    path = [n for n, c in expected_launches(cfg, ancestry, 1, 1).items()
+            if c]
+    used_kernels = all(launch_counts()[n] > 0 for n in path)
     reset_launch_counts()
     with plain_versions():
         hyps_p, _, scores_p, _ = pipe.transcribe(wavs, lens)
-    plain_clean = beam_attention.launches == 0 and mel_frontend.launches == 0
+    plain_clean = not any(launch_counts().values())
     diff = float(np.max(np.abs(scores_k - scores_p)))
     ok = (
         used_kernels and plain_clean and hyps_k == hyps_p
         and diff <= score_atol
     )
-    emit({"phase": "fp32_kernel_vs_plain", "ok": bool(ok),
-          "tokens_equal": hyps_k == hyps_p, "max_score_diff": diff,
-          "score_atol": score_atol,
-          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                         "cudnn": torch.backends.cudnn.allow_tf32}})
+    line = {"phase": phase, "ok": bool(ok), "kernels": path,
+            "tokens_equal": hyps_k == hyps_p, "max_score_diff": diff,
+            "score_atol": score_atol,
+            "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                           "cudnn": torch.backends.cudnn.allow_tf32}}
+    if not ancestry:
+        with plain_versions("row_gather"):
+            hyps_g, _, scores_g, _ = pipe.transcribe(wavs, lens)
+        line["b4_only_plain_tokens_equal"] = hyps_g == hyps_k
+        line["b4_only_plain_max_score_diff"] = float(
+            np.max(np.abs(scores_k - scores_g))
+        )
+        line["b4_only_plain_scores_bitwise_equal"] = bool(
+            np.array_equal(scores_k, scores_g)
+        )
+        ok = ok and hyps_g == hyps_k
+        line["ok"] = bool(ok)
+    emit(line)
     if not ok:
-        raise AssertionError("fp32: kernel path and plain path disagree")
+        raise AssertionError(f"{phase}: kernel path and plain path disagree")
+
+
+def make_relative_lengths(batch, seed=1):
+    """Relative lengths from 1.0 down to 0.55, the ones between drawn from
+    the seed: utterances of different lengths in one padded batch."""
+    rel = np.sort(np.random.default_rng(seed).uniform(0.55, 1.0, batch))
+    rel = rel[::-1].copy()
+    rel[0], rel[-1] = 1.0, 0.55
+    return rel.astype(np.float32)
+
+
+def run_flash_path(cfg, pipe):
+    """``MultiheadAttention(use_pallas=True)`` self-attention, each call
+    held against the same module with ``use_pallas=False`` in bf16:
+
+    - over the main path's encoder output of a batch with utterances of
+      different lengths, with their key-padding mask;
+    - at the shape the JAX package measured its kernel at, (B 16, H 4,
+      T 1024, D 64), with no mask and with a causal mask.
+
+    The tolerance of each output element is the larger of ``B2_ATOL`` and
+    two bf16 steps at the reference's magnitude, so that it holds at any
+    output scale. Both bf16 outputs are also held up against the module in
+    float32, for the record.
+
+    Returns the inputs of each launch as the kernel saw them (q, k, v in
+    ``_heads`` layout, bias) for the timing phase, and the B2 launches
+    counted over the path's runs."""
+    gen = torch.Generator().manual_seed(2)
+    B = cfg["batch"]
+    wavs, _ = make_waveforms(cfg, "cuda")
+    lens = torch.from_numpy(make_relative_lengths(B)).cuda()
+    with torch.no_grad():
+        enc, lens_p = pipe.encode(wavs, lens)
+    kpm = get_key_padding_mask(lens_p, enc.shape[1])
+    g16 = torch.Generator(device="cuda").manual_seed(3)
+    x16 = torch.randn((16, 1024, 256), generator=g16, device="cuda").to(
+        torch.bfloat16
+    )
+    runs = [
+        ("encoder_key_padding", cfg["nhead"], cfg["d_model"], enc,
+         {"key_padding_mask": kpm}),
+        ("jax_shape_no_mask", 4, 256, x16, {}),
+        ("jax_shape_causal", 4, 256, x16,
+         {"attn_mask": get_lookahead_mask(1024, "cuda")}),
+    ]
+    rows, shapes, launches = [], [], 0
+    atol = B2_ATOL[torch.bfloat16]
+    for name, nhead, d_model, x, masks in runs:
+        bias = mask_bias(x, masks)
+        mha = MultiheadAttention(
+            nhead=nhead, d_model=d_model, use_pallas=True, device="cuda",
+            dtype=torch.bfloat16, generator=gen,
+        ).eval()
+        reset_launch_counts()
+        with torch.no_grad():
+            out, w = mha(x, x, x, **masks)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            launches += counts["flash_attention"]
+            mha.use_pallas = False
+            ref, ref_w = mha(x, x, x, **masks)
+            mha32 = copy.deepcopy(mha).float()
+            ref32 = mha32(x.float(), x.float(), x.float(), **masks)[0]
+        diff = (out.float() - ref.float()).abs()
+        tol = torch.clamp(2 * bf16_step(ref.float()), min=atol)
+        err = diff.max().item()
+        ok = (
+            counts == {**{n: 0 for n in KERNELS}, "flash_attention": 1}
+            and w is None and ref_w is not None
+            and out.shape == x.shape and bool(torch.isfinite(out).all())
+            and bool((diff <= tol).all())
+        )
+        rows.append({"run": name, "B_H_T_D": [x.shape[0], nhead, x.shape[1],
+                                              d_model // nhead],
+                     "bias": None if bias is None else list(bias.shape),
+                     "flash_attention_launches": counts["flash_attention"],
+                     "max_abs_err_vs_use_pallas_false": err,
+                     "max_err_over_tol": (diff / tol).max().item(),
+                     "max_abs_out": ref.float().abs().max().item(),
+                     "max_abs_err_vs_fp32": {
+                         "use_pallas_true":
+                             (out.float() - ref32).abs().max().item(),
+                         "use_pallas_false":
+                             (ref.float() - ref32).abs().max().item()},
+                     "ok": bool(ok)})
+        del mha32, ref32
+        if not ok:
+            emit({"phase": "flash_path", "ok": False, "runs": rows})
+            raise AssertionError(f"flash path: run {name} failed")
+        with torch.no_grad():
+            qkv = [mha._heads(proj(x)) for proj in
+                   (mha.q_proj, mha.k_proj, mha.v_proj)]
+        shapes.append((name, *qkv, bias))
+    emit({"phase": "flash_path", "ok": True, "dtype": "bfloat16",
+          "tol": f"max({atol}, 2 bf16 steps of |reference|) an element",
+          "relative_lengths": lens.tolist(),
+          "lens_p": lens_p.tolist(), "runs": rows})
+    return shapes, launches
+
+
+def bf16_step(x):
+    """The gap between neighbouring bf16 values at each element's
+    magnitude (8 significant bits); float32 ``x``."""
+    _, exp = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+def mask_bias(x, masks):
+    """The additive bias ``MultiheadAttention`` hands to the kernel."""
+    return make_mask_bias(masks.get("key_padding_mask"),
+                          masks.get("attn_mask"), x.dtype)
 
 
 # -- phase 4: times and bounds ---------------------------------------------
@@ -565,6 +875,156 @@ def measure_b3(cfg, launches, err):
     }
 
 
+def cycled_sets(tensors, min_bytes=120_000_000):
+    """Copies of ``tensors`` (same strides) enough to pass 2x the 50 MB L2
+    when cycled, so that each timed launch finds its inputs in device
+    memory; returns the list of sets."""
+    set_bytes = sum(t.numel() * t.element_size() for t in tensors
+                    if t is not None)
+    n_sets = max(2, -(-min_bytes // set_bytes))
+    return [tensors] + [
+        [None if t is None else t.clone() for t in tensors]
+        for _ in range(n_sets - 1)
+    ]
+
+
+def measure_b2(shapes, launches, err):
+    """Per-launch time at the flash path's three shapes, bfloat16, with the
+    bias each run gave the kernel. The line's numbers are the mean over the
+    path's launches (one at each shape)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    per_shape = []
+    for name, q, k, v, bias in shapes:
+        sets = cycled_sets([q, k, v, bias])
+        n = len(sets)
+
+        def kernel(i):
+            return attention.flash_attention(*sets[i])
+
+        def plain(i):
+            return attention.flash_attention_reference(*sets[i])
+
+        def library(i):
+            q_, k_, v_, b_ = sets[i]
+            return sdpa(q_, k_, v_, attn_mask=b_)
+
+        B, H, Tq, D = q.shape
+        Tk = k.shape[2]
+        item = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * item + (
+            0 if bias is None else bias.numel() * bias.element_size()
+        )
+        flops = 4 * B * H * Tq * Tk * D
+        per_shape.append({
+            "run": name, "B_H_Tq_Tk_D": [B, H, Tq, Tk, D],
+            "bias": None if bias is None else list(bias.shape),
+            "ms": time_ms(kernel, n, iters=24),
+            "eager_call_ms": time_eager_ms(kernel, n, iters=24),
+            "plain_ms": time_ms(plain, n, iters=8),
+            "library_ms": time_ms(library, n, iters=24),
+            "bytes": nbytes, "flops": flops,
+            "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "flops_ms": flops / PEAK_BF16_TENSOR_FLOPS * 1e3,
+        })
+        del sets
+        torch.cuda.empty_cache()
+
+    for row in per_shape:
+        row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
+        row["bound_by"] = (
+            "bytes" if row["bytes_ms"] >= row["flops_ms"] else "operations"
+        )
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+
+    def mean(key):
+        return sum(s[key] for s in per_shape) / len(per_shape)
+
+    # the line's bound is the mean of the launches' own bounds; it is "by"
+    # what bounds the larger part of their sum
+    total = sum(s["bound_ms"] for s in per_shape)
+    by_ops = sum(s["bound_ms"] for s in per_shape
+                 if s["bound_by"] == "operations")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "speechbrain_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "speechbrain_tpu/ops/attention.py:111",
+        "launches": launches, "max_abs_err": err, "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"), "bound_ms": total / len(per_shape),
+        "bound_by": "operations" if 2 * by_ops >= total else "bytes",
+        "library_ms": mean("library_ms"),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "with the same float bias (timed only)",
+        "eager_call_ms": mean("eager_call_ms"), "dtype": "bfloat16",
+        "peak_for_bound": "989 TFLOP/s bf16 dense tensor cores, 3.35 TB/s",
+        "per_shape": per_shape,
+    }
+
+
+def measure_b4(cfg, perm, err):
+    """Per-launch time at the permuting search's two cache shapes (decoder
+    and LM self-attention K/V buffers, bf16), gathered by int64
+    predecessors that stay within each utterance's beams, as the search's
+    are. The line's numbers are the mean over one decode step's 36
+    launches."""
+    B, K = cfg["batch"], cfg["beam"]
+    L = -(-(perm["max_steps"] + 1) // CACHE_LENGTH_MULTIPLE) * (
+        CACHE_LENGTH_MULTIPLE
+    )
+    rng = np.random.default_rng(6)
+    shapes = [(cfg["d_model"], 2 * cfg["dec_layers"]),
+              (cfg["lm_d_model"], 2 * cfg["lm_layers"])]
+    per_shape = []
+    for D, per_step in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(D)
+        x = torch.randn((B * K, L, D), generator=gen, device="cuda").to(
+            torch.bfloat16
+        )
+        idx = torch.from_numpy(
+            (rng.integers(0, K, (B, K)) + np.arange(B)[:, None] * K)
+            .reshape(-1)
+        ).cuda()
+        sets = cycled_sets([x, idx])
+        n = len(sets)
+        nbytes = 2 * x.numel() * x.element_size() + idx.numel() * 8
+        per_shape.append({
+            "shape": [B * K, L, D], "launches_per_step": per_step,
+            "ms": time_ms(lambda i: gather.row_gather(*sets[i]), n),
+            "eager_call_ms": time_eager_ms(
+                lambda i: gather.row_gather(*sets[i]), n
+            ),
+            "plain_ms": time_ms(
+                lambda i: gather.row_gather_reference(*sets[i]), n
+            ),
+            "library_ms": time_ms(
+                lambda i: torch.index_select(sets[i][0], 0, sets[i][1]), n
+            ),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        })
+        del sets, x
+        torch.cuda.empty_cache()
+    n = sum(s["launches_per_step"] for s in per_shape)
+
+    def mean(key):
+        return sum(s[key] * s["launches_per_step"] for s in per_shape) / n
+
+    launches = perm["launches"]["row_gather"]
+    return {
+        "name": "row_gather", "route": "cuda",
+        "source": "speechbrain_tpu_torch/csrc/row_gather.cu",
+        "replaces": "speechbrain_tpu/ops/gather.py:88",
+        "launches": launches, "max_abs_err": err, "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes", "library_ms": mean("library_ms"),
+        "library_call": "torch.index_select (timed only; the plain version "
+                        "is the same call)",
+        "eager_call_ms": mean("eager_call_ms"), "dtype": "bfloat16",
+        "permute_decode_ms": perm["decode_ms"],
+        "share_of_permute_decode": launches * mean("ms") / perm["decode_ms"],
+        "per_shape": per_shape,
+    }
+
+
 def profile_decode(cfg):
     """``--profile`` only: one beam search of the main path under
     ``torch.profiler``; device time by kernel, and the device's busy share
@@ -641,13 +1101,24 @@ def main():
 
     err_b1 = check_b1()
     err_b3 = check_b3()
-    counts = run_main_path(NORTH)
-    run_fp32_comparison(NORTH)
+    err_b2 = check_b2()
+    err_b4 = check_b4()
+    main_pipe, main_run = run_transcribe_path(NORTH, ancestry=True)
+    run_fp32_comparison(NORTH, ancestry=True)
+    _, perm_run = run_transcribe_path(NORTH, ancestry=False)
+    run_fp32_comparison(NORTH, ancestry=False)
+    flash_shapes, flash_launches = run_flash_path(NORTH, main_pipe)
+    del main_pipe
+    torch.cuda.empty_cache()
+    main_launches = main_run["launches"]
     kernels = [
-        measure_b1(NORTH, counts["steps"], counts["max_steps"], counts["b1"],
-                   err_b1),
-        measure_b3(NORTH, counts["b3"], err_b3),
+        measure_b1(NORTH, main_run["steps"], main_run["max_steps"],
+                   main_launches["ancestry_attention"], err_b1),
+        measure_b3(NORTH, main_launches["fused_fbank"], err_b3),
+        measure_b2(flash_shapes, flash_launches, err_b2),
+        measure_b4(NORTH, perm_run, err_b4),
     ]
+    del flash_shapes
     if args.profile:
         profile_decode(NORTH)
     emit({"kernels": kernels})

@@ -3,25 +3,19 @@
 
 The JAX package expresses these gathers as block-diagonal one-hot matrix
 products because row gathers are slow on its hardware; the semantics are
-those of ``index_select`` along axis 0, which is what runs here.
+those of ``index_select`` along axis 0, which is what runs here. The
+per-step K/V buffers of the permuting search go through the row-gather
+kernel instead (``ops.gather.gather_pytree``).
 """
 
-import torch
-
-
-def gather_rows(t, index):
-    """Gather rows of ``t`` along axis 0 by ``index`` (flat batch*beam
-    predecessor indices); non-tensor leaves and 0-d tensors are returned
-    unchanged."""
-    if not isinstance(t, torch.Tensor) or t.ndim == 0:
-        return t
-    return t.index_select(0, index)
+from speechbrain_tpu_torch.ops.gather import (
+    gather_pytree,
+    row_gather_reference,
+)
 
 
 def gather_tree(tree, index):
-    """``gather_rows`` over every tensor leaf of nested dicts/lists."""
-    if isinstance(tree, dict):
-        return {k: gather_tree(v, index) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(gather_tree(v, index) for v in tree)
-    return gather_rows(tree, index)
+    """``index_select`` along axis 0 by ``index`` (flat batch*beam
+    predecessor indices) over every tensor leaf of nested dicts/lists;
+    non-tensor leaves and 0-d tensors are returned unchanged."""
+    return gather_pytree(tree, index, rows=row_gather_reference)

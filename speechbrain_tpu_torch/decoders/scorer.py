@@ -19,6 +19,7 @@ from speechbrain_tpu_torch.decoders.seq2seq import (
     permute_ancestry,
 )
 from speechbrain_tpu_torch.decoders.utils import top_k_lowest_index
+from speechbrain_tpu_torch.ops.gather import gather_pytree
 
 
 class BaseScorerInterface:
@@ -95,7 +96,8 @@ class KVTransformerLMScorer(BaseScorerInterface):
     def permute_mem(self, memory, index):
         if self.ancestry:
             return {**memory, "anc": permute_ancestry(memory["anc"], index)}
-        return {**memory, "cache": gather_tree(memory["cache"], index)}
+        # the LM's per-layer K/V buffers: one row-gather launch each
+        return {**memory, "cache": gather_pytree(memory["cache"], index)}
 
 
 class CTCScorer(BaseScorerInterface):

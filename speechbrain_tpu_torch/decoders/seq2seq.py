@@ -20,6 +20,7 @@ from speechbrain_tpu_torch.decoders.utils import (
     inflate_tensor,
     top_k_lowest_index,
 )
+from speechbrain_tpu_torch.ops.gather import gather_pytree
 
 
 def cache_length(cache):
@@ -459,7 +460,8 @@ class _KVDecodeMixin:
         per-layer "cross" entries (precomputed cross-attention K/V of the
         static encoder memory): those are identical across the beams of
         one utterance, and predecessors only permute within an
-        utterance."""
+        utterance. The per-layer K/V buffers go through the row-gather
+        kernel (``ops/gather.py``), one launch a buffer."""
         if self.ancestry_kv:
             # cache rows NEVER move; only the ancestry table is gathered
             return {
@@ -468,7 +470,7 @@ class _KVDecodeMixin:
             }
         return [
             {
-                k: (v if k == "cross" else gather_tree(v, index))
+                k: (v if k == "cross" else gather_pytree(v, index))
                 for k, v in layer.items()
             }
             for layer in memory

@@ -29,7 +29,7 @@ from speechbrain_tpu_torch.nnet.normalization import LayerNorm
 CACHE_LENGTH_MULTIPLE = 32
 
 
-def get_lookahead_mask(T, device="cpu"):
+def get_lookahead_mask(T, device="cuda"):
     """Causal (True = masked) (T, T) bool mask."""
     return torch.from_numpy(np.triu(np.ones((T, T), dtype=bool), k=1)).to(
         device

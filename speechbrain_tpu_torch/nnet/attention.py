@@ -19,18 +19,30 @@ import torch.nn.functional as F
 
 from speechbrain_tpu_torch.nnet.activations import get_activation
 from speechbrain_tpu_torch.nnet.linear import Linear
+from speechbrain_tpu_torch.ops.attention import flash_attention
 from speechbrain_tpu_torch.ops.beam_attention import ancestry_attention
 
 NEG_INF = -1e9  # additive mask value; finite to keep softmax NaN-free
 
 
 def scaled_dot_product_attention(q, k, v, mask_bias=None, dropout_rate=0.0,
-                                 training=False):
+                                 training=False, use_pallas=False):
     """Core softmax(QK^T/sqrt(d) + bias)V on (B, H, T, D) tensors, written
     out so that the attention weights can be returned.
 
     ``mask_bias`` is additive, broadcastable to (B, H, Tq, Tk).
+    ``use_pallas=True`` (the JAX package's name for it) runs the fused
+    flash-attention kernel instead (``ops/attention.py``) and returns
+    ``(out, None)``: the weights are not materialised, and attention
+    dropout is not applied, so it refuses a training call with dropout.
     """
+    if use_pallas:
+        if training and dropout_rate > 0.0:
+            raise ValueError(
+                "the flash attention kernel applies no dropout; use "
+                "use_pallas=False to train with attention dropout"
+            )
+        return flash_attention(q, k, v, mask_bias)
     d = q.shape[-1]
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
     if mask_bias is not None:
@@ -69,6 +81,10 @@ class MultiheadAttention(nn.Module):
     """Standard MHA: call (query, key, value, attn_mask, key_padding_mask,
     pos_embs) -> (output, weights). The four projections stay separate.
 
+    ``use_pallas=True`` sends the standard call through the flash-attention
+    kernel, which returns no weights: the call then gives (output, None).
+    The cached, ancestry and ``precomputed_kv`` arms never use it.
+
     Example
     -------
     >>> mha = MultiheadAttention(nhead=4, d_model=32, device="cpu")
@@ -78,14 +94,15 @@ class MultiheadAttention(nn.Module):
     torch.Size([2, 10, 32])
     """
 
-    def __init__(self, nhead, d_model, dropout=0.0, device="cuda",
-                 dtype=torch.float32, generator=None):
+    def __init__(self, nhead, d_model, dropout=0.0, use_pallas=False,
+                 device="cuda", dtype=torch.float32, generator=None):
         super().__init__()
         if d_model % nhead:
             raise ValueError("d_model must be a multiple of nhead")
         self.nhead = nhead
         self.d_model = d_model
         self.dropout = dropout
+        self.use_pallas = use_pallas
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.q_proj = Linear(d_model, d_model, **kw)
         self.k_proj = Linear(d_model, d_model, **kw)
@@ -199,9 +216,10 @@ class MultiheadAttention(nn.Module):
             bias = pe if bias is None else bias + pe
         out, w = scaled_dot_product_attention(
             self._heads(q), self._heads(k), self._heads(v), bias,
-            self.dropout, self.training,
+            self.dropout, self.training, self.use_pallas,
         )
-        return self.out_proj(self._merge(out)), w.mean(dim=1)
+        out = self.out_proj(self._merge(out))
+        return out, (None if w is None else w.mean(dim=1))
 
 
 class PositionalwiseFeedForward(nn.Module):

@@ -118,4 +118,20 @@ def load_library():
         p,                      # stream
     ]
     lib.sb_fused_fbank.restype = i
+    ll = ctypes.c_longlong
+    lib.sb_row_gather.argtypes = [
+        p, p, p,                # x, idx, out
+        ll, ll, ll,             # n_out, n_src, row_bytes
+        i,                      # idx is int64
+        p,                      # stream
+    ]
+    lib.sb_row_gather.restype = i
+    lib.sb_flash_attention.argtypes = [
+        p, p, p, p, p,          # q, k, v, bias (or None), out
+        i, i, i, i, i,          # B, H, Tq, Tk, D
+        ctypes.POINTER(ll),     # 15 strides: b, h, t of q, k, v, bias, out
+        i, i,                   # dtype code, bias dtype code
+        p,                      # stream
+    ]
+    lib.sb_flash_attention.restype = i
     return lib

@@ -12,7 +12,13 @@ import pytest
 import torch
 
 from speechbrain_tpu_torch.lobes.features import Fbank
-from speechbrain_tpu_torch.ops import beam_attention, mel_frontend
+from speechbrain_tpu_torch.nnet.attention import NEG_INF, MultiheadAttention
+from speechbrain_tpu_torch.ops import (
+    attention,
+    beam_attention,
+    gather,
+    mel_frontend,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +97,132 @@ def test_fused_fbank_kernel_matches_plain_and_unfused(card, hop_ms):
     assert out.shape == unfused.shape
     assert float((out - plain).abs().max()) <= 5e-3
     assert float((out - unfused).abs().max()) <= 5e-3
+
+
+def _flash_bias(form, B, H, Tq, Tk, dtype, card, rng):
+    if form == "none":
+        return None
+    if form == "tq_tk":
+        b = rng.standard_normal((Tq, Tk))
+    elif form == "full":
+        b = rng.standard_normal((B, H, Tq, Tk))
+    elif form == "key_padding":  # (B, 1, 1, Tk), the last keys of batch 1
+        b = np.zeros((B, 1, 1, Tk))
+        b[1, ..., Tk - Tk // 3:] = NEG_INF
+    else:  # "causal", (1, 1, Tq, Tk)
+        b = np.triu(np.full((1, 1, Tq, Tk), NEG_INF), k=max(1, Tk - Tq + 1))
+    return torch.from_numpy(b.astype(np.float32)).to(card, dtype)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize(
+    "form", ["none", "tq_tk", "full", "key_padding", "causal"]
+)
+def test_flash_attention_kernel_matches_plain(card, dtype, atol, hd, form):
+    """Tq != Tk, neither a multiple of the 64-row tile; q, k, v are the
+    strided head-major views that MultiheadAttention._heads makes."""
+    rng = np.random.default_rng(hd + len(form))
+    B, H, Tq, Tk = 2, 3, 77, 130
+
+    def heads(T):
+        x = torch.from_numpy(
+            rng.standard_normal((B, T, H * hd)).astype(np.float32)
+        ).to(card, dtype)
+        return x.reshape(B, T, H, hd).transpose(1, 2)
+
+    q, k, v = heads(Tq), heads(Tk), heads(Tk)
+    assert not q.is_contiguous()
+    bias = _flash_bias(form, B, H, Tq, Tk, dtype, card, rng)
+    before = attention.launches
+    out, w = attention.flash_attention(q, k, v, bias)
+    assert attention.launches == before + 1 and w is None
+    ref = attention.flash_attention_reference(q, k, v, bias)
+    assert out.dtype == dtype and out.shape == (B, H, Tq, hd)
+    assert float((out.float() - ref.float()).abs().max()) <= atol
+
+
+def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
+    q = torch.zeros(1, 2, 8, 48, device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        attention.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device=card)
+    with pytest.raises(ValueError, match="unit stride"):
+        attention.flash_attention(q, q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), q)
+    with pytest.raises(ValueError, match="aligned"):
+        attention.flash_attention(q[..., 1:33], q[..., 1:33], q[..., 1:33])
+    with pytest.raises(ValueError, match="unit stride along Tk"):
+        attention.flash_attention(q, q, q, torch.zeros(8, 8, device=card).t())
+    with pytest.raises(ValueError, match="float32 or"):
+        attention.flash_attention(
+            q, q, q, torch.zeros(8, 8, device=card, dtype=torch.float16)
+        )
+    with pytest.raises(ValueError, match="float32 or"):  # fp32 q: fp32 bias
+        attention.flash_attention(
+            q, q, q, torch.zeros(8, 8, device=card, dtype=torch.bfloat16)
+        )
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention.flash_attention(q, q.cpu(), q)
+
+
+def test_mha_use_pallas_launches_the_kernel(card):
+    mha = MultiheadAttention(nhead=4, d_model=256, use_pallas=True,
+                             device=card).eval()
+    x = torch.randn(2, 70, 256, device=card)
+    kpm = torch.zeros(2, 70, dtype=torch.bool, device=card)
+    kpm[1, 50:] = True
+    before = attention.launches
+    with torch.no_grad():
+        out, w = mha(x, x, x, key_padding_mask=kpm)
+        mha.use_pallas = False
+        ref, _ = mha(x, x, x, key_padding_mask=kpm)
+    assert attention.launches == before + 1 and w is None
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape", [(9,), (9, 40), (9, 5, 3), (9, 64, 512)])
+def test_row_gather_kernel_is_bitwise_the_plain_copy(
+    card, dtype, index_dtype, shape
+):
+    """Repeated indices, n_out != N, rows of 4..64K bytes (2-D fp32 (9, 5, 3)
+    rows are 60 bytes: not a multiple of 16)."""
+    x = torch.from_numpy(
+        np.random.default_rng(len(shape)).standard_normal(shape).astype(
+            np.float32
+        )
+    ).to(card, dtype)
+    idx = torch.tensor([8, 0, 0, 3, 8, 1, 2, 2, 7, 4, 5], dtype=index_dtype,
+                       device=card)
+    before = gather.launches
+    out = gather.row_gather(x, idx)
+    assert gather.launches == before + 1
+    assert torch.equal(out, gather.row_gather_reference(x, idx))
+
+
+def test_row_gather_kernel_zero_fills_a_bad_index(card):
+    x = torch.ones(4, 8, device=card)
+    out = gather.row_gather(x, torch.tensor([1, 4, -1], device=card))
+    torch.cuda.synchronize()
+    assert out[0].eq(1).all() and out[1:].eq(0).all()
+
+
+def test_row_gather_kernel_raises_on_what_it_does_not_take(card):
+    x = torch.zeros(4, 8, device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gather.row_gather(x, torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="int32 or int64"):
+        gather.row_gather(x, torch.tensor([0.0], device=card))
+    with pytest.raises(ValueError, match="1-D"):
+        gather.row_gather(x, torch.zeros(1, 1, dtype=torch.long, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.row_gather(x.t(), torch.tensor([0], device=card))
+    with pytest.raises(ValueError, match="aligned"):
+        gather.row_gather(x.reshape(-1)[1:31].reshape(3, 10),
+                          torch.tensor([0], device=card))

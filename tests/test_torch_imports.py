@@ -71,6 +71,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if _cuda_available():
         pytest.skip("this machine has a CUDA device")
     from speechbrain_tpu_torch.lobes.features import Fbank
+    from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
+        get_lookahead_mask,
+    )
     from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
         TransformerLM,
     )
@@ -81,6 +84,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: Linear(4, 4),
         lambda: TransformerLM(vocab=8, d_model=8, nhead=2,
                               num_encoder_layers=1, d_ffn=8),
+        lambda: get_lookahead_mask(4),
     ):
         with pytest.raises((RuntimeError, AssertionError)):
             build()

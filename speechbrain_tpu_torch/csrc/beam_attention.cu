@@ -10,19 +10,56 @@
 //
 // The TPU kernel forms all K x K pair scores on the matrix unit and selects
 // with a one-hot mask because that machine cannot gather; here a block owns
-// one (b, h, head), loads its own ancestry entries and reads each K/V row
-// directly (hd contiguous values, 16-byte loads). Positions t <= step are
-// spread over groups of hd/VEC lanes; each group keeps a running maximum,
-// denominator and fp32 accumulator in registers, and the groups are merged
-// once through shared memory. Nothing is padded or copied, any cache length
-// L is taken.
+// one (b, h, head) and gathers each K/V row it needs directly (hd
+// contiguous values, 16-byte loads). Nothing is padded or copied, and any
+// cache length L is taken.
 //
-// Bound: bytes. A launch reads about 2*B*K*(step+1)*D*itemsize bytes of K/V
-// and does 4 flops per element read, far below the card's operations-per-byte
-// ridge. At beam-search shapes the bytes are so few (around a megabyte at
-// batch 8, beam 10, 52 positions) that one launch costs about as much as its
-// launch latency: a decode of S steps over N layers issues S*N such launches,
-// so the loop is launch-latency bound until it is captured in a CUDA graph.
+// What bounds it. A launch reads at most 2*B*K*(step+1)*D*itemsize bytes
+// of K/V (less where hypotheses share an ancestor's row) and does 4 flops
+// per element read, far below the card's operations-per-byte ridge: bound
+// by bytes. At the main path's shapes (batch 8, beam 10, at most 52
+// positions: a few megabytes) the bytes take a couple of microseconds, and
+// a launch also pays a floor of its own: the launch, then two dependent
+// memory latencies (the ancestry entries, then the K/V rows they point to),
+// about half of a launch at step 50. At the published decode's shape (beam
+// 66, 288 positions, about 300 MB at random ancestry) the bytes dominate.
+//
+// The design, for both:
+// - The ancestry entries of positions 0..step are loaded once, into shared
+//   memory, up front, with one coalesced load (up to 1024 at a time; longer
+//   histories take further rounds), before any K/V address is formed. Each
+//   of the H blocks of a hypothesis loads them for itself: they are at most
+//   a few kilobytes, and the second to H-th reads hit L2.
+// - Then the K/V loads of many positions are issued before any is
+//   consumed: a group of hd/VEC lanes takes one position (VEC = 16 bytes of
+//   the type), the block's 128 threads hold G = 128 / (hd/VEC) groups, and
+//   each group loads kUnroll = 4 positions a batch into registers. So 4G
+//   positions (64 at hd 64 in bf16) are in flight at once: at step 50 all
+//   51 of them, in one wave of loads. A long history (the beam-66 shape: 288
+//   positions, 4.5 batches) keeps loads flowing through the other blocks of
+//   the SM while one block works on a batch. Registers, not a cp.async
+//   ring in shared memory: the loads land where the arithmetic needs them,
+//   and at 64 registers a thread 8 blocks fit an SM. (Two positions a group
+//   with the next batch's loads issued before this batch's arithmetic was
+//   slower at every shape measured.) TMA is not the tool for this: it has
+//   no gather on Hopper, and each position's row comes from a different
+//   cache row.
+// - Each group keeps a running maximum, denominator and fp32 accumulator in
+//   registers; the groups are merged once through shared memory. Every
+//   thread runs the same number of trips, so the shuffles that sum a
+//   position's partial dot products are always executed by whole warps.
+// - The grid stays one block per (b, h, head): 640 and 960 blocks at the
+//   main path's shapes (4.8 and 7.3 an SM, so one wave of 8 blocks an SM
+//   holds them all), 6336 at beam 66. One block a hypothesis for all heads
+//   would be 80 blocks on 132 SMs; two heads a block (half the blocks, one
+//   ancestry load for both) was slower; splitting positions across blocks
+//   would need a merge between them and buys nothing while there are
+//   several blocks an SM.
+//
+// What a later change could still take: the decode loop issues 18 of these
+// launches a step from Python, and each eager call costs the host several
+// times the kernel's device time; capturing a decode step in a CUDA graph
+// takes that away.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,16 +69,21 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 8;    // blocks an SM: at most 64 registers a thread
+constexpr int kUnroll = 4;       // positions a lane group loads a batch
+constexpr int kAncChunk = 1024;  // ancestry entries staged at a time
 
 template <typename T>
-struct Vec16;  // one 16-byte vector of T, widened to float
+struct Vec16;  // 16 bytes of T, widened to float
 
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  __device__ static void widen(const uint4& r, float* out) {
+    out[0] = __uint_as_float(r.x);
+    out[1] = __uint_as_float(r.y);
+    out[2] = __uint_as_float(r.z);
+    out[3] = __uint_as_float(r.w);
   }
   __device__ static float to(float x) { return x; }
 };
@@ -49,9 +91,8 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  __device__ static void widen(const uint4& r, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
@@ -62,8 +103,31 @@ struct Vec16<__nv_bfloat16> {
   __device__ static __nv_bfloat16 to(float x) { return __float2bfloat16(x); }
 };
 
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Issues the K/V loads of this lane's slice of positions p0 + g + G*u
+// (u < kUnroll) of the staged chunk, those below n.
+template <typename T, int G>
+__device__ __forceinline__ void issue_loads(
+    const T* __restrict__ k_cache, const T* __restrict__ v_cache,
+    const int* s_anc, size_t row0, int L, int D, int d0, int c0, int p0,
+    int g, int n, uint4 (&kr)[kUnroll], uint4 (&vr)[kUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = p0 + g + G * u;
+    if (i < n) {
+      const size_t off =
+          ((row0 + s_anc[i]) * (size_t)L + (size_t)(c0 + i)) * D + d0;
+      kr[u] = load16(k_cache + off);
+      vr[u] = load16(v_cache + off);
+    }
+  }
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ancestry_attention_kernel(const T* __restrict__ q,
                           const T* __restrict__ k_cache,
                           const T* __restrict__ v_cache,
@@ -72,9 +136,12 @@ ancestry_attention_kernel(const T* __restrict__ q,
                           int K, int L, int H, int step, float scale) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int LP = HD / VEC;       // lanes that share one position
-  constexpr int G = kThreads / LP;   // positions in flight per block
+  constexpr int G = kThreads / LP;   // position groups a block
+  constexpr int P = G * kUnroll;     // positions a batch
   static_assert(LP >= 1 && LP <= 32 && (LP & (LP - 1)) == 0, "bad head dim");
+  static_assert(kAncChunk % P == 0, "a chunk holds whole batches");
 
+  __shared__ int s_anc[kAncChunk];
   __shared__ float s_m[G];
   __shared__ float s_l[G];
   __shared__ float s_acc[G * HD];
@@ -86,9 +153,11 @@ ancestry_attention_kernel(const T* __restrict__ q,
   const int g = threadIdx.x / LP;
   const int lane = threadIdx.x % LP;
   const int d0 = head * HD + lane * VEC;
+  const int* anc_row = anc + (size_t)bh * L;
+  const size_t row0 = (size_t)b * K;
 
   float qf[VEC];
-  Vec16<T>::load(q + (size_t)bh * D + d0, qf);
+  Vec16<T>::widen(load16(q + (size_t)bh * D + d0), qf);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) qf[i] *= scale;
 
@@ -98,36 +167,65 @@ ancestry_attention_kernel(const T* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  const int* anc_row = anc + (size_t)bh * L;
-  const size_t row0 = (size_t)b * K;
-  // every thread runs the same number of trips, so the shuffles below are
-  // always executed by whole warps
-  for (int t0 = 0; t0 <= step; t0 += G) {
-    const int t = t0 + g;
-    const bool valid = t <= step;
-    float s = 0.f;
-    float vf[VEC];
-    if (valid) {
-      const int src = anc_row[t];
-      const size_t off = ((row0 + src) * L + t) * D + d0;
-      float kf[VEC];
-      Vec16<T>::load(k_cache + off, kf);
-      Vec16<T>::load(v_cache + off, vf);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) s = fmaf(qf[i], kf[i], s);
+  for (int c0 = 0; c0 <= step; c0 += kAncChunk) {
+    const int n = min(step + 1 - c0, kAncChunk);  // positions of this chunk
+    if (c0 > 0) __syncthreads();  // the last chunk's readers are done
+    // the chunk's ancestry entries, one coalesced load, before any K/V
+    // address is formed
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      s_anc[i] = __ldg(anc_row + c0 + i);
     }
+    __syncthreads();
+
+    uint4 kc[kUnroll], vc[kUnroll];
+    // every thread runs the same number of trips, so the shuffles below
+    // are always executed by whole warps
+    for (int p0 = 0; p0 < n; p0 += P) {
+      issue_loads<T, G>(k_cache, v_cache, s_anc, row0, L, D, d0, c0, p0, g,
+                        n, kc, vc);
+      float sc[kUnroll];
 #pragma unroll
-    for (int o = LP / 2; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-    }
-    if (valid) {
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);   // exp(-inf) = 0 on the first trip
-      const float p = expf(s - m_new);
-      l = l * corr + p;
+      for (int u = 0; u < kUnroll; ++u) {
+        float kf[VEC];
+        Vec16<T>::widen(kc[u], kf);
+        float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, vf[i], acc[i] * corr);
-      m = m_new;
+        for (int i = 0; i < VEC; ++i) s = fmaf(qf[i], kf[i], s);
+        sc[u] = s;
+      }
+#pragma unroll
+      for (int o = LP / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
+        }
+      }
+      // positions p0 + g + G*u rise with u: a group whose first is past
+      // the chunk has none in this batch
+      if (p0 + g < n) {
+        float mb = sc[0];
+#pragma unroll
+        for (int u = 1; u < kUnroll; ++u) {
+          if (p0 + g + G * u < n) mb = fmaxf(mb, sc[u]);
+        }
+        const float m_new = fmaxf(m, mb);
+        const float corr = expf(m - m_new);  // exp(-inf) = 0 on the first
+        l *= corr;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] *= corr;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (p0 + g + G * u < n) {
+            const float p = expf(sc[u] - m_new);
+            float vf[VEC];
+            Vec16<T>::widen(vc[u], vf);
+            l += p;
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+          }
+        }
+        m = m_new;
+      }
     }
   }
 

@@ -10,7 +10,9 @@ Maintaining it costs one small int32 gather per step.
 
 Attention through the indirection is a hand-written CUDA kernel
 (``csrc/beam_attention.cu``): a block owns one (utterance, hypothesis,
-head), reads its ancestry entries and gathers each K/V row directly.
+head), stages its ancestry entries in shared memory with one coalesced load,
+then gathers each K/V row directly, the loads of many positions in flight at
+once.
 ``ancestry_attention_reference`` is the plain PyTorch version of the same
 function; the wrapper takes it only for tensors that lie on the CPU.
 """
@@ -30,6 +32,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # number of kernel launches made by this process (the plain version does
 # not count); ``chip_smoke.py`` zeroes and reads it
 launches = 0
+
+# How the kernel walks a history, for the checks that aim at its seams: it
+# stages the ancestry entries ANCESTRY_CHUNK at a time, and loads the K/V
+# rows of kernel_batch_positions(hd, dtype) positions a batch.
+ANCESTRY_CHUNK = 1024
+
+
+def kernel_batch_positions(hd, dtype):
+    """Positions in one batch of the kernel's K/V loads: a block of 128
+    threads, ``hd * itemsize / 16`` lanes a position, four positions a lane
+    group."""
+    lanes = hd * (torch.finfo(dtype).bits // 8) // 16
+    return 128 // lanes * 4
 
 
 def ancestry_attention_reference(q, k_cache, v_cache, anc, step):

@@ -30,12 +30,32 @@ def card():
     return torch.device("cuda")
 
 
+def _ancestry_case(case, hd, dtype):
+    """(B, K, H, L) and the steps of one case: a small cache; the seams of
+    the kernel's batches of positions in a cache (100) that is not a
+    multiple of one; a history past one chunk of staged ancestry entries;
+    the published decode's beam 66 over 288 positions."""
+    if case == "small":
+        return (2, 5, 3, 45), (0, 1, 31, 44)
+    if case == "seams":
+        P = beam_attention.kernel_batch_positions(hd, dtype)
+        steps = sorted({s for i in (1, 2, 3) for s in (i * P - 1, i * P,
+                                                      i * P + 1) if s < 100})
+        return (2, 5, 3, 100), (*steps, 99)
+    if case == "long_history":
+        c = beam_attention.ANCESTRY_CHUNK
+        return (1, 2, 1, c + 76), (c - 1, c, c + 1, c + 75)
+    return (8, 66, 12, 288), (0, 143, 287)
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-def test_ancestry_attention_kernel_matches_plain(card, dtype, atol, hd):
+@pytest.mark.parametrize("case", ["small", "seams", "long_history",
+                                  "beam66"])
+def test_ancestry_attention_kernel_matches_plain(card, dtype, atol, hd, case):
     rng = np.random.default_rng(hd)
-    B, K, H, L = 2, 5, 3, 45
+    (B, K, H, L), steps = _ancestry_case(case, hd, dtype)
     q = torch.from_numpy(
         rng.standard_normal((B, K, H, hd)).astype(np.float32)
     ).to(card, dtype)
@@ -49,12 +69,12 @@ def test_ancestry_attention_kernel_matches_plain(card, dtype, atol, hd):
         rng.integers(0, K, (B, K, L)).astype(np.int32)
     ).to(card)
     before = beam_attention.launches
-    for step in (0, 1, 31, 44):
+    for step in steps:
         out = beam_attention.ancestry_attention(q, k, v, anc, step)
         ref = beam_attention.ancestry_attention_reference(q, k, v, anc, step)
         assert out.dtype == dtype
         assert float((out.float() - ref.float()).abs().max()) <= atol
-    assert beam_attention.launches == before + 4
+    assert beam_attention.launches == before + len(steps)
 
 
 def test_ancestry_attention_kernel_raises_on_what_it_does_not_take(card):
@@ -99,10 +119,14 @@ def test_fused_fbank_kernel_matches_plain_and_unfused(card, hop_ms):
     assert float((out - unfused).abs().max()) <= 5e-3
 
 
-def _flash_bias(form, B, H, Tq, Tk, dtype, card, rng):
-    if form == "none":
+def _flash_bias(form, B, H, Tq, Tk, dtype, card, rng, mask_all=False):
+    """The bias of one form; with ``mask_all`` every key of one query row
+    (for "key_padding": of batch 0) is masked by NEG_INF."""
+    if form == "none" and mask_all:
+        b = np.zeros((B, H, Tq, Tk))
+    elif form == "none":
         return None
-    if form == "tq_tk":
+    elif form == "tq_tk":
         b = rng.standard_normal((Tq, Tk))
     elif form == "full":
         b = rng.standard_normal((B, H, Tq, Tk))
@@ -111,20 +135,37 @@ def _flash_bias(form, B, H, Tq, Tk, dtype, card, rng):
         b[1, ..., Tk - Tk // 3:] = NEG_INF
     else:  # "causal", (1, 1, Tq, Tk)
         b = np.triu(np.full((1, 1, Tq, Tk), NEG_INF), k=max(1, Tk - Tq + 1))
+    if mask_all and form == "key_padding":
+        b[0] = NEG_INF
+    elif mask_all:
+        b[(0,) * (b.ndim - 2) + (Tq // 2,)] = NEG_INF
     return torch.from_numpy(b.astype(np.float32)).to(card, dtype)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
+# (dtype, atol, Tq, Tk, mask_all): Tq != Tk and neither a multiple of a
+# tile, with and without a fully masked row, in both types; and in bf16,
+# every pair of lengths about the tensor-core kernel's 128-row query tile
+# and its 64-key tiles
+_EDGE_T = (1, 63, 64, 65, 127, 128, 129)
+_FLASH_CASES = [
+    (dtype, atol, 77, 130, mask_all)
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))
+    for mask_all in (False, True)
+] + [(torch.bfloat16, 2e-2, Tq, Tk, False) for Tq in _EDGE_T for Tk in _EDGE_T]
+
+
+@pytest.mark.parametrize("dtype,atol,Tq,Tk,mask_all", _FLASH_CASES)
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize(
     "form", ["none", "tq_tk", "full", "key_padding", "causal"]
 )
-def test_flash_attention_kernel_matches_plain(card, dtype, atol, hd, form):
-    """Tq != Tk, neither a multiple of the 64-row tile; q, k, v are the
-    strided head-major views that MultiheadAttention._heads makes."""
+def test_flash_attention_kernel_matches_plain(card, dtype, atol, Tq, Tk,
+                                              mask_all, hd, form):
+    """q, k, v are the strided head-major views that
+    MultiheadAttention._heads makes. A fully masked row has equal scores
+    (all -1e30), so the plain version gives the mean of V there."""
     rng = np.random.default_rng(hd + len(form))
-    B, H, Tq, Tk = 2, 3, 77, 130
+    B, H = 2, 3
 
     def heads(T):
         x = torch.from_numpy(
@@ -133,8 +174,8 @@ def test_flash_attention_kernel_matches_plain(card, dtype, atol, hd, form):
         return x.reshape(B, T, H, hd).transpose(1, 2)
 
     q, k, v = heads(Tq), heads(Tk), heads(Tk)
-    assert not q.is_contiguous()
-    bias = _flash_bias(form, B, H, Tq, Tk, dtype, card, rng)
+    assert Tq == 1 or not q.is_contiguous()  # a 1-row view is contiguous
+    bias = _flash_bias(form, B, H, Tq, Tk, dtype, card, rng, mask_all)
     before = attention.launches
     out, w = attention.flash_attention(q, k, v, bias)
     assert attention.launches == before + 1 and w is None

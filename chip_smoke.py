@@ -29,6 +29,7 @@ hold it against the JAX package at a small size.
 import argparse
 import contextlib
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -70,6 +71,7 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
+from speechbrain_tpu_torch.utils.signals import make_check_signal
 
 SR = 16000
 
@@ -92,6 +94,9 @@ NORTH = dict(
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
+# the dense TF32 tensor-core rate (same data sheet), at which B3 does its
+# DFT (each of its three TF32 passes; the bound counts the DFT's work once)
+PEAK_TF32_TENSOR_FLOPS = 495e12
 
 # Tolerances of kernel against plain version. float32: both accumulate in
 # float32 in another order. bfloat16: both round the float32 result once to
@@ -108,7 +113,8 @@ KERNELS = {
     "ancestry_attention": (beam_attention, "_ancestry_attention_cuda",
                            beam_attention.ancestry_attention_reference),
     "fused_fbank": (mel_frontend, "_fused_fbank_cuda",
-                    mel_frontend.fused_fbank_reference),
+                    lambda *args, operands=None:
+                    mel_frontend.fused_fbank_reference(*args)),
     "flash_attention": (attention, "_flash_attention_cuda",
                         attention.flash_attention_reference),
     "row_gather": (gather, "_row_gather_cuda", gather.row_gather_reference),
@@ -395,17 +401,48 @@ def check_b1():
     return worst
 
 
+def b3_layout(fbank):
+    """(shared-memory bytes, ring stages, frames a block) of the B3 kernel
+    for ``fbank``'s sizes, as the kernel chooses them."""
+    ops = fbank._operands
+    n_fft, hop = fbank.compute_STFT.n_fft, fbank.compute_STFT.hop_length
+    stages, fpb = ctypes.c_int(0), ctypes.c_int(0)
+    smem = _build.load_library().sb_fused_fbank_smem(
+        n_fft, ops.mel_ranges.shape[0], ops.mel_weights.shape[1], hop,
+        mel_frontend.span_skew(hop), ctypes.byref(stages), ctypes.byref(fpb),
+    )
+    return smem, stages.value, fpb.value
+
+
 def check_b3():
+    """Kernel against its plain version and against the unfused ``Fbank``
+    (rfft on cuFFT), at most ``B3_ATOL`` dB each: white noise at three
+    hops; the two signals that show a DFT scheme's precision
+    (:func:`make_check_signal`), the chirp with noise 60 dB down at the main
+    path's shape from eight seeds and noise bursts with digital silence,
+    also at n_fft 512; and hops whose 64 frames do not fit a block (320 at
+    16 kHz; 441 at 44.1 kHz and n_fft 2048)."""
     worst = 0.0
     rows = []
-    for batch, seconds, hop_ms in ((8, 10.0, 10), (2, 4.0, 8), (2, 4.0, 16)):
-        wav = torch.from_numpy(
-            np.random.default_rng(int(hop_ms)).standard_normal(
-                (batch, int(SR * seconds))
-            ).astype(np.float32)
-        ).cuda()
-        fused = Fbank(n_mels=80, hop_length=hop_ms, fused=True)
-        unfused = Fbank(n_mels=80, hop_length=hop_ms, fused=False)
+    cases = [
+        # (signal, batch, seconds, hop ms, n_fft, sample rate, seed)
+        ("noise", 8, 10.0, 10, 400, SR, 10),
+        ("noise", 2, 4.0, 8, 400, SR, 8),
+        ("noise", 2, 4.0, 16, 400, SR, 16),
+        *[("chirp", 8, 10.0, 10, 400, SR, seed) for seed in range(10, 18)],
+        ("bursts", 8, 10.0, 10, 400, SR, 10),
+        ("bursts", 2, 4.0, 10, 512, SR, 10),
+        ("chirp", 2, 4.0, 20, 400, SR, 20),
+        ("noise", 2, 4.0, 10, 2048, 44100, 44),
+    ]
+    for kind, batch, seconds, hop_ms, n_fft, sr, seed in cases:
+        wav = torch.from_numpy(make_check_signal(
+            kind, batch, int(sr * seconds), seed=seed, sample_rate=sr
+        )).cuda()
+        fused = Fbank(sample_rate=sr, n_mels=80, hop_length=hop_ms,
+                      n_fft=n_fft, fused=True)
+        unfused = Fbank(sample_rate=sr, n_mels=80, hop_length=hop_ms,
+                        n_fft=n_fft, fused=False)
         out = fused(wav)
         torch.cuda.synchronize()
         with plain_versions():
@@ -418,13 +455,18 @@ def check_b3():
             err_plain <= B3_ATOL and err_unfused <= B3_ATOL
         ):
             raise AssertionError(
-                f"fused_fbank disagrees at hop {hop}: vs plain {err_plain}, "
-                f"vs unfused Fbank {err_unfused} dB"
+                f"fused_fbank disagrees on {kind} (seed {seed}) at hop {hop}, "
+                f"n_fft {n_fft}: vs plain {err_plain}, vs unfused Fbank "
+                f"{err_unfused} dB"
             )
         worst = max(worst, err_plain, err_unfused)
-        rows.append({"shape": list(wav.shape), "hop": hop,
+        rows.append({"signal": kind, "seed": seed, "shape": list(wav.shape),
+                     "hop": hop, "n_fft": n_fft,
+                     "frames_a_block": b3_layout(fused)[2],
                      "frames": out.shape[1], "err_vs_plain": err_plain,
-                     "err_vs_unfused_fbank": err_unfused})
+                     "err_vs_unfused_fbank": err_unfused,
+                     "plain_vs_unfused_fbank":
+                         (plain - ref).abs().max().item()})
     emit({"phase": "kernel_check", "kernel": "fused_fbank",
           "atol_db": B3_ATOL, "cases": rows, "max_abs_err": worst})
     return worst
@@ -925,9 +967,43 @@ def measure_b1(cfg, steps, max_steps, launches, err):
     }
 
 
+def ptxas_report(kernel):
+    """ptxas's registers and spill line for ``kernel`` from the last build
+    of the kernels' library (``-Xptxas -v``), one entry an instantiation;
+    empty when this process found the library already built."""
+    log = _build.BUILD_DIR / "build.log"
+    if not log.exists():
+        return []
+    lines = log.read_text().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            out.append(" ".join(x.strip() for x in lines[i + 1:i + 3]))
+    return out
+
+
 def measure_b3(cfg, launches, err):
+    """B3 at the main path's shape, (8, 160000) at hop 160, by CUDA-graph
+    replay with waveforms cycled past the L2 cache; beside it the plain
+    version and the port's unfused ``Fbank`` (rfft on cuFFT, a product and
+    a log: a yardstick, not a library call computing the same function).
+
+    ``bound_ms`` is the least time the function could take: the larger of
+    its bytes (waveform, window and mel matrix read once, output written
+    once) at the memory's rate, and the least arithmetic it needs at the
+    float32 CUDA-core peak: a real FFT a frame (2.5 n_fft log2 n_fft, half
+    the usual count of a complex FFT), the power and the mel projection's
+    non-zero multiply-adds. ``design_dft_tf32_ms`` is the dense DFT this
+    design computes, counted once at the TF32 tensor-core peak (its three
+    passes take three times that), with the mel projection: a figure for
+    the design, not a bound. ``bound_fp32_cuda_core_ms`` is the bound of
+    the earlier CUDA-core design, kept so that its readings stay
+    comparable: the dense work at the float32 CUDA-core peak.
+    ``l2_table_bytes`` is computed (blocks x the kernel's table bytes),
+    not measured."""
     B, T = cfg["batch"], int(SR * cfg["seconds"])
     fused = Fbank(n_mels=cfg["n_mels"], fused=True)
+    unfused = Fbank(n_mels=cfg["n_mels"], fused=False)
     n_sets = 16  # 16 x 5 MB of waveform: more than the 50 MB L2
     gen = torch.Generator(device="cuda").manual_seed(0)
     wavs = [torch.randn((B, T), generator=gen, device="cuda")
@@ -936,27 +1012,55 @@ def measure_b3(cfg, launches, err):
     eager_ms = time_eager_ms(lambda i: fused(wavs[i]), n_sets, iters=32)
     with plain_versions():
         plain_ms = time_ms(lambda i: fused(wavs[i]), n_sets, iters=16)
+    unfused_ms = time_ms(lambda i: unfused(wavs[i]), n_sets, iters=16)
+
+    hop = fused.compute_STFT.hop_length
     n_fft = fused.compute_STFT.n_fft
     n_freq = n_fft // 2 + 1
     n_mels = cfg["n_mels"]
-    n_frames = 1 + T // fused.compute_STFT.hop_length
-    flops = B * n_frames * (2 * 2 * n_fft * n_freq + 2 * n_freq * n_mels)
-    nbytes = (
-        B * T * 4 + B * n_frames * n_mels * 4
-        + 2 * n_fft * n_freq * 4 + n_freq * n_mels * 4
-    )
+    n_frames = 1 + T // hop
+    frames = B * n_frames
+    ops = fused._operands
+    mel_nnz = int(torch.count_nonzero(fused.compute_fbanks.fbank_matrix))
+    nbytes = 4 * (B * T + frames * n_mels + n_fft + n_freq * n_mels)
+    least_flops = frames * (2.5 * n_fft * np.log2(n_fft) + 3 * n_freq
+                            + 2 * mel_nnz)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    ops_ms = least_flops / PEAK_FP32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    dft_flops = 2 * frames * n_fft * 2 * n_freq
+    mel_flops = 2 * frames * mel_nnz
+    design_ms = (dft_flops / PEAK_TF32_TENSOR_FLOPS
+                 + mel_flops / PEAK_FP32_FLOPS) * 1e3
+    # the earlier design's bound: every multiply-add of the dense DFT and
+    # mel product on the float32 CUDA cores
+    fp32_flops = frames * (2 * 2 * n_fft * n_freq + 2 * n_freq * n_mels)
+    fp32_bytes = (B * T * 4 + frames * n_mels * 4
+                  + 2 * n_fft * n_freq * 4 + n_freq * n_mels * 4)
+    bound_fp32 = max(fp32_flops / PEAK_FP32_FLOPS,
+                     fp32_bytes / PEAK_BYTES_PER_S) * 1e3
+    smem, stages, fpb = b3_layout(fused)
+    blocks = B * -(-n_frames // fpb)
+    table_bytes = 4 * (ops.tables.numel() + ops.mel_ranges.numel()
+                       + ops.mel_weights.numel())
     return {
         "name": "fused_fbank", "route": "cuda",
         "source": "speechbrain_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "speechbrain_tpu/ops/mel_frontend.py:187",
         "launches": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": None, "eager_call_ms": eager_ms, "bytes": nbytes,
-        "flops": flops,
-        "note": "ms and plain_ms include the top_db clamp on the output",
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "unfused_ms": unfused_ms,
+        "ms_over_bound": ms / bound, "design_dft_tf32_ms": design_ms,
+        "bound_fp32_cuda_core_ms": bound_fp32, "eager_call_ms": eager_ms,
+        "bytes": nbytes, "least_flops": least_flops, "dft_flops": dft_flops,
+        "mel_flops": mel_flops, "mel_nonzeros": mel_nnz, "tf32_passes": 3,
+        "l2_table_bytes": blocks * table_bytes,
+        "l2_table_bytes_is": "computed: blocks x table bytes, not measured",
+        "table_bytes": table_bytes, "blocks": blocks, "frames_a_block": fpb,
+        "smem_bytes": smem, "ring_stages": stages,
+        "ptxas": ptxas_report("fused_fbank_kernel"),
+        "note": "ms, plain_ms and unfused_ms include the top_db clamp",
     }
 
 
@@ -1140,8 +1244,9 @@ def measure_b4(cfg, perm, err):
 
 
 def profile_decode(cfg):
-    """``--profile`` only: one beam search of the main path under
-    ``torch.profiler``; device time by kernel, and the device's busy share
+    """``--profile`` only: one encode of the main path under
+    ``torch.profiler``, which must launch the B3 kernel exactly once, then
+    one beam search; device time by kernel, and the device's busy share
     of the search's wall time as measured without the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1151,8 +1256,24 @@ def profile_decode(cfg):
     pipe.transcribe(wavs, lens)
     pipe.transcribe(wavs, lens)
     decode_ms, steps = pipe.last_decode_ms, pipe.searcher.last_steps
-    enc, lens_p = pipe.encode(wavs, lens)
-    torch.cuda.synchronize()
+    # the encode alone: B3's device launches in one Fbank call
+    calls = pipe.fbank_calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_enc:
+        enc, lens_p = pipe.encode(wavs, lens)
+        torch.cuda.synchronize()
+    fbank_calls = pipe.fbank_calls - calls
+    b3_kernels = [(e.key, e.count) for e in prof_enc.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "fused_fbank" in e.key]
+    b3_launches = sum(n for _, n in b3_kernels)
+    emit({"phase": "profile_encode", "fbank_calls": fbank_calls,
+          "fused_fbank_device_launches": b3_launches,
+          "kernels": [[k[:80], n] for k, n in b3_kernels]})
+    if fbank_calls != 1 or b3_launches != 1:
+        raise AssertionError(
+            f"one encode made {b3_launches} B3 launches in {fbank_calls} "
+            "Fbank calls, not one"
+        )
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
@@ -1186,8 +1307,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace one beam search with torch.profiler and print "
-             "the device's busy share and the heaviest kernels",
+        help="also trace one encode (B3 must launch once) and one beam "
+             "search with torch.profiler and print the device's busy "
+             "share and the heaviest kernels",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -3,7 +3,11 @@
 CUDA kernel (``speechbrain_tpu_torch.ops.mel_frontend``).
 """
 
-from speechbrain_tpu_torch.ops.mel_frontend import dft_tables, fused_fbank
+from speechbrain_tpu_torch.ops.mel_frontend import (
+    dft_tables,
+    fused_fbank,
+    kernel_operands,
+)
 from speechbrain_tpu_torch.processing.features import STFT, Filterbank
 
 
@@ -41,10 +45,14 @@ class Fbank:
             sample_rate=sample_rate, n_fft=n_fft, n_mels=n_mels, f_min=f_min,
             f_max=f_max, filter_shape=filter_shape, device=device,
         )
-        # the fused path's DFT tables, made once
-        self._tables = (
-            dft_tables(self.compute_STFT.window, n_fft) if fused else None
-        )
+        # the fused path's DFT tables and the kernel's layout of them,
+        # made once
+        self._tables = self._operands = None
+        if fused:
+            self._tables = dft_tables(self.compute_STFT.window, n_fft)
+            self._operands = kernel_operands(
+                *self._tables, self.compute_fbanks.fbank_matrix
+            )
 
     def __call__(self, wav):
         if self.fused:
@@ -56,6 +64,7 @@ class Fbank:
                 hop_length=self.compute_STFT.hop_length,
                 top_db=self.compute_fbanks.top_db,
                 tables=self._tables,
+                operands=self._operands,
             )
         mag = self.compute_STFT.power(wav)
         return self.compute_fbanks(mag)

@@ -112,12 +112,19 @@ def load_library():
     ]
     lib.sb_ancestry_attention.restype = i
     lib.sb_fused_fbank.argtypes = [
-        p, p, p, p, p,          # wav, cos, sin, mel, out
-        i, i, i, i, i, i, i,    # B, T, n_frames, n_fft, n_freq, n_mels, hop
+        p, p, p, p, p,          # wav, tables, mel ranges, mel weights, out
+        i, i, i, i, i, i, i,    # B, T, n_frames, n_fft, n_freq, n_mels, width
+        i, i, i, i,             # hop, skew, n_chunks, n_ktiles
         f, f, f,                # amin, multiplier, db_offset
         p,                      # stream
     ]
     lib.sb_fused_fbank.restype = i
+    lib.sb_fused_fbank_smem.argtypes = [
+        i, i, i, i, i,          # n_fft, n_mels, mel width, hop, skew
+        ctypes.POINTER(i),      # stages (out)
+        ctypes.POINTER(i),      # frames a block (out)
+    ]
+    lib.sb_fused_fbank_smem.restype = i
     ll = ctypes.c_longlong
     lib.sb_row_gather.argtypes = [
         p, p, p,                # x, idx, out

@@ -19,6 +19,7 @@ from speechbrain_tpu_torch.ops import (
     gather,
     mel_frontend,
 )
+from speechbrain_tpu_torch.utils.signals import make_check_signal
 
 pytestmark = pytest.mark.cuda
 
@@ -96,27 +97,89 @@ def test_ancestry_attention_kernel_raises_on_what_it_does_not_take(card):
         )
 
 
-@pytest.mark.parametrize("hop_ms", [10, 8, 16])
-def test_fused_fbank_kernel_matches_plain_and_unfused(card, hop_ms):
+def _plain_fbank(wav, fused, hop):
+    """B3's plain version with the top_db clamp, at ``fused``'s tables."""
+    plain = mel_frontend.fused_fbank_reference(
+        wav, *fused._tables, fused.compute_fbanks.fbank_matrix,
+        fused.compute_STFT.n_fft, hop, 10.0, 1e-10, 0.0,
+    )
+    return torch.maximum(plain, plain.amax(dim=(1, 2), keepdim=True) - 80.0)
+
+
+# (signal, batch, samples, hop ms, n_fft): white noise at three hops; the
+# two signals that show a DFT scheme's precision; frame counts at the seams
+# of the kernel's 64-frame tiles (1, 63, 64, 65, 129 at hop 160; the first
+# also shorter than n_fft / 2); n_fft 512
+_FBANK_CASES = {
+    "noise_hop10": ("noise", 3, 20000, 10, 400),
+    "noise_hop8": ("noise", 3, 20000, 8, 400),
+    "noise_hop16": ("noise", 3, 20000, 16, 400),
+    "chirp": ("chirp", 2, 32000, 10, 400),
+    "bursts": ("bursts", 2, 32000, 10, 400),
+    "frames1_short": ("noise", 2, 100, 10, 400),
+    "frames63": ("noise", 2, 62 * 160, 10, 400),
+    "frames64": ("noise", 2, 63 * 160, 10, 400),
+    "frames65": ("noise", 2, 64 * 160, 10, 400),
+    "frames129": ("noise", 2, 128 * 160 + 7, 10, 400),
+    "nfft512": ("bursts", 2, 32000, 10, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(_FBANK_CASES))
+def test_fused_fbank_kernel_matches_plain_and_unfused(card, case):
+    kind, batch, samples, hop_ms, n_fft = _FBANK_CASES[case]
     wav = torch.from_numpy(
-        np.random.default_rng(hop_ms).standard_normal((3, 20000)).astype(
-            np.float32
-        )
+        make_check_signal(kind, batch, samples, seed=hop_ms)
     ).to(card)
-    fused = Fbank(n_mels=80, hop_length=hop_ms, fused=True, device=card)
+    fused = Fbank(n_mels=80, hop_length=hop_ms, n_fft=n_fft, fused=True,
+                  device=card)
     before = mel_frontend.launches
     out = fused(wav)
     assert mel_frontend.launches == before + 1
-    plain = mel_frontend.fused_fbank_reference(
-        wav, *fused._tables, fused.compute_fbanks.fbank_matrix,
-        fused.compute_STFT.n_fft, fused.compute_STFT.hop_length, 10.0, 1e-10,
-        0.0,
-    )
-    plain = torch.maximum(plain, plain.amax(dim=(1, 2), keepdim=True) - 80.0)
-    unfused = Fbank(n_mels=80, hop_length=hop_ms, device=card)(wav)
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    unfused = Fbank(n_mels=80, hop_length=hop_ms, n_fft=n_fft,
+                    device=card)(wav)
     assert out.shape == unfused.shape
     assert float((out - plain).abs().max()) <= 5e-3
     assert float((out - unfused).abs().max()) <= 5e-3
+
+
+@pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])
+def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
+    """Through ``fused_fbank`` itself: hops that take the span's 4-byte
+    copies and a skew other than 4 (161, 100), and hops whose span of 64
+    frames does not fit a block beside the ring, so that a block takes 32
+    (320, 441) or 16 (1000) frames."""
+    wav = torch.from_numpy(make_check_signal("chirp", 3, 30001, seed=hop))
+    wav = wav.to(card)
+    fused = Fbank(n_mels=80, fused=True, device=card)
+    out = mel_frontend.fused_fbank(
+        wav, fused.compute_STFT.window, fused.compute_fbanks.fbank_matrix,
+        n_fft=400, hop_length=hop, tables=fused._tables,
+        operands=fused._operands,
+    )
+    assert out.shape == (3, 1 + 30001 // hop, 80)
+    assert float((out - _plain_fbank(wav, fused, hop)).abs().max()) <= 5e-3
+
+
+def test_fused_fbank_kernel_raises_on_what_it_does_not_take(card):
+    fused = Fbank(n_mels=80, fused=True, device=card)
+    window = fused.compute_STFT.window
+    fb = fused.compute_fbanks.fbank_matrix
+    wav = torch.zeros(2, 16000, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        mel_frontend.fused_fbank(wav[:, ::2], window, fb)
+    with pytest.raises(ValueError, match="shared memory"):
+        # 1024 filters over every bin: their weights alone pass 227 KB
+        mel_frontend.fused_fbank(
+            wav, window, torch.ones(fb.shape[0], 1024, device=card)
+        )
+    with pytest.raises(ValueError, match="operands"):
+        mel_frontend.fused_fbank(
+            wav, window, fb, operands=fused._operands._replace(
+                mel_weights=fused._operands.mel_weights.double()
+            ),
+        )
 
 
 def _flash_bias(form, B, H, Tq, Tk, dtype, card, rng, mask_all=False):

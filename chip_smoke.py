@@ -4,7 +4,8 @@
 
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
-on the card, and drives three paths at the full width of the
+on the card, checks that no kernel's wrapper lets a graph through
+(``grad_guard``), and drives four paths at the full width of the
 conformer-large LibriSpeech recipe with random weights made from a seed:
 
 - ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
@@ -16,28 +17,43 @@ conformer-large LibriSpeech recipe with random weights made from a seed:
   (kernels ``fused_fbank`` and ``row_gather``);
 - ``flash_path``: ``MultiheadAttention(use_pallas=True)`` over the main
   path's encoder output and at (16, 4, 1024, 64) (kernel
-  ``flash_attention``).
+  ``flash_attention``);
+- ``train_path``: the recipe's ``Brain.fit`` (``ASR``, a twin of
+  ``recipes/LibriSpeech/ASR/transformer/train.py``) on synthetic WAV
+  files through a JSON manifest, dataset and loader: 30 epochs of two
+  bf16 micro-batches of 16 utterances, accumulation 2, clip 5, AdamW,
+  Noam (kernel ``fused_fbank`` on every batch); then ``train_checks``:
+  the loss fell, a checkpoint recovers bit for bit, and one float32 step
+  through the kernel agrees with its plain version.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
 run without one; there is no CPU mode.
 
-The assembly (``Pipeline``) takes a ``device`` so that the CPU tests can
-hold it against the JAX package at a small size.
+The assemblies (``Pipeline``, and ``ASR`` with its helpers) take a
+``device`` so that the CPU tests can hold them against the JAX package at
+a small size.
 """
 
 import argparse
 import contextlib
 import copy
 import ctypes
+import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from speechbrain_tpu_torch.core import Brain, Stage
+from speechbrain_tpu_torch.dataio.dataio import read_audio, write_audio
+from speechbrain_tpu_torch.dataio.dataloader import make_dataloader
+from speechbrain_tpu_torch.dataio.dataset import DynamicItemDataset
 from speechbrain_tpu_torch.decoders.scorer import (
     CTCScorer,
     KVTransformerLMScorer,
@@ -63,6 +79,11 @@ from speechbrain_tpu_torch.nnet.attention import (
     make_mask_bias,
 )
 from speechbrain_tpu_torch.nnet.linear import Linear
+from speechbrain_tpu_torch.nnet.losses import ctc_loss, kldiv_loss
+from speechbrain_tpu_torch.nnet.schedulers import (
+    NoamScheduler,
+    update_learning_rate,
+)
 from speechbrain_tpu_torch.ops import (
     _build,
     attention,
@@ -70,8 +91,12 @@ from speechbrain_tpu_torch.ops import (
     gather,
     mel_frontend,
 )
+from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.utils.checkpoints import Checkpointer
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
+from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
 from speechbrain_tpu_torch.utils.signals import make_check_signal
+from speechbrain_tpu_torch.utils.train_logger import FileTrainLogger
 
 SR = 16000
 
@@ -246,6 +271,208 @@ class Pipeline:
         self.last_encode_ms = (t1 - t0) * 1e3
         self.last_decode_ms = (t2 - t1) * 1e3
         return result
+
+
+# The training path's configuration: the LibriSpeech conformer_large
+# CTC/attention recipe (recipes/LibriSpeech/ASR/transformer/hparams/
+# conformer_large.yaml) at full width and depth, random weights from a
+# seed, synthetic utterances and token ids (no tokenizer), Noam's warm-up
+# cut from 25000 to 10 steps so that 30 steps move the loss.
+TRAIN = dict(
+    vocab=5000, n_mels=80, fe_channels=(64, 32), d_model=512, nhead=8,
+    enc_layers=12, dec_layers=6, d_ffn=2048, kernel_size=31, dropout=0.1,
+    ctc_weight=0.3, label_smoothing=0.1, lr_adam=8e-4, n_warmup_steps=10,
+    grad_accumulation_factor=2, max_grad_norm=5.0, batch_size=16,
+    epochs=30, n_train=32, n_valid=16, seconds=(8.0, 12.0),
+    n_tokens=(30, 60), bos=1, eos=2, blank=0, pad_multiple=128,
+    sig_multiple=16000, precision="bf16",
+)
+TRAIN_REDUCED = {
+    "n_warmup_steps": "25000 -> 10",
+    "number_of_epochs": "120 -> 30 epochs of 2 micro-batches",
+    "data": "LibriSpeech 960 h -> 32 train and 16 valid synthetic "
+            "utterances of 8-12 s; token ids in place of BPE pieces",
+}
+
+
+class ASR(Brain):
+    """The recipe's Brain (``recipes/LibriSpeech/ASR/transformer/
+    train.py:31-123``) on the port: waveform -> Fbank -> sentence
+    normalisation -> convolutional front end -> ``pad_time_to_multiple``
+    -> TransformerASR -> CTC and seq heads -> 0.3 CTC + 0.7 label-smoothed
+    KL; Noam written into the optimizer after every applied update; after
+    every valid stage a line in the train log and a checkpoint kept by
+    the lowest valid loss (each where the Brain has a logger and a
+    checkpointer)."""
+
+    def compute_forward(self, batch, stage):
+        wavs, wav_lens = batch["sig"]
+        tokens_bos, _ = batch["tokens_bos"]
+        feats = self.hparams.compute_features(wavs)
+        feats = self.hparams.normalize(feats, wav_lens)
+        feats = self.modules.frontend(feats)
+        # relative lengths are rescaled, so masks and CTC input lengths
+        # stay exact
+        feats, wav_lens = pad_time_to_multiple(
+            feats, wav_lens, multiple=self.hparams.pad_multiple
+        )
+        enc, dec = self.modules.model(feats, tokens_bos, wav_len=wav_lens)
+        p_ctc = torch.log_softmax(self.modules.ctc_head(enc).float(), -1)
+        p_seq = torch.log_softmax(self.modules.seq_head(dec).float(), -1)
+        return p_ctc, p_seq, wav_lens
+
+    def compute_objectives(self, predictions, batch, stage):
+        p_ctc, p_seq, enc_lens = predictions
+        tokens, tok_lens = batch["tokens"]
+        tokens_eos, tok_eos_lens = batch["tokens_eos"]
+        w = self.hparams.ctc_weight
+        loss_ctc = ctc_loss(p_ctc, tokens, enc_lens, tok_lens,
+                            blank_index=self.hparams.blank_index)
+        loss_seq = kldiv_loss(p_seq, tokens_eos, length=tok_eos_lens,
+                              label_smoothing=self.hparams.label_smoothing)
+        return w * loss_ctc + (1 - w) * loss_seq
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        # Noam after every applied update: the first runs at lr_adam
+        if should_step:
+            _, new_lr = self.hparams.noam_scheduler(None)
+            update_learning_rate(self.optimizer, new_lr)
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        if stage == Stage.TRAIN:
+            return
+        self.log_stats(stage_loss, epoch)
+        if self.checkpointer is not None:
+            self.save_checkpoint(meta={"loss": stage_loss},
+                                 min_keys=["loss"])
+
+    def log_stats(self, stage_loss, epoch):
+        if hasattr(self.hparams, "train_logger"):
+            self.hparams.train_logger.log_stats(
+                stats_meta={"epoch": epoch,
+                            "lr": self.hparams.noam_scheduler.current_lr},
+                train_stats={"loss": self.train_loss},
+                valid_stats={"loss": stage_loss}, verbose=False,
+            )
+
+
+def make_asr_modules(cfg, device="cuda", seed=0, dropout=None):
+    """The recipe's four modules, random weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    drop = cfg["dropout"] if dropout is None else dropout
+    kw = dict(device=device, generator=gen)
+    n_feat = (cfg["n_mels"] + 3) // 4 * cfg["fe_channels"][-1]
+    return {
+        "frontend": ConvolutionFrontEnd(
+            num_blocks=2, out_channels=cfg["fe_channels"],
+            kernel_sizes=(3, 3), strides=(2, 2), dropout=drop, **kw,
+        ),
+        "model": TransformerASR(
+            tgt_vocab=cfg["vocab"], input_size=n_feat,
+            d_model=cfg["d_model"], nhead=cfg["nhead"],
+            num_encoder_layers=cfg["enc_layers"],
+            num_decoder_layers=cfg["dec_layers"], d_ffn=cfg["d_ffn"],
+            dropout=drop, encoder_module="conformer",
+            attention_type="RelPosMHAXL", kernel_size=cfg["kernel_size"],
+            **kw,
+        ),
+        "ctc_head": Linear(cfg["vocab"], cfg["d_model"], **kw),
+        "seq_head": Linear(cfg["vocab"], cfg["d_model"], **kw),
+    }
+
+
+def make_asr_hparams(cfg, out_dir=None, device="cuda"):
+    """The recipe's hparams that the Brain reads, built in Python (the
+    train logger writes into ``out_dir``, where one is given)."""
+    hparams = {
+        "compute_features": Fbank(n_mels=cfg["n_mels"], fused=True,
+                                  device=device),
+        "normalize": InputNormalization(norm_type="sentence"),
+        "ctc_weight": cfg["ctc_weight"],
+        "label_smoothing": cfg["label_smoothing"],
+        "blank_index": cfg["blank"],
+        "pad_multiple": cfg["pad_multiple"],
+        "noam_scheduler": NoamScheduler(
+            lr_initial=cfg["lr_adam"], n_warmup_steps=cfg["n_warmup_steps"]
+        ),
+        "epoch_counter": EpochCounter(cfg["epochs"]),
+    }
+    if out_dir is not None:
+        hparams["train_logger"] = FileTrainLogger(
+            os.path.join(out_dir, "train_log.txt")
+        )
+    return hparams
+
+
+def adamw(cfg):
+    """The recipe's optimizer, ``optax.adamw`` at ``lr_adam`` with its
+    defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every
+    parameter (``torch.optim.AdamW`` would default to 1e-2)."""
+    return lambda params: torch.optim.AdamW(
+        params, lr=cfg["lr_adam"], betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-4,
+    )
+
+
+def write_asr_corpus(cfg, out_dir, seed=0):
+    """Synthetic utterances as 16-bit PCM WAV files and JSON manifests
+    (``train.json``, ``valid.json``): each utterance holds one tone a
+    token, in equal segments, over noise 26 dB down, so that the targets
+    can be learnt. Returns the manifests' paths."""
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for split, n in (("train", cfg["n_train"]), ("valid", cfg["n_valid"])):
+        manifest = {}
+        for i in range(n):
+            secs = float(rng.uniform(*cfg["seconds"]))
+            T = int(SR * secs)
+            n_tok = int(rng.integers(cfg["n_tokens"][0],
+                                     cfg["n_tokens"][1] + 1))
+            tokens = rng.integers(3, cfg["vocab"], n_tok)
+            seg = np.arange(T) * n_tok // T
+            freq = 100.0 + 13.0 * (tokens[seg] % 500)
+            phase = 2 * np.pi * np.cumsum(freq) / SR
+            wav = 0.3 * np.sin(phase) + 0.015 * rng.standard_normal(T)
+            path = os.path.join(out_dir, f"{split}_{i:03d}.wav")
+            write_audio(path, wav.astype(np.float32), SR)
+            manifest[f"{split}_{i:03d}"] = {
+                "wav": path, "length": secs,
+                "tokens": " ".join(str(int(t)) for t in tokens),
+            }
+        paths[split] = os.path.join(out_dir, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(manifest, f)
+    return paths
+
+
+def asr_dataset(manifest, cfg, train):
+    """The recipe's data pipeline (``train.py:126-164``) over a manifest
+    whose ``tokens`` entry holds the ids in place of words: audio read
+    from the WAV file, and the ids as tokens, BOS + tokens, tokens +
+    EOS."""
+    ds = DynamicItemDataset.from_json(manifest)
+    if train:
+        ds = ds.filtered_sorted(sort_key="length")
+    ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
+
+    def tokens_pipeline(text):
+        ids = [int(t) for t in text.split()]
+        yield np.asarray(ids, np.int32)
+        yield np.asarray([cfg["bos"]] + ids, np.int32)
+        yield np.asarray(ids + [cfg["eos"]], np.int32)
+
+    ds.add_dynamic_item(tokens_pipeline, takes="tokens",
+                        provides=["tokens_ids", "tokens_bos", "tokens_eos"])
+    ds.set_output_keys({"id": "id", "sig": "sig", "tokens": "tokens_ids",
+                        "tokens_bos": "tokens_bos",
+                        "tokens_eos": "tokens_eos"})
+    return ds
+
+
+def asr_loader_kwargs(cfg, shuffle):
+    """The recipe's loader arguments (``train.py:206-209``)."""
+    return {"batch_size": cfg["batch_size"], "shuffle": shuffle,
+            "pad_to_multiple": {"sig": cfg["sig_multiple"]}}
 
 
 @contextlib.contextmanager
@@ -1303,13 +1530,441 @@ def profile_decode(cfg):
     })
 
 
+def profile_train(cfg, out_dir, datasets, steps=2):
+    """``--profile`` only: ``steps`` optimizer steps of the train path
+    timed without the profiler (after two warm-up steps), then the same
+    number under ``torch.profiler``: device time by kernel, B3's share,
+    and the device's busy share of the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = os.path.join(out_dir, "profile")  # no checkpoint to recover
+    os.makedirs(out_dir)
+    brain = train_brain(cfg, out_dir, brain_cls=ASR)
+    brain.on_fit_start()
+    brain.modules.train()
+    gaf = cfg["grad_accumulation_factor"]
+    loader = make_dataloader(datasets["train"],
+                             **asr_loader_kwargs(cfg, shuffle=True))
+
+    def epochs():
+        for epoch in itertools.count(1):
+            loader.set_epoch(epoch)
+            yield from loader
+
+    batches = epochs()
+
+    def run(n_steps):
+        for _ in range(n_steps * gaf):
+            brain.fit_batch(next(batches))
+        torch.cuda.synchronize()
+
+    run(2)
+    t0 = time.perf_counter()
+    run(steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    # device activity by name: kernels and copies, not the annotations
+    # (the optimizer's step) that the profiler mirrors onto the device
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    rows = sorted(((k, n, us) for k, (n, us) in by_name.items()),
+                  key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows) / 1e3
+    if device_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    b3 = [r for r in rows if "fused_fbank" in r[0]]
+    emit({
+        "phase": "profile_train", "optimizer_steps": steps,
+        "micro_batches": steps * gaf,
+        "wall_ms_unprofiled": wall_ms, "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "device_kernels": sum(r[1] for r in rows),
+        "fused_fbank_launches": sum(r[1] for r in b3),
+        "fused_fbank_ms": sum(r[2] for r in b3) / 1e3,
+        "top_kernels_name_count_ms": [
+            [r[0][:80], r[1], r[2] / 1e3] for r in rows[:15]
+        ],
+    })
+
+
+# -- the training path --------------------------------------------------
+
+class TimedASR(ASR):
+    """The recipe's Brain with the readings of ``train_path``: forward
+    passes a stage, each epoch's train loss, the optimizer steps' times by
+    CUDA events (from the first micro-batch of an accumulation window to
+    its update), the train stages' wall time and their audio seconds. It
+    saves no checkpoint after each valid stage (1.3 GB at full width);
+    ``train_checks`` saves and recovers one."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.forwards = {Stage.TRAIN: 0, Stage.VALID: 0}
+        self.epoch_losses = []
+        self.step_events = []
+        self.train_seconds = 0.0
+        self.audio_seconds = 0.0
+
+    def compute_forward(self, batch, stage):
+        self.forwards[stage] = self.forwards.get(stage, 0) + 1
+        return super().compute_forward(batch, stage)
+
+    def on_stage_start(self, stage, epoch=None):
+        if stage == Stage.TRAIN:
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+
+    def on_fit_batch_start(self, batch):
+        sig = batch["sig"]
+        self.audio_seconds += float(sig.lengths.sum()) * sig.data.shape[1] / SR
+        if self._micro_step % self.run_opts.grad_accumulation_factor == 0:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.step_events.append([start, None])
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        super().on_fit_batch_end(batch, outputs, loss, should_step)
+        if should_step:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.step_events[-1][1] = end
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        if stage == Stage.TRAIN:
+            torch.cuda.synchronize()
+            self.train_seconds += time.perf_counter() - self._t0
+            self.epoch_losses.append(stage_loss)
+        else:
+            self.log_stats(stage_loss, epoch)
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.step_events if b]
+
+
+def train_brain(cfg, out_dir, modules_seed=0, brain_cls=TimedASR,
+                device="cuda"):
+    """The recipe's Brain at ``cfg`` on the card, with a checkpointer of
+    the Noam scheduler and the epoch counter (the Brain adds itself, the
+    modules, the optimizer and the train loader)."""
+    hparams = make_asr_hparams(cfg, out_dir, device=device)
+    checkpointer = Checkpointer(
+        os.path.join(out_dir, "save"),
+        {"noam_scheduler": hparams["noam_scheduler"],
+         "counter": hparams["epoch_counter"]},
+    )
+    return brain_cls(
+        modules=make_asr_modules(cfg, device=device, seed=modules_seed),
+        opt_class=adamw(cfg), hparams=hparams,
+        run_opts={"device": device, "precision": cfg["precision"],
+                  "grad_accumulation_factor":
+                      cfg["grad_accumulation_factor"],
+                  "max_grad_norm": cfg["max_grad_norm"],
+                  "noprogressbar": True, "seed": 2024},
+        checkpointer=checkpointer,
+    )
+
+
+def run_train_path(cfg, out_dir, datasets, device="cuda"):
+    """``Brain.fit`` of the recipe at full width for ``cfg["epochs"]``
+    epochs, bf16 autocast, accumulation 2: kernel B3 must launch once a
+    forward pass, train and valid, and no other kernel at all."""
+    brain = train_brain(cfg, out_dir, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain.fit(brain.hparams.epoch_counter, datasets["train"],
+              datasets["valid"],
+              train_loader_kwargs=asr_loader_kwargs(cfg, shuffle=True),
+              valid_loader_kwargs=asr_loader_kwargs(cfg, shuffle=False))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_train = brain.forwards[Stage.TRAIN]
+    n_valid = brain.forwards[Stage.VALID]
+    per_epoch = (-(-cfg["n_train"] // cfg["batch_size"]),
+                 -(-cfg["n_valid"] // cfg["batch_size"]))
+    step_ms = brain.step_ms()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_train + n_valid
+    ok = (
+        counts == expected
+        and (n_train, n_valid) == tuple(cfg["epochs"] * n for n in per_epoch)
+        and brain.optimizer_step == n_train // cfg["grad_accumulation_factor"]
+        and len(step_ms) == brain.optimizer_step
+        and all(np.isfinite(brain.epoch_losses))
+    )
+    emit({
+        "phase": "train_path", "ok": bool(ok),
+        "recipe": "recipes/LibriSpeech/ASR/transformer/train.py with "
+                  "hparams/conformer_large.yaml",
+        "config": {k: v for k, v in cfg.items()}, "reduced": TRAIN_REDUCED,
+        "precision": "bf16 autocast, float32 parameters",
+        "micro_batches": n_train, "valid_batches": n_valid,
+        "optimizer_steps": brain.optimizer_step,
+        "fused_fbank_launches": counts["fused_fbank"],
+        "expected_launches": expected,
+        "step_ms_median_after_2": float(np.median(step_ms[2:])),
+        "step_ms_min_max_after_2": [float(min(step_ms[2:])),
+                                    float(max(step_ms[2:]))],
+        "train_seconds": brain.train_seconds,
+        "train_audio_seconds": brain.audio_seconds,
+        "train_audio_seconds_per_second":
+            brain.audio_seconds / brain.train_seconds,
+        "fit_seconds": fit_s,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "first_epoch_train_loss": brain.epoch_losses[0],
+        "last_epoch_train_loss": brain.epoch_losses[-1],
+        "epoch_train_losses": brain.epoch_losses,
+        "gpu_name_power_limit": gpu_name_power_limit(),
+    })
+    if not ok:
+        raise AssertionError("train_path: a check of the fit failed")
+    return brain
+
+
+# B3 against its plain version in one float32 training step: the features
+# differ by at most B3_ATOL dB (3e-3 read on the check signals), a few
+# 1e-4 of a frame's spread after the sentence normalisation; such a
+# perturbation moves the loss and each gradient in proportion. The loss
+# is held to 1e-4 relative; each parameter's gradient to 1e-2 of its
+# norm in L2, plus 1e-6 of the global gradient norm for tensors whose
+# gradient is zero up to rounding (the attention keys' biases), and all
+# gradients together to 1e-3.
+TRAIN_FP32_LOSS_RTOL = 1e-4
+TRAIN_FP32_GRAD_RTOL = 1e-2
+TRAIN_FP32_GLOBAL_RTOL = 1e-3
+
+
+def train_step_kernel_vs_plain(cfg, batch, device="cuda", seed=1):
+    """One float32 micro-batch of the recipe's Brain (dropout 0) from
+    identical weights, through B3 and through its plain version. Returns
+    the losses, the gradients' errors, and whether they are within the
+    tolerances above."""
+    brain = ASR(modules=make_asr_modules(cfg, device=device, seed=seed,
+                                         dropout=0.0),
+                hparams=make_asr_hparams(cfg, device=device),
+                run_opts={"device": device, "precision": "fp32"})
+    brain.modules.train()
+    batch = batch.to(device)
+
+    def step():
+        brain.modules.zero_grad(set_to_none=True)
+        loss = brain.compute_objectives(
+            brain.compute_forward(batch, Stage.TRAIN), batch, Stage.TRAIN
+        )
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad.detach().clone()
+            for n, p in brain.modules.named_parameters()
+        }
+
+    reset_launch_counts()
+    loss_k, grads_k = step()
+    kernel_launches = launch_counts()["fused_fbank"]
+    reset_launch_counts()
+    with plain_versions("fused_fbank"):
+        loss_p, grads_p = step()
+    plain_launches = launch_counts()["fused_fbank"]
+    norms = {n: float(g.norm()) for n, g in grads_p.items()}
+    errs = {n: float((grads_k[n] - g).norm()) for n, g in grads_p.items()}
+    global_norm = float(np.sqrt(sum(v * v for v in norms.values())))
+    global_err = float(np.sqrt(sum(v * v for v in errs.values())))
+    rel = {n: errs[n] / max(norms[n], 1e-30) for n in norms}
+    worst = max(rel, key=rel.get)
+    ok = (
+        kernel_launches == 1 and plain_launches == 0
+        and np.isfinite(loss_k) and np.isfinite(loss_p)
+        and abs(loss_k - loss_p) <= TRAIN_FP32_LOSS_RTOL * abs(loss_p)
+        and all(errs[n] <= TRAIN_FP32_GRAD_RTOL * norms[n]
+                + 1e-6 * global_norm for n in norms)
+        and global_err <= TRAIN_FP32_GLOBAL_RTOL * global_norm
+    )
+    return {
+        "ok": bool(ok), "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+        "grad_global_rel_err": global_err / global_norm,
+        "grad_worst_rel_err": rel[worst], "grad_worst_tensor": worst,
+        "grad_median_rel_err": float(np.median(list(rel.values()))),
+        "grad_tensors": len(rel), "kernel_launches": kernel_launches,
+        "plain_launches": plain_launches,
+        "tolerances": {"loss_rel": TRAIN_FP32_LOSS_RTOL,
+                       "grad_rel_a_tensor": TRAIN_FP32_GRAD_RTOL,
+                       "grad_abs_a_tensor": "1e-6 x global norm",
+                       "grad_global_rel": TRAIN_FP32_GLOBAL_RTOL},
+    }
+
+
+def _state_equal(a, b):
+    """Optimizer state dicts equal bit for bit."""
+    if a["param_groups"] != b["param_groups"] or a["state"].keys() != \
+            b["state"].keys():
+        return False
+    return all(
+        torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+        for k in a["state"] for x, y in zip(a["state"][k].values(),
+                                            b["state"][k].values())
+    )
+
+
+def run_train_checks(cfg, brain, out_dir, datasets, device="cuda"):
+    """Three checks after ``train_path``: the loss fell; a checkpoint
+    taken one batch into an epoch recovers into a fresh Brain bit for
+    bit; one float32 micro-batch through B3 and through its plain version
+    agree."""
+    first, last = brain.epoch_losses[0], brain.epoch_losses[-1]
+    falls = {"first_epoch": first, "last_epoch": last,
+             "ratio": last / first, "limit": 0.8, "ok": last < 0.8 * first}
+
+    loader = brain.checkpointer.recoverables["dataloader-TRAIN"]
+    counter = brain.hparams.epoch_counter
+    loader.set_epoch(counter.current)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    ckpt = brain.checkpointer.save_checkpoint(end_of_epoch=False)
+    save_s = time.perf_counter() - t0
+    next_ids = next(it).id
+    del it
+    fresh = train_brain(cfg, out_dir, modules_seed=7, brain_cls=ASR,
+                        device=device)
+    fresh_loader = fresh.make_dataloader(
+        datasets["train"], Stage.TRAIN, **asr_loader_kwargs(cfg, True)
+    )
+    t0 = time.perf_counter()
+    fresh.on_fit_start()  # builds the optimizer, recovers the checkpoint
+    load_s = time.perf_counter() - t0
+    fresh_counter = fresh.hparams.epoch_counter
+    fresh_loader.set_epoch(fresh_counter.current + 1)
+    params_equal = all(
+        torch.equal(p, q) for p, q in zip(brain.modules.parameters(),
+                                          fresh.modules.parameters())
+    )
+    noam, fresh_noam = (b.hparams.noam_scheduler for b in (brain, fresh))
+    trip = {
+        "files": sorted(p.name for p in ckpt.path.iterdir()),
+        "bytes": sum(p.stat().st_size for p in ckpt.path.iterdir()),
+        "save_seconds": save_s, "recover_seconds": load_s,
+        "parameters_bitwise_equal": params_equal,
+        "optimizer_state_bitwise_equal": _state_equal(
+            brain.optimizer.state_dict(), fresh.optimizer.state_dict()),
+        "noam_equal": (noam.n_steps, noam.current_lr)
+        == (fresh_noam.n_steps, fresh_noam.current_lr),
+        "brain_counters_equal": (brain.optimizer_step, brain._micro_step)
+        == (fresh.optimizer_step, fresh._micro_step),
+        "epoch_counter": [counter.current, fresh_counter.current],
+        "loader_next_batch_equal": next(iter(fresh_loader)).id == next_ids,
+    }
+    trip["ok"] = bool(
+        params_equal and trip["optimizer_state_bitwise_equal"]
+        and trip["noam_equal"] and trip["brain_counters_equal"]
+        and fresh_counter.current == counter.current - 1
+        and trip["loader_next_batch_equal"]
+    )
+    del fresh
+    torch.cuda.empty_cache()
+
+    batch = next(iter(make_train_loader(cfg, datasets)))
+    fp32 = train_step_kernel_vs_plain(cfg, batch, device=device)
+    ok = falls["ok"] and trip["ok"] and fp32["ok"]
+    emit({"phase": "train_checks", "ok": bool(ok), "loss_falls": falls,
+          "checkpoint_round_trip": trip,
+          "fp32_kernel_vs_plain_train": fp32,
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32}})
+    if not ok:
+        raise AssertionError("train_checks: a check failed")
+
+
+def make_train_loader(cfg, datasets):
+    return make_dataloader(datasets["train"],
+                           **asr_loader_kwargs(cfg, shuffle=False))
+
+
+def run_grad_guard():
+    """Each kernel's wrapper, given a CUDA input that requires grad with
+    grad mode on, raises (naming the plain version) and launches nothing;
+    under ``torch.no_grad()`` the same call launches its kernel once. Also
+    ``MultiheadAttention(use_pallas=True)`` in training mode with dropout
+    0, which PR 2-4 let through with its result cut off from the graph."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    fbank = Fbank(n_mels=80, fused=True)
+    mha = MultiheadAttention(nhead=4, d_model=256, use_pallas=True).train()
+    q = rand(2, 10, 4, 64)
+    cache = rand(2, 10, 16, 256)
+    anc = torch.zeros(2, 10, 16, dtype=torch.int32, device="cuda")
+    cases = {
+        "fused_fbank": ("fused_fbank", "fused_fbank_reference",
+                        lambda g: fbank(rand(2, 16000).requires_grad_(g))),
+        "ancestry_attention": (
+            "ancestry_attention", "ancestry_attention_reference",
+            lambda g: beam_attention.ancestry_attention(
+                q.clone().requires_grad_(g), cache, cache, anc, 5)),
+        "flash_attention": (
+            "flash_attention", "flash_attention_reference",
+            lambda g: attention.flash_attention(
+                *(rand(2, 4, 64, 64).requires_grad_(g) for _ in range(3)))),
+        "row_gather": (
+            "row_gather", "row_gather_reference",
+            lambda g: gather.row_gather(
+                rand(9, 512).requires_grad_(g),
+                torch.tensor([3, 1, 8], device="cuda"))),
+        "mha_use_pallas_training": (
+            "flash_attention", "flash_attention_reference",
+            lambda g: mha(*(rand(2, 64, 256).requires_grad_(g)
+                            for _ in range(3)))),
+    }
+    results, ok = {}, True
+    for case, (kernel, plain, call) in cases.items():
+        reset_launch_counts()
+        try:
+            call(True)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        refused = raised is not None and plain in raised
+        launched_when_refused = launch_counts()[kernel]
+        with torch.no_grad():
+            call(True)
+        launched_no_grad = launch_counts()[kernel] - launched_when_refused
+        results[case] = {"raised": refused,
+                         "launches_when_refused": launched_when_refused,
+                         "launches_under_no_grad": launched_no_grad}
+        ok = ok and refused and launched_when_refused == 0 \
+            and launched_no_grad == 1
+    emit({"phase": "grad_guard", "ok": bool(ok), "cases": results})
+    if not ok:
+        raise AssertionError("grad_guard: a wrapper let a graph through")
+
+
+def gpu_name_power_limit():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace one encode (B3 must launch once) and one beam "
-             "search with torch.profiler and print the device's busy "
-             "share and the heaviest kernels",
+        help="also trace two training steps, one encode (B3 must launch "
+             "once) and one beam search with torch.profiler and print the "
+             "device's busy share and the heaviest kernels",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1321,11 +1976,7 @@ def main():
     # like with like
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = gpu_name_power_limit()
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -1339,6 +1990,7 @@ def main():
     err_b3 = check_b3()
     err_b2 = check_b2()
     err_b4 = check_b4()
+    run_grad_guard()
     main_pipe, main_run = run_transcribe_path(NORTH, ancestry=True)
     run_fp32_comparison(NORTH, ancestry=True)
     _, perm_run = run_transcribe_path(NORTH, ancestry=False)
@@ -1355,8 +2007,27 @@ def main():
         measure_b4(NORTH, perm_run, err_b4),
     ]
     del flash_shapes
-    if args.profile:
-        profile_decode(NORTH)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        paths = write_asr_corpus(TRAIN, out_dir)
+        datasets = {split: asr_dataset(path, TRAIN, train=split == "train")
+                    for split, path in paths.items()}
+        brain = run_train_path(TRAIN, out_dir, datasets)
+        kernels[1]["launches_by_path"] = {
+            "main_path": main_launches["fused_fbank"],
+            "permute_path": perm_run["launches"]["fused_fbank"],
+            "train_path": brain.forwards[Stage.TRAIN]
+            + brain.forwards[Stage.VALID],
+        }
+        run_train_checks(TRAIN, brain, out_dir, datasets)
+        del brain
+        torch.cuda.empty_cache()
+        if args.profile:
+            # the decode's traces first: the encode's trace (device
+            # activity only) recorded nothing when it followed the
+            # training's (host and device; torch 2.11 on an H100)
+            profile_decode(NORTH)
+            profile_train(TRAIN, out_dir, datasets)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,0 +1,531 @@
+"""The Brain training engine (port of ``speechbrain_tpu/core.py``:
+``Stage``, ``RunOptions``, ``create_experiment_directory``, ``Brain``).
+
+In PyTorch's idiom: ``modules`` is an ``nn.ModuleDict`` on one device
+(``run_opts["device"]``, ``"cuda"`` by default); ``opt_class`` is a
+``params -> torch.optim.Optimizer`` factory; subclasses override
+``compute_forward(batch, stage)`` and ``compute_objectives(predictions,
+batch, stage)``. The epoch loop, its hooks, the loss reporting and the
+checkpoint cadence are the JAX package's, and so is the update:
+
+* each micro-batch's gradients are clipped to global norm
+  ``max_grad_norm`` (``scale = min(1, max_norm / (norm + 1e-6))``), and
+  with ``grad_accumulation_factor`` k the optimizer steps on the **mean**
+  of k clipped gradients, as ``optax.MultiSteps`` after the JAX step's
+  clip;
+* a micro-batch whose loss (with ``skip_nonfinite_grads``, or whose
+  gradient norm) is not finite leaves the parameters, the optimizer's
+  state and the accumulation window as they were;
+* ``fit_batch`` returns the previous micro-batch's loss, and the epoch's
+  tail is drained at its end, so ``avg_train_loss`` averages the same
+  losses in the same order;
+* ``precision="bf16"`` runs ``compute_forward`` under ``torch.autocast``
+  with bfloat16, parameters in float32 (the JAX package instead casts
+  every float input, the waveform too, to bfloat16).
+
+Not ported: meshes and several hosts, GAN steps, checkpoint averaging,
+the profiler, device-side loss accumulation (``loss_sync_interval``).
+"""
+
+import inspect
+import json
+import logging
+import os
+import shutil
+import sys
+import time
+from dataclasses import dataclass
+from enum import Enum, auto
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from speechbrain_tpu_torch.dataio.dataloader import (
+    SaveableDataLoader,
+    make_dataloader,
+)
+from speechbrain_tpu_torch.utils.autocast import autocast
+from speechbrain_tpu_torch.utils.checkpoints import (
+    mark_as_loader,
+    mark_as_saver,
+    register_checkpoint_hooks,
+)
+
+logger = logging.getLogger(__name__)
+
+INTRA_EPOCH_CKPT_FLAG = "brain_intra_epoch_ckpt"
+
+
+class Stage(Enum):
+    """Current phase of an experiment: TRAIN, VALID or TEST."""
+
+    TRAIN = auto()
+    VALID = auto()
+    TEST = auto()
+
+
+@dataclass
+class RunOptions:
+    """Runtime controls (the JAX package's, less its mesh and jit
+    fields)."""
+
+    debug: bool = False
+    debug_batches: int = 2
+    debug_epochs: int = 2
+    device: str = "cuda"
+    precision: str = "fp32"  # "fp32" | "bf16" | "fp16"
+    eval_precision: str = "fp32"  # for VALID and TEST
+    max_grad_norm: float = 5.0
+    skip_nonfinite_grads: bool = False  # also skip on a nonfinite norm
+    grad_accumulation_factor: int = 1
+    optimizer_step_limit: int = None  # stop after N optimizer updates
+    nonfinite_patience: int = 3
+    ckpt_interval_minutes: float = 0.0
+    ckpt_interval_steps: int = 0
+    noprogressbar: bool = False
+    seed: int = 563375142
+
+    @classmethod
+    def from_dict(cls, d):
+        valid = set(cls.__dataclass_fields__)
+        return cls(**{k: v for k, v in d.items() if k in valid})
+
+
+def create_experiment_directory(experiment_directory,
+                                hyperparams_to_save=None, overrides={}):
+    """Create the output directory, copy the hyperparameter file (with
+    the overrides beside it, as JSON) and the calling script into it,
+    describe the environment in ``env.log`` and log to ``log.txt``."""
+    os.makedirs(experiment_directory, exist_ok=True)
+    if hyperparams_to_save is not None:
+        shutil.copy(hyperparams_to_save,
+                    os.path.join(experiment_directory, "hyperparams.yaml"))
+        if overrides:
+            with open(os.path.join(experiment_directory, "overrides.json"),
+                      "w", encoding="utf-8") as w:
+                json.dump(overrides, w)
+    module = inspect.getmodule(inspect.currentframe().f_back)
+    callingfile = getattr(module, "__file__", None)
+    if callingfile and os.path.isfile(callingfile):
+        shutil.copy(callingfile, os.path.join(
+            experiment_directory, os.path.basename(callingfile)))
+    handler = logging.FileHandler(
+        os.path.join(experiment_directory, "log.txt"), encoding="utf-8"
+    )
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
+    ))
+    logging.getLogger().addHandler(handler)
+    with open(os.path.join(experiment_directory, "env.log"), "w",
+              encoding="utf-8") as f:
+        f.write(f"Python: {sys.version}\ntorch: {torch.__version__}\n"
+                f"CUDA: {torch.version.cuda}\n")
+
+
+@register_checkpoint_hooks
+class Brain:
+    """Generic training engine: override ``compute_forward`` and
+    ``compute_objectives``.
+
+    Arguments
+    ---------
+    modules : dict[str, nn.Module]
+        The model's parts, moved into ``self.modules``, an
+        ``nn.ModuleDict`` on ``run_opts["device"]``.
+    opt_class : callable, optional
+        ``params -> torch.optim.Optimizer``, called with
+        ``self.modules.parameters()`` at the start of ``fit``.
+    hparams : dict, optional
+        Exposed as ``self.hparams.<key>``; a key named like a run option
+        sets it where ``run_opts`` does not.
+    run_opts : dict | RunOptions, optional
+    checkpointer : Checkpointer, optional
+        Gets the Brain's counters, the modules, the optimizer and the
+        train loader as recoverables.
+
+    Hooks, called in the JAX package's order: ``on_fit_start``,
+    ``on_stage_start``/``on_stage_end``, ``on_fit_batch_start``/
+    ``on_fit_batch_end(batch, outputs, loss, should_step)``,
+    ``on_evaluate_start``.
+    """
+
+    def __init__(self, modules=None, opt_class=None, hparams=None,
+                 run_opts=None, checkpointer=None):
+        if isinstance(run_opts, RunOptions):
+            self.run_opts = run_opts
+        else:
+            self.run_opts = RunOptions.from_dict(run_opts or {})
+        if isinstance(hparams, dict) and isinstance(run_opts, dict):
+            for opt in RunOptions.__dataclass_fields__:
+                if opt in hparams and opt not in run_opts:
+                    setattr(self.run_opts, opt, hparams[opt])
+        self.device = torch.device(self.run_opts.device)
+        self.modules = torch.nn.ModuleDict(modules or {}).to(self.device)
+        self.opt_class = opt_class
+        self.hparams = SimpleNamespace(**(hparams or {}))
+        self.checkpointer = checkpointer
+        self.optimizer = None
+        self.step = 0  # batch within the current stage
+        self.optimizer_step = 0  # optimizer updates applied in all
+        self._micro_step = 0  # micro-batches seen
+        self._pending_loss = None  # the loss reported one call late
+        self._window = None  # running mean of the window's gradients
+        self._window_count = 0  # micro-batches in the window
+        self.avg_train_loss = 0.0
+        self.nonfinite_count = 0
+        self.last_ckpt_time = time.time()
+        # dropout draws from torch's generator of the device
+        if self.device.type == "cuda":
+            torch.cuda.manual_seed(self.run_opts.seed)
+        else:
+            torch.default_generator.manual_seed(self.run_opts.seed)
+        if self.checkpointer is not None:
+            self.checkpointer.add_recoverable("brain", self)
+            self.checkpointer.add_recoverable("modules", self.modules)
+
+    # -- override points -------------------------------------------------
+    def compute_forward(self, batch, stage):
+        """Forward pass: return the predictions."""
+        raise NotImplementedError
+
+    def compute_objectives(self, predictions, batch, stage):
+        """Return a scalar loss, or ``(loss, metrics dict)``."""
+        raise NotImplementedError
+
+    def on_stage_start(self, stage, epoch=None):
+        pass
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        pass
+
+    def on_fit_start(self):
+        """Build the optimizer and recover the newest checkpoint, if
+        any."""
+        self.init_optimizers()
+        if self.checkpointer is not None:
+            self.checkpointer.recover_if_possible()
+
+    def on_fit_batch_start(self, batch):
+        pass
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        pass
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        if self.checkpointer is not None:
+            self.checkpointer.recover_if_possible(max_key=max_key,
+                                                  min_key=min_key)
+
+    def init_optimizers(self):
+        """Build the optimizer from ``opt_class`` (once) and register it
+        with the checkpointer."""
+        if self.opt_class is None or self.optimizer is not None:
+            return
+        self.optimizer = self.opt_class(self.modules.parameters())
+        if self.checkpointer is not None:
+            self.checkpointer.add_recoverable("optimizer", self.optimizer)
+
+    # -- checkpoint of the Brain's own state ------------------------------
+    @mark_as_saver
+    def _save(self, path):
+        torch.save({
+            "step": self.step,
+            "optimizer_step": self.optimizer_step,
+            "micro_step": self._micro_step,
+            "avg_train_loss": self.avg_train_loss,
+            "window_count": self._window_count,
+            "window": self._window,
+        }, path)
+
+    @mark_as_loader
+    def _recover(self, path, end_of_epoch):
+        saved = torch.load(path, map_location=self.device, weights_only=True)
+        self.step = saved["step"]
+        self.optimizer_step = saved["optimizer_step"]
+        self._micro_step = saved["micro_step"]
+        self.avg_train_loss = saved["avg_train_loss"]
+        self._window_count = saved["window_count"]
+        self._window = saved["window"]
+        if end_of_epoch:
+            self.step = 0
+
+    # -- one batch --------------------------------------------------------
+    def _prepare_batch(self, batch):
+        return batch.to(self.device) if hasattr(batch, "to") else batch
+
+    def _objectives(self, predictions, batch, stage):
+        objectives = self.compute_objectives(predictions, batch, stage)
+        if isinstance(objectives, tuple):
+            return objectives
+        return objectives, {}
+
+    def _params_with_grads(self):
+        return [p for p in self.modules.parameters() if p.requires_grad]
+
+    def fit_batch(self, batch):
+        """One training micro-batch: forward, backward, this micro-batch's
+        clip, accumulation, and every k-th call the optimizer's update.
+
+        Returns the PREVIOUS call's loss as a Python float (None on the
+        first call of an epoch), as the JAX package does.
+        """
+        batch = self._prepare_batch(batch)
+        with autocast(self.run_opts.precision, self.device):
+            predictions = self.compute_forward(batch, Stage.TRAIN)
+        loss, metrics = self._objectives(predictions, batch, Stage.TRAIN)
+        params = self._params_with_grads()
+        for p in params:
+            p.grad = None
+        if bool(torch.isfinite(loss)):
+            loss.backward()
+            self._accumulate(params, [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in params
+            ])
+        for p in params:
+            p.grad = None
+        gaf = max(1, self.run_opts.grad_accumulation_factor)
+        self._micro_step += 1
+        should_step = self._micro_step % gaf == 0
+        if should_step:
+            self.optimizer_step += 1
+        loss = loss.detach()
+        self.on_fit_batch_end(batch, metrics, loss, should_step)
+        pending, self._pending_loss = self._pending_loss, loss
+        if pending is None:
+            return None
+        return self._host_loss(pending)
+
+    def _accumulate(self, params, grads):
+        """Clip this micro-batch's gradients, fold them into the window's
+        running mean, and update when the window is full. Returns False,
+        changing nothing, where the gradient norm is not finite and
+        ``skip_nonfinite_grads`` is set."""
+        max_norm = self.run_opts.max_grad_norm
+        if (max_norm and max_norm > 0) or self.run_opts.skip_nonfinite_grads:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))
+            )
+            if self.run_opts.skip_nonfinite_grads and not bool(
+                    torch.isfinite(norm)):
+                return False
+            if max_norm and max_norm > 0:
+                scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+                torch._foreach_mul_(grads, scale)
+        gaf = max(1, self.run_opts.grad_accumulation_factor)
+        if gaf == 1:
+            mean = grads
+        else:
+            if self._window is None:
+                self._window = [torch.zeros_like(g) for g in grads]
+            self._window_count += 1
+            # running mean, acc + (g - acc) / n, as optax.MultiSteps
+            torch._foreach_lerp_(self._window, grads,
+                                 1.0 / self._window_count)
+            if self._window_count < gaf:
+                return True
+            mean = self._window
+        for p, g in zip(params, mean):
+            p.grad = g
+        self.optimizer.step()
+        for p in params:
+            p.grad = None
+        if gaf > 1:
+            self._window = None
+            self._window_count = 0
+        return True
+
+    def _host_loss(self, loss):
+        """The loss as a Python float, with the nonfinite patience."""
+        loss = float(loss)
+        if not np.isfinite(loss):
+            self.nonfinite_count += 1
+            logger.warning("Loss is %s. Update skipped (patience %d/%d).",
+                           loss, self.nonfinite_count,
+                           self.run_opts.nonfinite_patience)
+            if self.nonfinite_count > self.run_opts.nonfinite_patience:
+                raise ValueError(
+                    "Loss is not finite and patience is exhausted."
+                )
+            return self.avg_train_loss
+        return loss
+
+    def _flush_pending_loss(self):
+        pending, self._pending_loss = self._pending_loss, None
+        return None if pending is None else self._host_loss(pending)
+
+    @torch.no_grad()
+    def evaluate_batch(self, batch, stage):
+        """One forward-only batch; returns the loss as a Python float."""
+        batch = self._prepare_batch(batch)
+        with autocast(self.run_opts.eval_precision, self.device):
+            predictions = self.compute_forward(batch, stage)
+        loss, _ = self._objectives(predictions, batch, stage)
+        return float(loss)
+
+    # -- loops ------------------------------------------------------------
+    def make_dataloader(self, dataset, stage, ckpt_prefix="dataloader-",
+                        **loader_kwargs):
+        """A loader of ``dataset``; the TRAIN one is registered with the
+        checkpointer, so that an epoch resumes on its next batch."""
+        if isinstance(dataset, SaveableDataLoader):
+            return dataset
+        dataloader = make_dataloader(dataset, **loader_kwargs)
+        if (self.checkpointer is not None and ckpt_prefix is not None
+                and stage == Stage.TRAIN):
+            self.checkpointer.add_recoverable(ckpt_prefix + stage.name,
+                                              dataloader)
+        return dataloader
+
+    def fit(self, epoch_counter, train_set, valid_set=None,
+            progressbar=None, train_loader_kwargs={},
+            valid_loader_kwargs={}):
+        """The training loop: for each epoch, a TRAIN stage over
+        ``train_set`` and a VALID stage over ``valid_set``."""
+        if not isinstance(train_set, SaveableDataLoader):
+            train_set = self.make_dataloader(train_set, stage=Stage.TRAIN,
+                                             **train_loader_kwargs)
+        if valid_set is not None and not isinstance(valid_set,
+                                                    SaveableDataLoader):
+            valid_set = self.make_dataloader(
+                valid_set, stage=Stage.VALID, ckpt_prefix=None,
+                **valid_loader_kwargs,
+            )
+        self.on_fit_start()
+        if progressbar is None:
+            progressbar = not self.run_opts.noprogressbar
+        for epoch in epoch_counter:
+            self._fit_train(train_set, epoch, progressbar)
+            self._fit_valid(valid_set, epoch, progressbar)
+            if self.run_opts.debug and epoch == self.run_opts.debug_epochs:
+                break
+            if self._step_limit_reached():
+                logger.info("Reached optimizer_step_limit (%d); stopping.",
+                            self.run_opts.optimizer_step_limit)
+                break
+
+    def _debug_stop(self):
+        opts = self.run_opts
+        return opts.debug and self.step == opts.debug_batches
+
+    def _step_limit_reached(self):
+        limit = self.run_opts.optimizer_step_limit
+        return limit is not None and self.optimizer_step >= limit
+
+    def _add_train_loss(self, loss):
+        self._loss_count += 1
+        self.avg_train_loss += (loss - self.avg_train_loss) / self._loss_count
+
+    def _fit_train(self, train_set, epoch, enable):
+        self.modules.train()
+        self.on_stage_start(Stage.TRAIN, epoch)
+        if hasattr(train_set, "set_epoch"):
+            train_set.set_epoch(epoch)
+        self.avg_train_loss = 0.0
+        self.nonfinite_count = 0
+        self._loss_count = 0
+        self._pending_loss = None
+        t = _progress(train_set, enable, f"Epoch {epoch} TRAIN")
+        for self.step, batch in enumerate(t, start=1):
+            self.on_fit_batch_start(batch)
+            loss = self.fit_batch(batch)
+            if loss is not None:
+                self._add_train_loss(loss)
+            if hasattr(t, "set_postfix"):
+                t.set_postfix(train_loss=self.avg_train_loss)
+            if self._debug_stop():
+                break
+            if self._step_limit_reached():
+                break
+            if self._should_save_intra_epoch_ckpt():
+                self._save_intra_epoch_ckpt()
+        loss = self._flush_pending_loss()
+        if loss is not None:
+            self._add_train_loss(loss)
+        self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
+        self.train_loss = self.avg_train_loss
+        self.avg_train_loss = 0.0
+        self.step = 0
+
+    def _fit_valid(self, valid_set, epoch, enable):
+        if valid_set is None:
+            return
+        self.modules.eval()
+        self.on_stage_start(Stage.VALID, epoch)
+        avg_valid_loss = 0.0
+        t = _progress(valid_set, enable, f"Epoch {epoch} VALID")
+        for self.step, batch in enumerate(t, start=1):
+            loss = self.evaluate_batch(batch, stage=Stage.VALID)
+            avg_valid_loss = self.update_average(loss, avg_valid_loss)
+            if self._debug_stop():
+                break
+        self.on_stage_end(Stage.VALID, avg_valid_loss, epoch)
+        self.step = 0
+
+    def evaluate(self, test_set, max_key=None, min_key=None,
+                 progressbar=None, test_loader_kwargs={}):
+        """Evaluation over a test set, after recovering the best
+        checkpoint by ``max_key``/``min_key``; returns the mean loss."""
+        if progressbar is None:
+            progressbar = not self.run_opts.noprogressbar
+        if not isinstance(test_set, SaveableDataLoader):
+            test_set = self.make_dataloader(test_set, Stage.TEST,
+                                            ckpt_prefix=None,
+                                            **test_loader_kwargs)
+        self.on_evaluate_start(max_key=max_key, min_key=min_key)
+        self.modules.eval()
+        self.on_stage_start(Stage.TEST, epoch=None)
+        avg_test_loss = 0.0
+        t = _progress(test_set, progressbar, "TEST")
+        for self.step, batch in enumerate(t, start=1):
+            loss = self.evaluate_batch(batch, stage=Stage.TEST)
+            avg_test_loss = self.update_average(loss, avg_test_loss)
+            if self._debug_stop():
+                break
+        self.on_stage_end(Stage.TEST, avg_test_loss, None)
+        self.step = 0
+        return avg_test_loss
+
+    # -- checkpoints inside an epoch ---------------------------------------
+    def _should_save_intra_epoch_ckpt(self):
+        if self.checkpointer is None:
+            return False
+        if self.run_opts.ckpt_interval_minutes > 0:
+            elapsed = (time.time() - self.last_ckpt_time) / 60.0
+            if elapsed >= self.run_opts.ckpt_interval_minutes:
+                return True
+        steps = self.run_opts.ckpt_interval_steps
+        return steps > 0 and self.optimizer_step % steps == 0
+
+    def _save_intra_epoch_ckpt(self):
+        self.checkpointer.save_and_keep_only(
+            end_of_epoch=False, num_to_keep=1,
+            ckpt_predicate=lambda c: INTRA_EPOCH_CKPT_FLAG in c.meta,
+            meta={INTRA_EPOCH_CKPT_FLAG: True}, verbosity=False,
+        )
+        self.last_ckpt_time = time.time()
+
+    def save_checkpoint(self, meta={}, end_of_epoch=True, **kwargs):
+        """Save through the checkpointer, keeping what ``kwargs`` say."""
+        return self.checkpointer.save_and_keep_only(
+            meta=meta, end_of_epoch=end_of_epoch, **kwargs
+        )
+
+    def update_average(self, loss, avg_loss):
+        """Running average over the current stage."""
+        if np.isfinite(loss) and self.step > 0:
+            avg_loss -= avg_loss / self.step
+            avg_loss += loss / self.step
+        return avg_loss
+
+
+def _progress(iterable, enable, desc):
+    if enable:
+        try:
+            from tqdm import tqdm
+
+            return tqdm(iterable, desc=desc, dynamic_ncols=True)
+        except ImportError:
+            pass
+    return iterable

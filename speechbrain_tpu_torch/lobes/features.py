@@ -9,6 +9,7 @@ from speechbrain_tpu_torch.ops.mel_frontend import (
     kernel_operands,
 )
 from speechbrain_tpu_torch.processing.features import STFT, Filterbank
+from speechbrain_tpu_torch.utils.autocast import fwd_default_precision
 
 
 class Fbank:
@@ -54,7 +55,10 @@ class Fbank:
                 *self._tables, self.compute_fbanks.fbank_matrix
             )
 
+    @fwd_default_precision
     def __call__(self, wav):
+        # float32 under autocast too: the kernel takes float32 only, and
+        # the plain and unfused versions then compute as it does
         if self.fused:
             return fused_fbank(
                 wav,

@@ -35,6 +35,8 @@ def scaled_dot_product_attention(q, k, v, mask_bias=None, dropout_rate=0.0,
     flash-attention kernel instead (``ops/attention.py``) and returns
     ``(out, None)``: the weights are not materialised, and attention
     dropout is not applied, so it refuses a training call with dropout.
+    The kernel has no backward either: on inputs that require grad it
+    raises (``ops.refuse_autograd``).
     """
     if use_pallas:
         if training and dropout_rate > 0.0:

@@ -1,0 +1,99 @@
+"""Learning-rate schedulers (port of ``NoamScheduler`` and
+``update_learning_rate`` from ``speechbrain_tpu/nnet/schedulers.py``).
+
+A scheduler is stepped by hand and its learning rate written into a
+``torch.optim`` optimizer with :func:`update_learning_rate`. Schedulers
+are checkpointable.
+"""
+
+import json
+
+from speechbrain_tpu_torch.utils.checkpoints import (
+    mark_as_loader,
+    mark_as_saver,
+    register_checkpoint_hooks,
+)
+
+
+def update_learning_rate(optimizer, new_lr, group=None):
+    """Set ``lr`` in ``optimizer``'s param groups: every group, or with
+    ``group`` the one whose ``"name"`` entry equals it. Returns the
+    optimizer.
+
+    Example
+    -------
+    >>> import torch
+    >>> p = torch.nn.Parameter(torch.zeros(2))
+    >>> opt = torch.optim.SGD([{"params": [p], "name": "head"}], lr=1.0)
+    >>> update_learning_rate(opt, 0.5, group="head").param_groups[0]["lr"]
+    0.5
+    """
+    groups = optimizer.param_groups
+    if group is not None:
+        groups = [g for g in groups if g.get("name") == group]
+        if not groups:
+            raise ValueError(f"No param group {group!r} in the optimizer")
+    for g in groups:
+        g["lr"] = new_lr
+    return optimizer
+
+
+def _save_attrs(obj, path, attrs):
+    with open(path, "w") as f:
+        json.dump({a: getattr(obj, a) for a in attrs}, f)
+
+
+def _load_attrs(obj, path, attrs):
+    with open(path) as f:
+        data = json.load(f)
+    for a in attrs:
+        if a in data:
+            setattr(obj, a, data[a])
+
+
+@register_checkpoint_hooks
+class NoamScheduler:
+    """Warm up, then decay as the inverse square root of the step.
+
+    ``sch(None)`` advances one step and returns ``(old_lr, new_lr)``;
+    ``sch(step)`` with an int returns that step's rate and changes
+    nothing.
+
+    Example
+    -------
+    >>> sch = NoamScheduler(lr_initial=1.0, n_warmup_steps=2)
+    >>> _ = sch(None); _ = sch(None); old, new = sch(None)
+    >>> round(new, 3) <= 1.0
+    True
+    """
+
+    def __init__(self, lr_initial, n_warmup_steps, model_size=None):
+        self.lr_initial = lr_initial
+        self.n_warmup_steps = n_warmup_steps
+        self.current_lr = lr_initial
+        self.n_steps = 0
+        self.normalize = n_warmup_steps**0.5
+        if model_size is not None:
+            self.normalize = model_size ** (-0.5)
+
+    def _get_lr_scale(self, step):
+        step = max(1, step)
+        return self.normalize * min(
+            step ** (-0.5), step * self.n_warmup_steps ** (-1.5)
+        )
+
+    def __call__(self, opt_or_step=None):
+        if isinstance(opt_or_step, int):
+            return self.lr_initial * self._get_lr_scale(opt_or_step)
+        self.n_steps += 1
+        old = self.current_lr
+        self.current_lr = self.lr_initial * self._get_lr_scale(self.n_steps)
+        return old, self.current_lr
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["current_lr", "n_steps"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=False):
+        _load_attrs(self, path, ["current_lr", "n_steps"])

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from speechbrain_tpu_torch.ops import refuse_autograd
 from speechbrain_tpu_torch.ops._build import load_library
 
 # head dims the CUDA kernel is instantiated for
@@ -71,6 +72,7 @@ def _check_operand(name, t, shape, dtype, device):
 def _flash_attention_cuda(q, k, v, bias=None):
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
     global launches
+    refuse_autograd("flash_attention_reference", q, k, v, bias)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q must be (B, H, Tq, D), k and v (B, H, Tk, D)")
     B, H, Tq, D = q.shape

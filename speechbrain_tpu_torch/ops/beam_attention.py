@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from speechbrain_tpu_torch.ops import refuse_autograd
 from speechbrain_tpu_torch.ops._build import load_library
 
 NEG_INF = -1e30
@@ -96,6 +97,7 @@ def _check(name, t, shape, dtype):
 def _ancestry_attention_cuda(q, k_cache, v_cache, anc, step):
     """Launch ``csrc/beam_attention.cu`` on PyTorch's current stream."""
     global launches
+    refuse_autograd("ancestry_attention_reference", q, k_cache, v_cache)
     if q.ndim != 4 or k_cache.ndim != 4:
         raise ValueError("q must be (B, K, H, hd), caches (B, K, L, D)")
     B, K, L, D = k_cache.shape

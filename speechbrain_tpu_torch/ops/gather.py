@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from speechbrain_tpu_torch.ops import refuse_autograd
 from speechbrain_tpu_torch.ops._build import load_library
 
 # number of kernel launches made by this process (the plain version does
@@ -44,6 +45,7 @@ def row_gather_reference(x, idx):
 def _row_gather_cuda(x, idx):
     """Launch ``csrc/row_gather.cu`` on PyTorch's current stream."""
     global launches
+    refuse_autograd("row_gather_reference", x)
     if not x.is_cuda or not idx.is_cuda:
         raise ValueError("x and idx must both be CUDA tensors")
     if x.device != idx.device:

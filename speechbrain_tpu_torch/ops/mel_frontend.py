@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from speechbrain_tpu_torch.ops import refuse_autograd
 from speechbrain_tpu_torch.ops._build import load_library
 
 # number of kernel launches made by this process (the plain version does
@@ -157,6 +158,9 @@ def _fused_fbank_cuda(wav, cos_m, sin_m, fbank_matrix, n_fft, hop_length,
     operands are ``operands`` (:func:`kernel_operands` of these tables and
     matrix), or are made here."""
     global launches
+    refuse_autograd(
+        "fused_fbank_reference", wav, cos_m, sin_m, fbank_matrix
+    )
     n_freq = n_fft // 2 + 1
     if wav.ndim != 2:
         raise ValueError("wav must be (batch, time)")

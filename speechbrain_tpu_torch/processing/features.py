@@ -1,9 +1,10 @@
 """Low-level feature pipeline (port of the part of
-``speechbrain_tpu/processing/features.py`` that ``Fbank`` needs):
-windows, framing, ``STFT`` with its real power spectrogram, the mel
-filter matrix and ``Filterbank`` with dB compression and the
-per-sequence ``top_db`` clamp. Constants are built in numpy, exactly as
-the JAX package builds them, and moved to the device once.
+``speechbrain_tpu/processing/features.py`` that ``Fbank`` and training
+need): windows, framing, ``STFT`` with its real power spectrogram, the
+mel filter matrix, ``Filterbank`` with dB compression and the
+per-sequence ``top_db`` clamp, and ``InputNormalization``. Constants are
+built in numpy, exactly as the JAX package builds them, and moved to the
+device once.
 """
 
 import math
@@ -11,6 +12,13 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from speechbrain_tpu_torch.utils.autocast import fwd_default_precision
+from speechbrain_tpu_torch.utils.checkpoints import (
+    mark_as_loader,
+    mark_as_saver,
+    register_checkpoint_hooks,
+)
 
 
 def _ms_to_samples(sample_rate, ms):
@@ -182,3 +190,91 @@ class Filterbank:
         # per-sequence max over (time, mel), clamp to max - top_db
         maxes = torch.amax(x_db, dim=(-2, -1), keepdim=True)
         return torch.maximum(x_db, maxes - self.top_db)
+
+
+@register_checkpoint_hooks
+class InputNormalization:
+    """Mean and variance normalisation over time, per sentence, over the
+    batch, or with global statistics kept as a running average and
+    checkpointed. Statistics are masked by the relative lengths; the
+    ``"speaker"`` type is not ported yet.
+
+    Example
+    -------
+    >>> norm = InputNormalization(norm_type="sentence")
+    >>> norm(torch.ones(2, 10, 5), torch.ones(2)).shape
+    torch.Size([2, 10, 5])
+    """
+
+    def __init__(self, mean_norm=True, std_norm=True, norm_type="global",
+                 avg_factor=None, update_until_epoch=2, epsilon=1e-10):
+        if norm_type == "speaker":
+            raise NotImplementedError(
+                "InputNormalization(norm_type='speaker') is not ported yet"
+            )
+        if norm_type not in ("sentence", "batch", "global"):
+            raise ValueError(f"Unknown norm_type {norm_type}")
+        self.mean_norm = mean_norm
+        self.std_norm = std_norm
+        self.norm_type = norm_type
+        self.avg_factor = avg_factor
+        self.update_until_epoch = update_until_epoch
+        self.epsilon = epsilon
+        self.glob_mean = torch.tensor(0.0)
+        self.glob_std = torch.tensor(1.0)
+        self.count = 0
+
+    def _masked_moments(self, x, lengths):
+        """Per-sentence masked mean and std over time: (B, 1, ...)."""
+        T = x.shape[1]
+        valid = torch.round(lengths * T)
+        mask = (torch.arange(T, device=x.device)[None, :]
+                < valid[:, None]).to(x.dtype)
+        mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+        denom = mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+        mean = (x * mask).sum(dim=1, keepdim=True) / denom
+        var = (((x - mean) ** 2) * mask).sum(dim=1, keepdim=True) / denom
+        return mean, torch.sqrt(var + self.epsilon)
+
+    @fwd_default_precision
+    def __call__(self, x, lengths, spk_ids=None, epoch=None):
+        mean, std = self._masked_moments(x, lengths)
+        if not self.mean_norm:
+            mean = torch.zeros_like(mean)
+        if not self.std_norm:
+            std = torch.ones_like(std)
+        if self.norm_type == "sentence":
+            return (x - mean) / std
+        if self.norm_type == "batch":
+            return (x - mean.mean(dim=0, keepdim=True)) / std.mean(
+                dim=0, keepdim=True
+            )
+        if epoch is None or epoch < self.update_until_epoch:
+            bmean = mean.mean(dim=0).detach()
+            bstd = std.mean(dim=0).detach()
+            if self.count == 0:
+                self.glob_mean, self.glob_std = bmean, bstd
+            else:
+                w = (1.0 / (self.count + 1) if self.avg_factor is None
+                     else self.avg_factor)
+                self.glob_mean = ((1 - w) * self.glob_mean.to(x.device)
+                                  + w * bmean)
+                self.glob_std = ((1 - w) * self.glob_std.to(x.device)
+                                 + w * bstd)
+            self.count += 1
+        gm = self.glob_mean.to(x.device) if self.mean_norm else 0.0
+        gs = self.glob_std.to(x.device) if self.std_norm else 1.0
+        return (x - gm) / gs
+
+    @mark_as_saver
+    def _save(self, path):
+        torch.save({"glob_mean": self.glob_mean, "glob_std": self.glob_std,
+                    "count": self.count}, path)
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=False):
+        state = torch.load(path, map_location=self.glob_mean.device,
+                           weights_only=True)
+        self.glob_mean = state["glob_mean"]
+        self.glob_std = state["glob_std"]
+        self.count = int(state["count"])

@@ -252,6 +252,25 @@ _LOADERS = {
 }
 
 
+def load_modules(modules, variables):
+    """Load a parameter tree with one top-level key a module — the JAX
+    recipes' ``{"frontend": ..., "model": ..., "ctc_head": ...,
+    "seq_head": ...}`` — into the same-named entries of ``modules`` (a
+    dict or ``nn.ModuleDict``), in place; returns ``modules``. A module
+    the tree lacks, or a key no module takes, raises ``KeyError``."""
+    if set(variables) == {"params"}:
+        variables = variables["params"]
+    missing = sorted(set(modules.keys()) - set(variables))
+    unused = sorted(set(variables) - set(modules.keys()))
+    if missing:
+        raise KeyError(f"missing parameters of modules {missing}")
+    if unused:
+        raise KeyError(f"unused parameters of modules {unused}")
+    for name in modules.keys():
+        load(modules[name], _Scope(variables[name], f"params/{name}"))
+    return modules
+
+
 def load(module, variables):
     """Load flax ``variables`` (numpy leaves; with or without the
     top-level ``"params"`` key) into ``module``, in place, and return the

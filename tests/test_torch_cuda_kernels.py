@@ -330,3 +330,76 @@ def test_row_gather_kernel_raises_on_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="aligned"):
         gather.row_gather(x.reshape(-1)[1:31].reshape(3, 10),
                           torch.tensor([0], device=card))
+
+
+def _guard_cases(card):
+    """kernel: (wrapper call taking ``requires_grad``, plain version)."""
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+
+    fbank = Fbank(n_mels=40, fused=True, device=card)
+    cache = rand(1, 2, 8, 64)
+    anc = torch.zeros(1, 2, 8, dtype=torch.int32, device=card)
+    mha = MultiheadAttention(nhead=2, d_model=64, use_pallas=True,
+                             device=card).train()
+    return {
+        "fused_fbank": (mel_frontend, "fused_fbank_reference",
+                        lambda g: fbank(rand(2, 4000).requires_grad_(g))),
+        "ancestry_attention": (
+            beam_attention, "ancestry_attention_reference",
+            lambda g: beam_attention.ancestry_attention(
+                rand(1, 2, 2, 32).requires_grad_(g), cache, cache, anc, 3)),
+        "flash_attention": (
+            attention, "flash_attention_reference",
+            lambda g: attention.flash_attention(
+                rand(1, 2, 9, 32), rand(1, 2, 9, 32).requires_grad_(g),
+                rand(1, 2, 9, 32))),
+        "row_gather": (
+            gather, "row_gather_reference",
+            lambda g: gather.row_gather(rand(5, 16).requires_grad_(g),
+                                        torch.tensor([4, 0], device=card))),
+        "mha_use_pallas_training": (
+            attention, "flash_attention_reference",
+            lambda g: mha(*(rand(1, 9, 64).requires_grad_(g)
+                            for _ in range(3)))),
+    }
+
+
+@pytest.mark.parametrize("case", ["fused_fbank", "ancestry_attention",
+                                  "flash_attention", "row_gather",
+                                  "mha_use_pallas_training"])
+def test_wrappers_refuse_inputs_that_require_grad(card, case):
+    """No kernel has a backward: a wrapper raises rather than return a
+    result cut off from the graph, and launches nothing; under
+    ``torch.no_grad()`` the same call launches its kernel once."""
+    module, plain, call = _guard_cases(card)[case]
+    before = module.launches
+    with pytest.raises(ValueError, match=plain):
+        call(True)
+    assert module.launches == before
+    with torch.no_grad():
+        call(True)
+    assert module.launches == before + 1
+
+
+def test_fp32_training_step_through_fused_fbank_matches_plain(
+        card, tmp_path, monkeypatch):
+    """One float32 micro-batch of the recipe's Brain (``chip_smoke.ASR``)
+    at a small size, through B3 and through its plain version, from the
+    same weights: loss and gradients within ``chip_smoke``'s stated
+    tolerances (TRAIN_FP32_*)."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dict(chip_smoke.TRAIN, vocab=30, n_mels=40, fe_channels=(8, 8),
+               d_model=64, nhead=4, enc_layers=2, dec_layers=1, d_ffn=128,
+               kernel_size=7, n_train=4, n_valid=1, seconds=(1.0, 2.0),
+               n_tokens=(4, 8), batch_size=4, sig_multiple=16000)
+    paths = chip_smoke.write_asr_corpus(cfg, str(tmp_path))
+    ds = chip_smoke.asr_dataset(paths["train"], cfg, train=True)
+    batch = next(iter(chip_smoke.make_train_loader(cfg, {"train": ds})))
+    result = chip_smoke.train_step_kernel_vs_plain(cfg, batch, device=card)
+    assert result["ok"], result

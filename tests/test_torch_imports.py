@@ -77,6 +77,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
         TransformerLM,
     )
+    from speechbrain_tpu_torch.core import Brain
+    from speechbrain_tpu_torch.dataio.batch import PaddedBatch
     from speechbrain_tpu_torch.nnet.linear import Linear
 
     for build in (
@@ -85,6 +87,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: TransformerLM(vocab=8, d_model=8, nhead=2,
                               num_encoder_layers=1, d_ffn=8),
         lambda: get_lookahead_mask(4),
+        lambda: Brain(modules={"lin": torch.nn.Linear(2, 2)}),
+        lambda: PaddedBatch([{"x": torch.ones(2)}]).to(),
     ):
         with pytest.raises((RuntimeError, AssertionError)):
             build()

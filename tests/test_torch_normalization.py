@@ -1,0 +1,67 @@
+"""The port's ``InputNormalization`` against the JAX package's on the same
+numpy features and relative lengths: the sentence, batch and global
+types, the global type's running statistics over several batches (and
+their freeze after ``update_until_epoch``), and their checkpoint.
+
+Tolerance: 1e-5 absolute on outputs of size about 1 (float32 masked sums
+over up to 12 frames in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from speechbrain_tpu.processing.features import (
+    InputNormalization as JaxNorm,
+)
+from speechbrain_tpu_torch.processing.features import InputNormalization
+
+ATOL = 1e-5
+LENS = np.array([1.0, 0.5, 0.75], np.float32)
+
+
+def _feats(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((3, 12, 5)) * 4.0 + 2.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("norm_type", ["sentence", "batch"])
+@pytest.mark.parametrize("mean_norm,std_norm",
+                         [(True, True), (True, False), (False, True)])
+def test_stateless_types_match(norm_type, mean_norm, std_norm):
+    x = _feats(0)
+    kw = dict(norm_type=norm_type, mean_norm=mean_norm, std_norm=std_norm)
+    j = JaxNorm(**kw)(jnp.asarray(x), jnp.asarray(LENS))
+    t = InputNormalization(**kw)(torch.from_numpy(x), torch.from_numpy(LENS))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+@pytest.mark.parametrize("avg_factor", [None, 0.3])
+def test_global_running_statistics_match(avg_factor, tmp_path):
+    j = JaxNorm(norm_type="global", avg_factor=avg_factor,
+                update_until_epoch=2)
+    t = InputNormalization(norm_type="global", avg_factor=avg_factor,
+                           update_until_epoch=2)
+    for seed, epoch in ((1, 0), (2, 1), (3, 1), (4, 2)):
+        x = _feats(seed)
+        jo = j(jnp.asarray(x), jnp.asarray(LENS), epoch=epoch)
+        to = t(torch.from_numpy(x), torch.from_numpy(LENS), epoch=epoch)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL)
+    assert t.count == j.count == 3  # frozen from epoch 2 on
+    np.testing.assert_allclose(t.glob_mean.numpy(), np.asarray(j.glob_mean),
+                               atol=ATOL)
+    t._save(tmp_path / "norm.ckpt")
+    fresh = InputNormalization(norm_type="global")
+    fresh._load(tmp_path / "norm.ckpt")
+    x = torch.from_numpy(_feats(5))
+    assert torch.equal(fresh(x, torch.from_numpy(LENS), epoch=9),
+                       t(x, torch.from_numpy(LENS), epoch=9))
+
+
+def test_statistics_stay_float32_under_autocast():
+    x = torch.from_numpy(_feats(6))
+    norm = InputNormalization(norm_type="sentence")
+    with torch.autocast("cpu", torch.bfloat16):
+        out = norm(x.to(torch.bfloat16), torch.from_numpy(LENS))
+    assert out.dtype == torch.float32

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives four paths at the full width of the
+(``grad_guard``), and drives five paths at the full width of the
 conformer-large LibriSpeech recipe with random weights made from a seed:
 
 - ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
@@ -24,15 +24,22 @@ conformer-large LibriSpeech recipe with random weights made from a seed:
   bf16 micro-batches of 16 utterances, accumulation 2, clip 5, AdamW,
   Noam (kernel ``fused_fbank`` on every batch); then ``train_checks``:
   the loss fell, a checkpoint recovers bit for bit, and one float32 step
-  through the kernel agrees with its plain version.
+  through the kernel agrees with its plain version;
+- ``recipe_path``: the twin recipe's own chain
+  (``speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transformer/train.py``
+  ``run``) with ``conformer_large.yaml``'s hyperparameters built in Python:
+  a synthetic corpus, the BPE tokenizer, ``dataio_prepare``, three shuffled
+  bf16 epochs with a checkpoint after each valid stage, then the test
+  split's loss and greedy-CTC WER (kernel ``fused_fbank`` on every train,
+  valid and test batch).
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
 run without one; there is no CPU mode.
 
-The assemblies (``Pipeline``, and ``ASR`` with its helpers) take a
-``device`` so that the CPU tests can hold them against the JAX package at
-a small size.
+The assemblies (``Pipeline``, the twin recipe's ``ASR`` with its helpers,
+``recipe_hparams``) take a ``device`` so that the CPU tests can hold them
+against the JAX package at a small size.
 """
 
 import argparse
@@ -79,11 +86,7 @@ from speechbrain_tpu_torch.nnet.attention import (
     make_mask_bias,
 )
 from speechbrain_tpu_torch.nnet.linear import Linear
-from speechbrain_tpu_torch.nnet.losses import ctc_loss, kldiv_loss
-from speechbrain_tpu_torch.nnet.schedulers import (
-    NoamScheduler,
-    update_learning_rate,
-)
+from speechbrain_tpu_torch.nnet.schedulers import NoamScheduler
 from speechbrain_tpu_torch.ops import (
     _build,
     attention,
@@ -92,9 +95,19 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer import (
+    train as recipe,
+)
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
+    ASR,
+)
+from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
+    prepare_synthetic,
+)
 from speechbrain_tpu_torch.utils.checkpoints import Checkpointer
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
+from speechbrain_tpu_torch.utils.seed import seed_everything
 from speechbrain_tpu_torch.utils.signals import make_check_signal
 from speechbrain_tpu_torch.utils.train_logger import FileTrainLogger
 
@@ -284,8 +297,8 @@ TRAIN = dict(
     ctc_weight=0.3, label_smoothing=0.1, lr_adam=8e-4, n_warmup_steps=10,
     grad_accumulation_factor=2, max_grad_norm=5.0, batch_size=16,
     epochs=30, n_train=32, n_valid=16, seconds=(8.0, 12.0),
-    n_tokens=(30, 60), bos=1, eos=2, blank=0, pad_multiple=128,
-    sig_multiple=16000, precision="bf16",
+    n_tokens=(30, 60), bos=1, eos=2, blank=0, sig_multiple=16000,
+    precision="bf16",
 )
 TRAIN_REDUCED = {
     "n_warmup_steps": "25000 -> 10",
@@ -293,67 +306,6 @@ TRAIN_REDUCED = {
     "data": "LibriSpeech 960 h -> 32 train and 16 valid synthetic "
             "utterances of 8-12 s; token ids in place of BPE pieces",
 }
-
-
-class ASR(Brain):
-    """The recipe's Brain (``recipes/LibriSpeech/ASR/transformer/
-    train.py:31-123``) on the port: waveform -> Fbank -> sentence
-    normalisation -> convolutional front end -> ``pad_time_to_multiple``
-    -> TransformerASR -> CTC and seq heads -> 0.3 CTC + 0.7 label-smoothed
-    KL; Noam written into the optimizer after every applied update; after
-    every valid stage a line in the train log and a checkpoint kept by
-    the lowest valid loss (each where the Brain has a logger and a
-    checkpointer)."""
-
-    def compute_forward(self, batch, stage):
-        wavs, wav_lens = batch["sig"]
-        tokens_bos, _ = batch["tokens_bos"]
-        feats = self.hparams.compute_features(wavs)
-        feats = self.hparams.normalize(feats, wav_lens)
-        feats = self.modules.frontend(feats)
-        # relative lengths are rescaled, so masks and CTC input lengths
-        # stay exact
-        feats, wav_lens = pad_time_to_multiple(
-            feats, wav_lens, multiple=self.hparams.pad_multiple
-        )
-        enc, dec = self.modules.model(feats, tokens_bos, wav_len=wav_lens)
-        p_ctc = torch.log_softmax(self.modules.ctc_head(enc).float(), -1)
-        p_seq = torch.log_softmax(self.modules.seq_head(dec).float(), -1)
-        return p_ctc, p_seq, wav_lens
-
-    def compute_objectives(self, predictions, batch, stage):
-        p_ctc, p_seq, enc_lens = predictions
-        tokens, tok_lens = batch["tokens"]
-        tokens_eos, tok_eos_lens = batch["tokens_eos"]
-        w = self.hparams.ctc_weight
-        loss_ctc = ctc_loss(p_ctc, tokens, enc_lens, tok_lens,
-                            blank_index=self.hparams.blank_index)
-        loss_seq = kldiv_loss(p_seq, tokens_eos, length=tok_eos_lens,
-                              label_smoothing=self.hparams.label_smoothing)
-        return w * loss_ctc + (1 - w) * loss_seq
-
-    def on_fit_batch_end(self, batch, outputs, loss, should_step):
-        # Noam after every applied update: the first runs at lr_adam
-        if should_step:
-            _, new_lr = self.hparams.noam_scheduler(None)
-            update_learning_rate(self.optimizer, new_lr)
-
-    def on_stage_end(self, stage, stage_loss, epoch=None):
-        if stage == Stage.TRAIN:
-            return
-        self.log_stats(stage_loss, epoch)
-        if self.checkpointer is not None:
-            self.save_checkpoint(meta={"loss": stage_loss},
-                                 min_keys=["loss"])
-
-    def log_stats(self, stage_loss, epoch):
-        if hasattr(self.hparams, "train_logger"):
-            self.hparams.train_logger.log_stats(
-                stats_meta={"epoch": epoch,
-                            "lr": self.hparams.noam_scheduler.current_lr},
-                train_stats={"loss": self.train_loss},
-                valid_stats={"loss": stage_loss}, verbose=False,
-            )
 
 
 def make_asr_modules(cfg, device="cuda", seed=0, dropout=None):
@@ -391,7 +343,6 @@ def make_asr_hparams(cfg, out_dir=None, device="cuda"):
         "ctc_weight": cfg["ctc_weight"],
         "label_smoothing": cfg["label_smoothing"],
         "blank_index": cfg["blank"],
-        "pad_multiple": cfg["pad_multiple"],
         "noam_scheduler": NoamScheduler(
             lr_initial=cfg["lr_adam"], n_warmup_steps=cfg["n_warmup_steps"]
         ),
@@ -405,13 +356,9 @@ def make_asr_hparams(cfg, out_dir=None, device="cuda"):
 
 
 def adamw(cfg):
-    """The recipe's optimizer, ``optax.adamw`` at ``lr_adam`` with its
-    defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every
-    parameter (``torch.optim.AdamW`` would default to 1e-2)."""
-    return lambda params: torch.optim.AdamW(
-        params, lr=cfg["lr_adam"], betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=1e-4,
-    )
+    """The recipe's optimizer at ``cfg["lr_adam"]`` (the twin's
+    ``adamw``: ``optax.adamw``'s defaults, weight decay 1e-4)."""
+    return recipe.adamw(cfg["lr_adam"])
 
 
 def write_asr_corpus(cfg, out_dir, seed=0):
@@ -1209,52 +1156,73 @@ def ptxas_report(kernel):
     return out
 
 
-def measure_b3(cfg, launches, err):
-    """B3 at the main path's shape, (8, 160000) at hop 160, by CUDA-graph
-    replay with waveforms cycled past the L2 cache; beside it the plain
-    version and the port's unfused ``Fbank`` (rfft on cuFFT, a product and
-    a log: a yardstick, not a library call computing the same function).
-
-    ``bound_ms`` is the least time the function could take: the larger of
-    its bytes (waveform, window and mel matrix read once, output written
-    once) at the memory's rate, and the least arithmetic it needs at the
-    float32 CUDA-core peak: a real FFT a frame (2.5 n_fft log2 n_fft, half
-    the usual count of a complex FFT), the power and the mel projection's
-    non-zero multiply-adds. ``design_dft_tf32_ms`` is the dense DFT this
-    design computes, counted once at the TF32 tensor-core peak (its three
-    passes take three times that), with the mel projection: a figure for
-    the design, not a bound. ``bound_fp32_cuda_core_ms`` is the bound of
-    the earlier CUDA-core design, kept so that its readings stay
-    comparable: the dense work at the float32 CUDA-core peak.
-    ``l2_table_bytes`` is computed (blocks x the kernel's table bytes),
-    not measured."""
-    B, T = cfg["batch"], int(SR * cfg["seconds"])
-    fused = Fbank(n_mels=cfg["n_mels"], fused=True)
-    unfused = Fbank(n_mels=cfg["n_mels"], fused=False)
-    n_sets = 16  # 16 x 5 MB of waveform: more than the 50 MB L2
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    wavs = [torch.randn((B, T), generator=gen, device="cuda")
-            for _ in range(n_sets)]
-    ms = time_ms(lambda i: fused(wavs[i]), n_sets, iters=32)
-    eager_ms = time_eager_ms(lambda i: fused(wavs[i]), n_sets, iters=32)
-    with plain_versions():
-        plain_ms = time_ms(lambda i: fused(wavs[i]), n_sets, iters=16)
-    unfused_ms = time_ms(lambda i: unfused(wavs[i]), n_sets, iters=16)
-
+def b3_bound(fused, B, T):
+    """The least time ``fused`` (a fused ``Fbank``) could take on (B, T)
+    waveforms: the larger of its bytes (waveform, window and mel matrix
+    read once, output written once) at the memory's rate, and the least
+    arithmetic it needs at the float32 CUDA-core peak: a real FFT a frame
+    (2.5 n_fft log2 n_fft, half the usual count of a complex FFT), the
+    power and the mel projection's non-zero multiply-adds."""
     hop = fused.compute_STFT.hop_length
     n_fft = fused.compute_STFT.n_fft
     n_freq = n_fft // 2 + 1
-    n_mels = cfg["n_mels"]
-    n_frames = 1 + T // hop
-    frames = B * n_frames
-    ops = fused._operands
+    n_mels = fused.compute_fbanks.fbank_matrix.shape[1]
+    frames = B * (1 + T // hop)
     mel_nnz = int(torch.count_nonzero(fused.compute_fbanks.fbank_matrix))
     nbytes = 4 * (B * T + frames * n_mels + n_fft + n_freq * n_mels)
     least_flops = frames * (2.5 * n_fft * np.log2(n_fft) + 3 * n_freq
                             + 2 * mel_nnz)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = least_flops / PEAK_FP32_FLOPS * 1e3
-    bound = max(bytes_ms, ops_ms)
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "least_flops": least_flops,
+            "mel_nonzeros": mel_nnz, "frames": frames}
+
+
+def time_b3(fused, B, T, iters=32):
+    """B3 on (B, T) waveforms by CUDA-graph replay, waveforms cycled past
+    the L2 cache (at least 16 sets and 80 MB), beside its plain version
+    and the port's unfused ``Fbank`` (rfft on cuFFT, a product and a log:
+    a yardstick, not a library call computing the same function)."""
+    unfused = Fbank(n_mels=fused.compute_fbanks.fbank_matrix.shape[1],
+                    fused=False)
+    n_sets = max(16, -(-80_000_000 // (4 * B * T)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wavs = [torch.randn((B, T), generator=gen, device="cuda")
+            for _ in range(n_sets)]
+    ms = time_ms(lambda i: fused(wavs[i]), n_sets, iters=iters)
+    eager_ms = time_eager_ms(lambda i: fused(wavs[i]), n_sets, iters=iters)
+    with plain_versions():
+        plain_ms = time_ms(lambda i: fused(wavs[i]), n_sets, iters=16)
+    unfused_ms = time_ms(lambda i: unfused(wavs[i]), n_sets, iters=16)
+    return {"ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+            "eager_call_ms": eager_ms}
+
+
+def measure_b3(cfg, launches, err):
+    """B3 at the main path's shape, (8, 160000) at hop 160 (``time_b3``;
+    ``bound_ms`` from ``b3_bound``). ``design_dft_tf32_ms`` is the dense
+    DFT this design computes, counted once at the TF32 tensor-core peak
+    (its three passes take three times that), with the mel projection: a
+    figure for the design, not a bound. ``bound_fp32_cuda_core_ms`` is
+    the bound of the earlier CUDA-core design, kept so that its readings
+    stay comparable: the dense work at the float32 CUDA-core peak.
+    ``l2_table_bytes`` is computed (blocks x the kernel's table bytes),
+    not measured."""
+    B, T = cfg["batch"], int(SR * cfg["seconds"])
+    fused = Fbank(n_mels=cfg["n_mels"], fused=True)
+    times = time_b3(fused, B, T)
+    ms = times["ms"]
+    bound = b3_bound(fused, B, T)
+
+    n_fft = fused.compute_STFT.n_fft
+    n_freq = n_fft // 2 + 1
+    n_mels = cfg["n_mels"]
+    frames = bound["frames"]
+    n_frames = frames // B
+    ops = fused._operands
+    mel_nnz = bound["mel_nonzeros"]
     dft_flops = 2 * frames * n_fft * 2 * n_freq
     mel_flops = 2 * frames * mel_nnz
     design_ms = (dft_flops / PEAK_TF32_TENSOR_FLOPS
@@ -1275,13 +1243,16 @@ def measure_b3(cfg, launches, err):
         "source": "speechbrain_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "speechbrain_tpu/ops/mel_frontend.py:187",
         "launches": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None, "unfused_ms": unfused_ms,
-        "ms_over_bound": ms / bound, "design_dft_tf32_ms": design_ms,
-        "bound_fp32_cuda_core_ms": bound_fp32, "eager_call_ms": eager_ms,
-        "bytes": nbytes, "least_flops": least_flops, "dft_flops": dft_flops,
-        "mel_flops": mel_flops, "mel_nonzeros": mel_nnz, "tf32_passes": 3,
+        "plain_ms": times["plain_ms"], "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "library_ms": None, "unfused_ms": times["unfused_ms"],
+        "ms_over_bound": ms / bound["bound_ms"],
+        "design_dft_tf32_ms": design_ms,
+        "bound_fp32_cuda_core_ms": bound_fp32,
+        "eager_call_ms": times["eager_call_ms"],
+        "bytes": bound["bytes"], "least_flops": bound["least_flops"],
+        "dft_flops": dft_flops, "mel_flops": mel_flops,
+        "mel_nonzeros": mel_nnz, "tf32_passes": 3,
         "l2_table_bytes": blocks * table_bytes,
         "l2_table_bytes_is": "computed: blocks x table bytes, not measured",
         "table_bytes": table_bytes, "blocks": blocks, "frames_a_block": fpb,
@@ -1289,6 +1260,14 @@ def measure_b3(cfg, launches, err):
         "ptxas": ptxas_report("fused_fbank_kernel"),
         "note": "ms, plain_ms and unfused_ms include the top_db clamp",
     }
+
+
+def measure_b3_at(B, T, n_mels=80):
+    """B3 at another shape (``recipe_path``'s batches), with its bound."""
+    fused = Fbank(n_mels=n_mels, fused=True)
+    out = {"shape": [B, T], **time_b3(fused, B, T), **b3_bound(fused, B, T)}
+    out["ms_over_bound"] = out["ms"] / out["bound_ms"]
+    return out
 
 
 def cycled_sets(tensors, min_bytes=120_000_000):
@@ -1890,6 +1869,182 @@ def make_train_loader(cfg, datasets):
                            **asr_loader_kwargs(cfg, shuffle=False))
 
 
+# recipe_path: the twin recipe's own chain
+# (speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transformer/train.py
+# ``run``) with its hparams/conformer_large.yaml, whose values are below:
+# the card's machine has no YAML loader, so ``recipe_hparams`` builds the
+# same objects in Python (tests/test_torch_training.py holds the two
+# equal).
+# Full width and depth; the cuts are overrides, as on a command line.
+CONFORMER_LARGE = dict(
+    seed=3407, device="cuda", vocab_size=5000, token_type="bpe",
+    sample_rate=16000, n_mels=80, number_of_epochs=120, batch_size=16,
+    max_batch_length=500, grad_accumulation_factor=2, max_grad_norm=5.0,
+    loss_reduction="batchmean", d_model=512, nhead=8, num_encoder_layers=12,
+    num_decoder_layers=6, d_ffn=2048, kernel_size=31,
+    transformer_dropout=0.1, ctc_weight=0.3, label_smoothing=0.1,
+    lr_adam=0.0008, n_warmup_steps=25000, bos_index=1, eos_index=2,
+    blank_index=0, beam_size=10, ctc_weight_decode=0.3,
+)
+RECIPE_OVERRIDES = {"number_of_epochs": 3, "n_warmup_steps": 10}
+RECIPE_N_UTTS = 96
+RECIPE_RUN_OPTS = {"precision": "bf16", "noprogressbar": True}
+RECIPE_REDUCED = {
+    "number_of_epochs": "120 -> 3",
+    "n_warmup_steps": "25000 -> 10",
+    "data": "LibriSpeech 960 h -> prepare_synthetic(n_utts=96): 64 train, "
+            "16 dev and 16 test utterances of 0.24-0.48 s (tones a word), "
+            "padded to 1 s",
+}
+
+
+def recipe_hparams(overrides):
+    """The twin's ``hparams/conformer_large.yaml`` with ``overrides``
+    (top-level keys, as ``load_hyperpyyaml`` takes them; ``data_folder``
+    is required), built in Python in the YAML's order: the seed first,
+    then the modules' weights drawn as the YAML draws them."""
+    h = dict(CONFORMER_LARGE, **overrides)
+    if "data_folder" not in h:
+        raise ValueError("data_folder must be given (!PLACEHOLDER)")
+    seed_everything(h["seed"])
+    h.setdefault("output_folder", f"results/conformer_large/{h['seed']}")
+    h.setdefault("save_folder", f"{h['output_folder']}/save")
+    h.setdefault("train_log", f"{h['output_folder']}/train_log.txt")
+    for key, split in (("train", "train"), ("valid", "dev"),
+                       ("test", "test")):
+        h.setdefault(f"{key}_annotation",
+                     f"{h['save_folder']}/../manifests/{split}.json")
+    device = h["device"]
+    h["compute_features"] = Fbank(sample_rate=h["sample_rate"],
+                                  n_mels=h["n_mels"], fused=True,
+                                  device=device)
+    h["normalize"] = InputNormalization(norm_type="sentence")
+    h["frontend"] = ConvolutionFrontEnd(
+        num_blocks=2, out_channels=(64, 32), kernel_sizes=(3, 3),
+        strides=(2, 2), device=device,
+    )
+    h["model"] = TransformerASR(
+        tgt_vocab=h["vocab_size"], input_size=640, d_model=h["d_model"],
+        nhead=h["nhead"], num_encoder_layers=h["num_encoder_layers"],
+        num_decoder_layers=h["num_decoder_layers"], d_ffn=h["d_ffn"],
+        dropout=h["transformer_dropout"], encoder_module="conformer",
+        attention_type="RelPosMHAXL", kernel_size=h["kernel_size"],
+        device=device,
+    )
+    for head in ("ctc_head", "seq_head"):
+        h[head] = Linear(n_neurons=h["vocab_size"], input_size=h["d_model"],
+                         device=device)
+    h["modules"] = {k: h[k] for k in ("frontend", "model", "ctc_head",
+                                      "seq_head")}
+    h["epoch_counter"] = EpochCounter(limit=h["number_of_epochs"])
+    h["noam_scheduler"] = NoamScheduler(lr_initial=h["lr_adam"],
+                                        n_warmup_steps=h["n_warmup_steps"])
+    h["train_logger"] = FileTrainLogger(save_file=h["train_log"])
+    h["checkpointer"] = Checkpointer(checkpoints_dir=h["save_folder"])
+    return h
+
+
+class RecipeASR(ASR):
+    """The twin's Brain with the readings of ``recipe_path``: forward
+    passes a stage and the loss of every stage."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.forwards = dict.fromkeys(Stage, 0)
+        self.stage_losses = {stage: [] for stage in Stage}
+
+    def compute_forward(self, batch, stage):
+        self.forwards[stage] += 1
+        return super().compute_forward(batch, stage)
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        self.stage_losses[stage].append(stage_loss)
+        super().on_stage_end(stage, stage_loss, epoch)
+
+
+def run_recipe_path(out_dir):
+    """The recipe's chain at full width on the card: a synthetic corpus,
+    the BPE tokenizer trained on it, the twin's ``dataio_prepare``, a
+    shuffled bf16 ``fit`` with a checkpoint after each valid stage, then
+    the test split's loss and greedy-CTC WER. Kernel B3 must launch once a
+    forward pass (train, valid and test) and no other kernel at all."""
+    t0 = time.perf_counter()
+    hparams = recipe_hparams(dict(
+        RECIPE_OVERRIDES, data_folder=os.path.join(out_dir, "data"),
+        output_folder=os.path.join(out_dir, "results"),
+    ))
+    manifests = os.path.dirname(hparams["train_annotation"])
+    prepare_synthetic(hparams["data_folder"], save_folder=manifests,
+                      n_utts=RECIPE_N_UTTS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    brain, datasets, tokenizer = recipe.run(hparams, dict(RECIPE_RUN_OPTS),
+                                            brain_cls=RecipeASR)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    seconds = time.perf_counter() - t0
+    n = {stage: brain.forwards[stage] for stage in Stage}
+    bs = hparams["batch_size"]
+    epochs = hparams["number_of_epochs"]
+    expected_forwards = {
+        Stage.TRAIN: epochs * -(-len(datasets["train"]) // bs),
+        Stage.VALID: epochs * -(-len(datasets["valid"]) // bs),
+        Stage.TEST: -(-len(datasets["test"]) // bs),
+    }
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = sum(n.values())
+    losses = brain.stage_losses
+    valid = losses[Stage.VALID]
+    kept = brain.checkpointer.list_checkpoints()
+    best = min(kept, key=lambda c: c.meta["loss"]) if kept else None
+    with open(hparams["test_annotation"], encoding="utf-8") as f:
+        test_words = sum(len(u["words"].split())
+                         for u in json.load(f).values())
+    stats = brain.test_stats
+    ok = (
+        counts == expected
+        and n == expected_forwards
+        and brain.optimizer_step == n[Stage.TRAIN]
+        // hparams["grad_accumulation_factor"]
+        and all(np.isfinite(v) for v in losses.values() for v in v)
+        and len(valid) == epochs and len(losses[Stage.TEST]) == 1
+        and best is not None and best.meta["loss"] == min(valid)
+        and stats["num_ref_tokens"] == test_words
+        and np.isfinite(stats["WER"])
+    )
+    emit({
+        "phase": "recipe_path", "ok": bool(ok),
+        "recipe": "speechbrain_tpu_torch/recipes/LibriSpeech/ASR/"
+                  "transformer/train.py run() with hparams/"
+                  "conformer_large.yaml built in Python",
+        "overrides": RECIPE_OVERRIDES, "reduced": RECIPE_REDUCED,
+        "run_opts": RECIPE_RUN_OPTS,
+        "utterances": {k: len(v) for k, v in datasets.items()},
+        "micro_batches": n[Stage.TRAIN], "valid_batches": n[Stage.VALID],
+        "test_batches": n[Stage.TEST],
+        "optimizer_steps": brain.optimizer_step,
+        "launches": counts, "expected_launches": expected,
+        "tokenizer_pieces": tokenizer.sp.vocab_size(),
+        "epoch_train_losses": losses[Stage.TRAIN],
+        "valid_losses": valid,
+        "first_valid_loss": valid[0] if valid else None,
+        "last_valid_loss": valid[-1] if valid else None,
+        "checkpoints_kept": [{"name": c.path.name, "loss": c.meta["loss"]}
+                             for c in kept],
+        "best_checkpoint_loss": best.meta["loss"] if best else None,
+        "test_loss": stats["loss"], "WER": stats["WER"],
+        "num_ref_tokens": stats["num_ref_tokens"],
+        "edits": {k: brain.wer_metric.summary[k] for k in (
+            "insertions", "deletions", "substitutions")},
+        "test_manifest_words": test_words,
+        "seconds": seconds,
+        "gpu_name_power_limit": gpu_name_power_limit(),
+    })
+    if not ok:
+        raise AssertionError("recipe_path: a check of the chain failed")
+    return n
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -2028,6 +2183,14 @@ def main():
             # training's (host and device; torch 2.11 on an H100)
             profile_decode(NORTH)
             profile_train(TRAIN, out_dir, datasets)
+    # the recipe's checkpoints (about 1.3 GB each) go with the directory
+    with tempfile.TemporaryDirectory() as recipe_dir:
+        recipe_forwards = run_recipe_path(recipe_dir)
+    torch.cuda.empty_cache()
+    kernels[1]["launches_by_path"]["recipe_path"] = sum(
+        recipe_forwards.values())
+    kernels[1]["at_recipe_shape"] = measure_b3_at(
+        CONFORMER_LARGE["batch_size"], recipe.SIG_PAD_MULTIPLE)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

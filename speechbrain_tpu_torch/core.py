@@ -1,5 +1,6 @@
 """The Brain training engine (port of ``speechbrain_tpu/core.py``:
-``Stage``, ``RunOptions``, ``create_experiment_directory``, ``Brain``).
+``Stage``, ``RunOptions``, ``parse_arguments``,
+``create_experiment_directory``, ``Brain``).
 
 In PyTorch's idiom: ``modules`` is an ``nn.ModuleDict`` on one device
 (``run_opts["device"]``, ``"cuda"`` by default); ``opt_class`` is a
@@ -27,10 +28,12 @@ Not ported: meshes and several hosts, GAN steps, checkpoint averaging,
 the profiler, device-side loss accumulation (``loss_sync_interval``).
 """
 
+import argparse
 import inspect
-import json
 import logging
+import math
 import os
+import re
 import shutil
 import sys
 import time
@@ -92,19 +95,133 @@ class RunOptions:
         return cls(**{k: v for k, v in d.items() if k in valid})
 
 
+def parse_arguments(arg_list=None):
+    """Parse ``train.py hparams.yaml --name=value ...`` command lines.
+
+    Returns ``(hparams_file, run_opts, overrides)``: each ``--name=value``
+    (or ``--name value``; a bare ``--name`` is ``True``) goes to
+    ``run_opts`` where ``name`` is a field of :class:`RunOptions`, else to
+    ``overrides``, its value parsed by :func:`_parse_scalar`.
+
+    Example
+    -------
+    >>> parse_arguments(["h.yaml", "--debug", "--lr=0.5", "--device=cpu"])
+    ('h.yaml', {'debug': True, 'device': 'cpu'}, {'lr': 0.5})
+    """
+    parser = argparse.ArgumentParser(description="Run an experiment")
+    parser.add_argument("param_file", type=str, help="hparams yaml file")
+    known, unknown = parser.parse_known_args(arg_list)
+    run_opt_fields = set(RunOptions.__dataclass_fields__)
+    run_opts, overrides = {}, {}
+    i = 0
+    while i < len(unknown):
+        arg = unknown[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"Cannot parse argument {arg}")
+        if "=" in arg:
+            key, value = arg[2:].split("=", 1)
+            i += 1
+        else:
+            key = arg[2:]
+            if i + 1 < len(unknown) and not unknown[i + 1].startswith("--"):
+                value = unknown[i + 1]
+                i += 2
+            else:
+                value = "True"
+                i += 1
+        parsed = _parse_scalar(value)
+        if key in run_opt_fields:
+            run_opts[key] = parsed
+        else:
+            overrides[key] = parsed
+    return known.param_file, run_opts, overrides
+
+
+# YAML 1.1's plain scalars as PyYAML resolves them (its implicit
+# resolvers, in its order), so that a value means on the command line
+# what it means in a hyperparameter file
+_YAML_BOOL = re.compile(r"""^(?:yes|Yes|YES|no|No|NO
+                        |true|True|TRUE|false|False|FALSE
+                        |on|On|ON|off|Off|OFF)$""", re.X)
+_YAML_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                         |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                         |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                         |[-+]?\.(?:inf|Inf|INF)
+                         |\.(?:nan|NaN|NAN))$""", re.X)
+_YAML_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                       |[-+]?0[0-7_]+
+                       |[-+]?(?:0|[1-9][0-9_]*)
+                       |[-+]?0x[0-9a-fA-F_]+
+                       |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+
+
+def _sexagesimal(value, cast):
+    total, base = 0, 1
+    for part in reversed(value.split(":")):
+        total += cast(part) * base
+        base *= 60
+    return total
+
+
+def _parse_scalar(value):
+    """A command-line value as ``yaml.safe_load`` reads a plain scalar,
+    without PyYAML (the card's machine has none): null (``~``, ``null``,
+    empty), booleans (``true``/``yes``/``on`` and their negations, in
+    lower, capitalised or upper case), integers (decimal, ``0b``, ``0x``,
+    a leading 0 for octal, ``_`` separators, ``1:30`` base 60) and floats
+    (a dot is required: ``8e-4`` stays a string, as in YAML 1.1; ``.inf``,
+    ``.nan``). Anything else, collections, quoted strings, comments and
+    dates included, stays a string, stripped of surrounding blanks."""
+    text = value.strip()
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _YAML_FLOAT.match(text) or _YAML_INT.match(text):
+        is_float = _YAML_FLOAT.match(text) is not None
+        body = text.replace("_", "")
+        sign = -1 if body[0] == "-" else 1
+        if body[0] in "+-":
+            body = body[1:]
+        if is_float:
+            body = body.lower()
+            if body == ".inf":
+                return sign * math.inf
+            if body == ".nan":
+                return math.nan
+            if ":" in body:
+                return sign * _sexagesimal(body, float)
+            return sign * float(body)
+        if body == "0":
+            return 0
+        if body.startswith("0b"):
+            return sign * int(body[2:], 2)
+        if body.startswith("0x"):
+            return sign * int(body[2:], 16)
+        if body[0] == "0":
+            return sign * int(body, 8)
+        if ":" in body:
+            return sign * _sexagesimal(body, int)
+        return sign * int(body)
+    return text
+
+
 def create_experiment_directory(experiment_directory,
                                 hyperparams_to_save=None, overrides={}):
-    """Create the output directory, copy the hyperparameter file (with
-    the overrides beside it, as JSON) and the calling script into it,
+    """Create the output directory, write the hyperparameter file into it
+    with the overrides applied (``utils.hyperyaml.resolve_yaml``, which
+    needs PyYAML where there are overrides), copy the calling script,
     describe the environment in ``env.log`` and log to ``log.txt``."""
     os.makedirs(experiment_directory, exist_ok=True)
     if hyperparams_to_save is not None:
-        shutil.copy(hyperparams_to_save,
-                    os.path.join(experiment_directory, "hyperparams.yaml"))
-        if overrides:
-            with open(os.path.join(experiment_directory, "overrides.json"),
-                      "w", encoding="utf-8") as w:
-                json.dump(overrides, w)
+        from speechbrain_tpu_torch.utils.hyperyaml import resolve_yaml
+
+        with open(hyperparams_to_save, encoding="utf-8") as f:
+            resolved = resolve_yaml(f.read(), overrides)
+        with open(os.path.join(experiment_directory, "hyperparams.yaml"),
+                  "w", encoding="utf-8") as w:
+            w.write(resolved)
     module = inspect.getmodule(inspect.currentframe().f_back)
     callingfile = getattr(module, "__file__", None)
     if callingfile and os.path.isfile(callingfile):

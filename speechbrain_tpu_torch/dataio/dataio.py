@@ -1,11 +1,13 @@
-"""Manifests and audio files (port of ``load_data_json``, ``read_audio``
-and ``write_audio`` from ``speechbrain_tpu/dataio/dataio.py``).
+"""Manifests, audio files and token sequences (port of
+``load_data_json``, ``load_data_csv``, ``read_audio``, ``write_audio``,
+``merge_char`` and ``split_word`` from ``speechbrain_tpu/dataio/dataio.py``).
 
 Audio is PCM WAV through the standard library's ``wave`` module: 8-bit
 unsigned, 16- and 32-bit signed samples, scaled as soundfile scales them
 (16-bit by 1/32768), multi-channel audio averaged to mono.
 """
 
+import csv
 import json
 import re
 import wave
@@ -44,6 +46,33 @@ def load_data_json(json_path, replacements=None):
         return obj
 
     return walk(data)
+
+
+def load_data_csv(csv_path, replacements=None):
+    """Load a CSV manifest with an ``ID`` column into ``{id: {key:
+    value}}``, replacing ``$name`` in every field by
+    ``replacements[name]``; a ``duration`` column becomes a float."""
+    replacements = replacements or {}
+    pattern = re.compile(r"\$([\w]+)")
+    result = {}
+    with open(csv_path, newline="", encoding="utf-8") as f:
+        for row in csv.DictReader(f, skipinitialspace=True):
+            try:
+                data_id = row.pop("ID")
+            except KeyError:
+                raise KeyError("CSV has to have an 'ID' field, with unique "
+                               "ids for all data points") from None
+            if data_id in result:
+                raise ValueError(f"Duplicate id: {data_id}")
+            for key, value in row.items():
+                if isinstance(value, str):
+                    row[key] = pattern.sub(
+                        lambda m: str(replacements.get(m.group(1),
+                                                       m.group(0))), value)
+            if "duration" in row:
+                row["duration"] = float(row["duration"])
+            result[data_id] = row
+    return result
 
 
 _PCM = {1: (np.uint8, 128.0), 2: (np.int16, 32768.0),
@@ -89,3 +118,34 @@ def write_audio(filepath, audio, samplerate):
         w.setsampwidth(2)
         w.setframerate(samplerate)
         w.writeframes(pcm.tobytes())
+
+
+def merge_char(sequences, space="_"):
+    """Merge characters into words at the space symbol.
+
+    Example
+    -------
+    >>> merge_char([["a", "b", "_", "c"]])
+    [['ab', 'c']]
+    """
+    return [[w for w in "".join(seq).split(space) if w]
+            for seq in sequences]
+
+
+def split_word(sequences, space="_"):
+    """Split words into characters, the space symbol between words.
+
+    Example
+    -------
+    >>> split_word([["ab", "c"]])
+    [['a', 'b', '_', 'c']]
+    """
+    results = []
+    for seq in sequences:
+        chars = []
+        for i, word in enumerate(seq):
+            if i > 0:
+                chars.append(space)
+            chars.extend(word)
+        results.append(chars)
+    return results

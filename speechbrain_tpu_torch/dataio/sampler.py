@@ -1,11 +1,12 @@
 """Samplers (port of ``ReproducibleRandomSampler`` and
 ``SequentialSampler`` from ``speechbrain_tpu/dataio/sampler.py``).
 
-The shuffled order comes from a ``torch.Generator`` seeded with
-``seed + epoch``, as the reference SpeechBrain draws it; the JAX package
-draws it from numpy, so the two orders differ.
+The shuffled order is the JAX package's: a permutation drawn by
+``np.random.default_rng(seed + epoch)``, so that the two packages train
+on the same batches for the same seed.
 """
 
+import numpy as np
 import torch
 
 
@@ -33,10 +34,8 @@ class ReproducibleRandomSampler(torch.utils.data.Sampler):
         self.epoch = epoch
 
     def __iter__(self):
-        g = torch.Generator()
-        g.manual_seed(self.seed + self.epoch)
-        return iter(torch.randperm(len(self.data_source), generator=g)
-                    .tolist())
+        rng = np.random.default_rng(self.seed + self.epoch)
+        return iter(rng.permutation(len(self.data_source)).tolist())
 
     def __len__(self):
         return len(self.data_source)

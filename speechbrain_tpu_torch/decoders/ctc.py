@@ -1,13 +1,49 @@
-"""CTC decoding (port of ``CTCPrefixScore`` from
-``speechbrain_tpu/decoders/ctc.py``): batched prefix scoring over a pruned
-candidate set, used for joint CTC/attention beam decoding.
+"""CTC decoding (port of ``filter_ctc_output``, ``ctc_greedy_decode`` and
+``CTCPrefixScore`` from ``speechbrain_tpu/decoders/ctc.py``): greedy
+decoding, and batched prefix scoring over a pruned candidate set, used for
+joint CTC/attention beam decoding.
 """
 
 import torch
 
 from speechbrain_tpu_torch.decoders.utils import inflate_tensor
+from speechbrain_tpu_torch.utils.data_utils import undo_padding
 
 NEG_INF = -1e20
+
+
+def filter_ctc_output(string_pred, blank_id=-1):
+    """Merge repeats, then drop blanks.
+
+    Example
+    -------
+    >>> filter_ctc_output([0, 1, 1, 0, 2, 2], blank_id=0)
+    [1, 2]
+    """
+    if not isinstance(string_pred, list):
+        raise ValueError("filter_ctc_output expects a list")
+    out = [v for i, v in enumerate(string_pred)
+           if i == 0 or v != string_pred[i - 1]]
+    return [v for v in out if v != blank_id]
+
+
+def ctc_greedy_decode(probabilities, seq_lens, blank_id=-1):
+    """Greedy CTC: the argmax over classes, taken on the tensor's device;
+    the ids move to the host once, are cut to each relative length,
+    collapsed and stripped of blanks. A negative ``blank_id`` counts from
+    the last class. Returns a list of Python lists.
+
+    Example
+    -------
+    >>> probs = torch.tensor([[[0.1, 0.9], [0.9, 0.1]]])
+    >>> ctc_greedy_decode(probs, torch.tensor([1.0]), blank_id=0)
+    [[1]]
+    """
+    if isinstance(blank_id, int) and blank_id < 0:
+        blank_id = probabilities.shape[-1] + blank_id
+    argmaxes = probabilities.argmax(dim=-1)
+    return [filter_ctc_output(seq, blank_id=blank_id)
+            for seq in undo_padding(argmaxes, seq_lens)]
 
 
 class CTCPrefixScore:

@@ -1,9 +1,10 @@
 """Data utilities (port of part of ``speechbrain_tpu/utils/data_utils.py``):
 host-side padding for batch collation (``pad_right_to``,
-``batch_pad_right``, ``round_up``, on numpy) and ``pad_time_to_multiple``
-on tensors."""
+``batch_pad_right``, ``round_up``, on numpy), ``undo_padding`` and
+``pad_time_to_multiple`` on tensors."""
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
 
@@ -56,6 +57,28 @@ def batch_pad_right(arrays, mode="constant", value=0, val_index=0):
         batched.append(padded)
         valid.append(valid_percent[val_index])
     return np.stack(batched), np.asarray(valid, dtype=np.float32)
+
+
+def undo_padding(batch, lengths):
+    """Each example of a padded batch as a Python list, cut to its
+    length: ``round(rel_len * padded_len)`` entries. ``batch`` and
+    ``lengths`` may be tensors on any device (moved to the host once) or
+    numpy arrays.
+
+    Example
+    -------
+    >>> undo_padding(np.array([[1, 2, 0], [3, 4, 5]]), np.array([2/3, 1.0]))
+    [[1, 2], [3, 4, 5]]
+    """
+    if isinstance(batch, torch.Tensor):
+        batch = batch.cpu().numpy()
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.cpu().numpy()
+    batch = np.asarray(batch)
+    lengths = np.asarray(lengths)
+    batch_max_len = batch.shape[1]
+    return [seq[:int(round(float(rel_len) * batch_max_len))].tolist()
+            for seq, rel_len in zip(batch, lengths)]
 
 
 def round_up(value, multiple):

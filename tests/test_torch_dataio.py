@@ -3,12 +3,9 @@ manifest and WAV files: ``read_audio``, ``load_data_json``,
 ``DynamicItemDataset`` (dynamic items, generator items, output keys,
 ``filtered_sorted``), ``PaddedBatch`` padding with ``pad_to_multiple``,
 and the loader's position inside an epoch saved and restored through
-each side's ``Checkpointer``. Everything here is exact: audio samples,
-padded arrays and relative lengths must be equal.
-
-The shuffled order is the one exception: the port draws it from a
-``torch.Generator`` (as the reference SpeechBrain does), the JAX package
-from numpy, so it is held against ``torch.randperm`` instead."""
+each side's ``Checkpointer``, and the shuffled order against JAX's
+``ReproducibleRandomSampler``. Everything here is exact: audio samples,
+padded arrays, relative lengths and orders must be equal."""
 
 import json
 
@@ -19,6 +16,9 @@ import torch
 from speechbrain_tpu.dataio.dataio import read_audio as jax_read_audio
 from speechbrain_tpu.dataio.dataloader import make_dataloader as jax_loader
 from speechbrain_tpu.dataio.dataset import DynamicItemDataset as JaxDataset
+from speechbrain_tpu.dataio.sampler import (
+    ReproducibleRandomSampler as JaxSampler,
+)
 from speechbrain_tpu.utils.checkpoints import Checkpointer as JaxCheckpointer
 from speechbrain_tpu_torch.dataio.batch import PaddedBatch
 from speechbrain_tpu_torch.dataio.dataio import (
@@ -140,6 +140,26 @@ def test_loader_batches_match(corpus):
     assert tbs[0].sig.data.shape[1] % 1600 == 0
 
 
+def test_shuffled_loaders_give_the_same_batches(corpus):
+    """``shuffle=True``, as the recipe trains: over three epochs the two
+    loaders yield the same batches, ids and padded arrays alike."""
+    root, path = corpus
+    jd = _dataset(JaxDataset, jax_read_audio, root, path, sort=False)
+    td = _dataset(DynamicItemDataset, read_audio, root, path, sort=False)
+    jl = jax_loader(jd, batch_size=2, shuffle=True, pad_to_multiple=PAD)
+    tl = make_dataloader(td, batch_size=2, shuffle=True, pad_to_multiple=PAD)
+    orders = set()
+    for epoch in (1, 2, 3):
+        jl.set_epoch(epoch)
+        tl.set_epoch(epoch)
+        jbs, tbs = list(jl), list(tl)
+        assert len(tbs) == len(jbs) == 3
+        for tb, jb in zip(tbs, jbs):
+            _batches_equal(tb, jb)
+        orders.add(tuple(i for b in tbs for i in b.id))
+    assert len(orders) > 1  # the epochs were shuffled
+
+
 def test_loader_resumes_inside_an_epoch(corpus, tmp_path):
     """One batch into an epoch, each side saves a checkpoint with its
     loader; a fresh loader recovered from it yields the same remaining
@@ -172,10 +192,15 @@ def test_loader_resumes_inside_an_epoch(corpus, tmp_path):
 def test_shuffled_order_and_its_resume(corpus, tmp_path):
     root, path = corpus
     ds = _dataset(DynamicItemDataset, read_audio, root, path, sort=False)
+    for seed, epoch in ((7, 3), (0, 0), (563375142, 1), (3407, 12)):
+        sampler = ReproducibleRandomSampler(list(range(23)), seed=seed)
+        jax_sampler = JaxSampler(list(range(23)), seed=seed)
+        sampler.set_epoch(epoch)
+        jax_sampler.set_epoch(epoch)
+        assert list(sampler) == list(jax_sampler), (seed, epoch)
     loader = make_dataloader(ds, batch_size=2, shuffle=True, seed=7)
     loader.set_epoch(3)
-    g = torch.Generator().manual_seed(7 + 3)
-    order = torch.randperm(len(ds), generator=g).tolist()
+    order = list(JaxSampler(range(len(ds)), seed=7, epoch=3))
     ids = [i for b in loader for i in b.id]
     assert ids == [ds.data_ids[k] for k in order]
     ckpt = Checkpointer(tmp_path, {"loader": loader})

@@ -39,9 +39,9 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_every_module_imports_without_toolchain():
-    """In a fresh interpreter: import every module of the port and
-    chip_smoke, then check that neither JAX nor triton came along."""
+def _import_all_in_a_fresh_interpreter(forbidden):
+    """Import every module of the port and chip_smoke in a new
+    interpreter; fail if any of ``forbidden`` was loaded."""
     modules = [
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in sorted(PORT.rglob("*.py"))
@@ -52,8 +52,7 @@ def test_every_module_imports_without_toolchain():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'flax', 'triton', 'speechbrain_tpu') "
-        "if m in sys.modules]\n"
+        f"bad = [m for m in {tuple(forbidden)!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -61,6 +60,20 @@ def test_every_module_imports_without_toolchain():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_every_module_imports_without_toolchain():
+    """In a fresh interpreter: import every module of the port and
+    chip_smoke, then check that neither JAX nor triton came along."""
+    _import_all_in_a_fresh_interpreter(
+        ("jax", "flax", "triton", "speechbrain_tpu"))
+
+
+def test_importing_the_port_loads_no_yaml():
+    """The card's machine has no PyYAML: importing every module of the
+    port (the YAML loader and the twin recipe included) and chip_smoke
+    does not load it; the loader imports PyYAML when it parses."""
+    _import_all_in_a_fresh_interpreter(("yaml",))
 
 
 def _cuda_available():

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import optax
 
 from speechbrain_tpu.core import optax_global_norm
+from speechbrain_tpu.utils.optimizers import vector_weight_decay_mask
 from speechbrain_tpu.nnet.schedulers import (
     NoamScheduler as JaxNoam,
     update_learning_rate as jax_update_lr,
@@ -81,6 +82,21 @@ def test_rm_vector_weight_decay_groups():
     assert groups[0]["weight_decay"] == 0.0
     assert [p.shape for p in groups[0]["params"]] == [torch.Size([4])]
     assert [p.shape for p in groups[1]["params"]] == [torch.Size([4, 3])]
+
+
+def test_rm_vector_weight_decay_matches_the_jax_mask():
+    """A 0-d, a 1-D and a 2-D parameter: each is decayed by the port
+    exactly where JAX's mask decays it (only the 2-D one)."""
+    shapes = {"scalar": (), "vector": (4,), "matrix": (4, 3)}
+    module = _Params({k: np.zeros(s, np.float32) for k, s in shapes.items()})
+    groups = rm_vector_weight_decay(module)
+    names = {id(p): n for n, p in module.named_parameters()}
+    decayed = {names[id(p)]: g.get("weight_decay") != 0.0
+               for g in groups for p in g["params"]}
+    mask = vector_weight_decay_mask(
+        {k: jnp.zeros(s) for k, s in shapes.items()})
+    assert decayed == {k: bool(v) for k, v in mask.items()}
+    assert decayed == {"scalar": False, "vector": False, "matrix": True}
 
 
 class _Params(torch.nn.Module):

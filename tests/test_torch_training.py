@@ -1,7 +1,9 @@
 """The training slice as a whole against the JAX package, at a small size:
 the LibriSpeech conformer CTC/attention recipe's ``ASR`` Brain
 (``recipes/LibriSpeech/ASR/transformer/train.py``, imported as it is)
-against its twin on the port (``chip_smoke.ASR``), d_model 32, two
+against its twin on the port (``chip_smoke.ASR``, imported there from the
+twin recipe ``speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transformer/
+train.py``), d_model 32, two
 Conformer layers and one decoder layer, vocabulary 30, utterances of
 0.4–0.5 s, dropout 0, float32. The recipe's weights go into the port
 through ``utils/jax_bridge.load_modules``; the data comes from one
@@ -20,11 +22,17 @@ features come from its unfused ``Fbank``, the port's from the fused one
 (read about 1e-6); gradients 1e-3 of each tensor's largest entry, plus
 1e-6 for the attention keys' biases, whose gradient is zero up to
 rounding; parameters as :func:`test_parameters_after_four_steps_match`
-says. The loader is not shuffled here, because the two sides draw their
-orders from different generators (``tests/test_torch_dataio.py``)."""
+says. The loader runs in order here: shuffled, the two sides draw the same
+order (``tests/test_torch_dataio.py``), so the order adds nothing to check.
+
+The Python hyperparameters that ``chip_smoke.py``'s ``recipe_path`` runs
+on the card, where there is no YAML loader, are held against the twin's
+``hparams/conformer_large.yaml`` loaded by the port's
+``load_hyperpyyaml``: every value, and every weight, equal."""
 
 import importlib.util
 import os
+import types
 
 import numpy as np
 import pytest
@@ -387,3 +395,49 @@ def test_intra_epoch_checkpoints_keep_one(tmp_path):
     assert len(ckpts) == 1
     assert ckpts[0].meta["brain_intra_epoch_ckpt"] is True
     assert ckpts[0].meta["end-of-epoch"] is False
+
+
+def _same(a, b, path="hparams"):
+    """``a`` and ``b`` hold the same values: plain values equal, tensors
+    equal bit for bit, containers and objects (their attributes) alike
+    throughout."""
+    assert type(a) is type(b), path
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    elif hasattr(a, "__dict__") and not isinstance(
+            a, (type, types.FunctionType, types.MethodType)):
+        _same(vars(a), vars(b), f"{path}.")
+    else:
+        assert a == b, path
+
+
+def test_recipe_path_hparams_are_the_yaml(tmp_path):
+    """``chip_smoke.recipe_hparams`` (what ``recipe_path`` runs on the
+    card) against the twin's ``conformer_large.yaml`` loaded with the same
+    overrides, the cuts of ``recipe_path`` included: the same keys, plain
+    values, objects and modules, the weights bit for bit (both draw them
+    after ``seed_everything(3407)`` in the same order), on the CPU."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    overrides = dict(chip_smoke.RECIPE_OVERRIDES, device="cpu",
+                     data_folder=str(tmp_path / "data"),
+                     output_folder=str(tmp_path / "out"))
+    yaml_path = os.path.join(os.path.dirname(chip_smoke.recipe.__file__),
+                             "hparams", "conformer_large.yaml")
+    with open(yaml_path) as f:
+        from_yaml = load_hyperpyyaml(f, overrides)
+    from_python = chip_smoke.recipe_hparams(overrides)
+    assert from_python["d_model"] == 512
+    assert from_python["num_encoder_layers"] == 12
+    assert from_python["number_of_epochs"] == 3
+    assert from_python["compute_features"].fused
+    _same(from_python, from_yaml)

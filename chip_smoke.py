@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives five paths at the full width of the
+(``grad_guard``), and drives six paths at the full width of the
 conformer-large LibriSpeech recipe with random weights made from a seed:
 
 - ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
@@ -31,21 +31,30 @@ conformer-large LibriSpeech recipe with random weights made from a seed:
   a synthetic corpus, the BPE tokenizer, ``dataio_prepare``, three shuffled
   bf16 epochs with a checkpoint after each valid stage, then the test
   split's loss and greedy-CTC WER (kernel ``fused_fbank`` on every train,
-  valid and test batch).
+  valid and test batch);
+- ``serve_path``: ``main_path``'s model served through the port's entry
+  point: its modules' state dicts and a 5000-piece tokenizer written as a
+  model source directory, loaded into fresh modules by a ``Pretrainer``,
+  then ``EncoderDecoderASR.transcribe_batch`` (bf16, ancestry and
+  permuting search: kernels ``fused_fbank`` with ``ancestry_attention``,
+  then with ``row_gather``), the same in float32 against
+  ``Pipeline.transcribe``, ``transcribe_file`` of a WAV, and
+  ``EncoderASR`` with greedy CTC (kernel ``fused_fbank``).
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
 run without one; there is no CPU mode.
 
-The assemblies (``Pipeline``, the twin recipe's ``ASR`` with its helpers,
-``recipe_hparams``) take a ``device`` so that the CPU tests can hold them
-against the JAX package at a small size.
+The assemblies (``Pipeline`` and its served form ``served_asr``, the twin
+recipe's ``ASR`` with its helpers, ``recipe_hparams``) take a ``device`` so
+that the CPU tests can hold them against the JAX package at a small size.
 """
 
 import argparse
 import contextlib
 import copy
 import ctypes
+import functools
 import itertools
 import json
 import os
@@ -61,12 +70,14 @@ from speechbrain_tpu_torch.core import Brain, Stage
 from speechbrain_tpu_torch.dataio.dataio import read_audio, write_audio
 from speechbrain_tpu_torch.dataio.dataloader import make_dataloader
 from speechbrain_tpu_torch.dataio.dataset import DynamicItemDataset
+from speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
 from speechbrain_tpu_torch.decoders.scorer import (
     CTCScorer,
     KVTransformerLMScorer,
     ScorerBuilder,
 )
 from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
+from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
 from speechbrain_tpu_torch.lobes.features import Fbank
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
@@ -75,6 +86,7 @@ from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
     get_lookahead_mask,
 )
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
+    EncoderWrapper,
     TransformerASR,
 )
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
@@ -85,6 +97,7 @@ from speechbrain_tpu_torch.nnet.attention import (
     MultiheadAttention,
     make_mask_bias,
 )
+from speechbrain_tpu_torch.nnet.containers import LengthsCapableSequential
 from speechbrain_tpu_torch.nnet.linear import Linear
 from speechbrain_tpu_torch.nnet.schedulers import NoamScheduler
 from speechbrain_tpu_torch.ops import (
@@ -104,9 +117,18 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
 from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
     prepare_synthetic,
 )
-from speechbrain_tpu_torch.utils.checkpoints import Checkpointer
+from speechbrain_tpu_torch.tokenizers.SentencePiece import (
+    WORD_BOUNDARY,
+    SentencePiece,
+)
+from speechbrain_tpu_torch.utils.checkpoints import (
+    DEFAULT_SAVE_HOOKS,
+    Checkpointer,
+    get_default_hook,
+)
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
+from speechbrain_tpu_torch.utils.parameter_transfer import Pretrainer
 from speechbrain_tpu_torch.utils.seed import seed_everything
 from speechbrain_tpu_torch.utils.signals import make_check_signal
 from speechbrain_tpu_torch.utils.train_logger import FileTrainLogger
@@ -284,6 +306,114 @@ class Pipeline:
         self.last_encode_ms = (t1 - t0) * 1e3
         self.last_decode_ms = (t2 - t1) * 1e3
         return result
+
+
+# -- the serving entry point over the same modules --------------------------
+
+def serve_modules(pipe):
+    """A pipeline's modules by the names of their files in a model source
+    directory (``<name>.ckpt``)."""
+    return {"frontend": pipe.frontend, "asr": pipe.net,
+            "ctc_lin": pipe.ctc_lin, "seq_lin": pipe.seq_lin, "lm": pipe.lm}
+
+
+class ServedDecoder(torch.nn.Module):
+    """``Pipeline``'s beam search as the ``decoder`` of an
+    ``EncoderDecoderASR``: ``(encoder states, relative lengths) -> (hyps,
+    lengths, scores, topk)``, the searcher built for each batch as
+    ``Pipeline.transcribe`` builds it (its caches sized by the batch's
+    encoder length). The decoder's, the heads' and the LM's modules are
+    its children, so that the interface puts them in ``eval()`` without
+    gradients. ``pipe.ancestry`` picks the search's mode. The card is
+    synchronised around the search (which syncs the host every step
+    anyway) and its wall time kept in ``last_ms``."""
+
+    def __init__(self, pipe):
+        super().__init__()
+        self.pipe = pipe
+        self.net, self.ctc_lin = pipe.net, pipe.ctc_lin
+        self.seq_lin, self.lm = pipe.seq_lin, pipe.lm
+        self.searcher = self.last_result = self.last_ms = None
+
+    def forward(self, enc_states, enc_lens):
+        self.pipe._sync()
+        t0 = time.perf_counter()
+        max_steps = max(1, int(enc_states.shape[1]
+                               * self.pipe.cfg["max_decode_ratio"]))
+        self.searcher = self.pipe._build_searcher(max_steps)
+        self.last_result = self.searcher(enc_states, enc_lens)
+        self.pipe._sync()
+        self.last_ms = (time.perf_counter() - t0) * 1e3
+        return self.last_result
+
+
+def served_encoder(pipe, ctc=False):
+    """``Pipeline.encode`` as a ``LengthsCapableSequential``: fused
+    Fbank, cast to the pipeline's dtype, front end, time padded to a
+    multiple (which rescales the lengths), the encoder alone; with
+    ``ctc``, then the CTC head and log-softmax (``EncoderASR``'s
+    encoder)."""
+    layers = [
+        pipe.fbank, lambda x: x.to(pipe.dtype), pipe.frontend,
+        functools.partial(pad_time_to_multiple,
+                          multiple=pipe.cfg["pad_multiple"]),
+        EncoderWrapper(pipe.net),
+    ]
+    if ctc:
+        layers += [pipe.ctc_lin, lambda x: torch.log_softmax(x.float(), -1)]
+    return LengthsCapableSequential(layers)
+
+
+class TimedEncoderDecoderASR(EncoderDecoderASR):
+    """``EncoderDecoderASR`` that synchronises the card around its
+    encoder, as ``Pipeline.transcribe`` does, and keeps the encode's wall
+    time (the decode's is the decoder's)."""
+
+    def encode_batch(self, wavs, wav_lens):
+        self.hparams.decoder.pipe._sync()
+        t0 = time.perf_counter()
+        out = super().encode_batch(wavs, wav_lens)
+        self.hparams.decoder.pipe._sync()
+        self.last_encode_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def served_asr(pipe, tokenizer):
+    """An ``EncoderDecoderASR`` built from hparams in Python (the card's
+    machine has no YAML loader) over ``pipe``'s modules: the entry point
+    a user serves through, holding the same weights as ``pipe``."""
+    return TimedEncoderDecoderASR(
+        hparams={"encoder": served_encoder(pipe),
+                 "decoder": ServedDecoder(pipe),
+                 "tokenizer": tokenizer, "sample_rate": SR},
+        run_opts={"device": str(pipe.device)})
+
+
+def write_covering_bpe(model_dir, n_pieces):
+    """A BPE model of exactly ``n_pieces`` pieces in the port's own
+    ``<n_pieces>_bpe.model.json`` format, made by construction: ``<unk>``,
+    the word boundary and the letters, then pairs of those and triples
+    of a pair and a symbol, each with its merge. It covers every class of
+    a head of ``n_pieces`` classes, where BPE trained on a small corpus
+    stops far short (``ROADMAP.md`` C19). Returns the file's path."""
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    pieces, merges = (["<unk>", WORD_BOUNDARY] + letters)[:n_pieces], []
+    symbols = pieces[1:]
+    pairs = [(a, b) for a in symbols for b in symbols]
+    triples = [(a + b, c) for a, b in pairs for c in symbols]
+    for left, right in itertools.chain(pairs, triples):
+        if len(pieces) == n_pieces:
+            break
+        pieces.append(left + right)
+        merges.append([left, right])
+    if len(pieces) != n_pieces:
+        raise ValueError(f"cannot construct {n_pieces} pieces")
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, f"{n_pieces}_bpe.model.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"pieces": pieces, "merges": merges, "unk": "<unk>"}, f,
+                  ensure_ascii=False)
+    return path
 
 
 # The training path's configuration: the LibriSpeech conformer_large
@@ -1509,6 +1639,76 @@ def profile_decode(cfg):
     })
 
 
+def profile_serve(cfg, repeats=3):
+    """``--profile`` only: does the entry point add host time over the
+    assembly it wraps? Over the same bf16 modules: ``Pipeline.encode``
+    against ``EncoderDecoderASR.encode_batch`` (the ``LengthsCapableSequential``),
+    alternated ``4 * repeats`` times, wall ms of each; the tokenizer's
+    decoding of the batch's hypotheses, on the host; whole
+    ``Pipeline.transcribe`` against ``transcribe_batch`` calls, alternated
+    ``repeats`` times (the decode's host-bound loop spreads them wider than
+    the difference); then one ``transcribe_batch`` under
+    ``torch.profiler``: device kernel time against its median wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wavs, lens = make_waveforms(cfg, "cuda")
+    pipe = Pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    with tempfile.TemporaryDirectory() as tok_dir:
+        write_covering_bpe(tok_dir, cfg["vocab"])
+        tokenizer = SentencePiece(tok_dir, cfg["vocab"], model_type="bpe")
+    asr = served_asr(pipe, tokenizer)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(wavs, lens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms(pipe.transcribe)
+    _, hyps = asr.transcribe_batch(wavs, lens)
+    enc_pipe_ms, enc_entry_ms = [], []
+    for _ in range(4 * repeats):
+        enc_pipe_ms.append(wall_ms(pipe.encode))
+        enc_entry_ms.append(wall_ms(asr.encode_batch))
+    t0 = time.perf_counter()
+    for tokens in hyps:
+        tokenizer.decode_ids(tokens)
+    words_ms = (time.perf_counter() - t0) * 1e3
+    pipe_ms, entry_ms = [], []
+    for _ in range(repeats):
+        pipe_ms.append(wall_ms(pipe.transcribe))
+        entry_ms.append(wall_ms(asr.transcribe_batch))
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        asr.transcribe_batch(wavs, lens)
+        torch.cuda.synchronize()
+    device_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            device_us += e.self_cuda_time_total if us is None else us
+    entry_median = float(np.median(entry_ms))
+    emit({
+        "phase": "profile_serve", "repeats": repeats,
+        "encode_median_ms": {"pipeline": float(np.median(enc_pipe_ms)),
+                             "entry_point": float(np.median(enc_entry_ms))},
+        "encode_ms": {"pipeline": enc_pipe_ms, "entry_point": enc_entry_ms},
+        "tokenizer_decode_ms": words_ms,
+        "pipeline_transcribe_ms": pipe_ms,
+        "entry_point_transcribe_batch_ms": entry_ms,
+        "median_ms": {"pipeline": float(np.median(pipe_ms)),
+                      "entry_point": entry_median},
+        "entry_minus_pipeline_median_ms":
+            entry_median - float(np.median(pipe_ms)),
+        "device_kernel_ms": device_us / 1e3,
+        "device_busy_share": device_us / 1e3 / entry_median,
+        "steps": asr.hparams.decoder.searcher.last_steps,
+    })
+
+
 def profile_train(cfg, out_dir, datasets, steps=2):
     """``--profile`` only: ``steps`` optimizer steps of the train path
     timed without the profiler (after two warm-up steps), then the same
@@ -2045,6 +2245,173 @@ def run_recipe_path(out_dir):
     return n
 
 
+# -- phase: the serving entry point ------------------------------------------
+
+SERVE_REDUCED = {
+    "weights": "random, from seed 0 (the published model's files are not "
+               "in the repository)",
+    "tokenizer": "a 5000-piece BPE model made by construction "
+                 "(write_covering_bpe), not trained",
+}
+
+
+def _bitwise_equal(modules_a, modules_b, cast=None):
+    """Every tensor of every module's state equal bit for bit (``b``'s
+    cast to ``cast`` first, where given)."""
+    for name, a in modules_a.items():
+        sa, sb = a.state_dict(), modules_b[name].state_dict()
+        if sa.keys() != sb.keys():
+            return False
+        for key, t in sa.items():
+            u = sb[key] if cast is None else sb[key].to(cast)
+            if t.dtype != u.dtype or not torch.equal(t, u):
+                return False
+    return True
+
+
+def _served_run(asr, wavs, lens, ancestry):
+    """One counted ``transcribe_batch`` (after a warm-up) in the given
+    search mode; returns its line's readings and whether its launch counts
+    are exactly those of :func:`expected_launches`."""
+    decoder = asr.hparams.decoder
+    decoder.pipe.ancestry = ancestry
+    asr.transcribe_batch(wavs, lens)  # warm-up: allocator, cuBLAS set-up
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    words, hyps = asr.transcribe_batch(wavs, lens)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    steps = decoder.searcher.last_steps
+    expected = expected_launches(decoder.pipe.cfg, ancestry, steps, 1)
+    _, _, scores, _ = decoder.last_result
+    cfg = decoder.pipe.cfg
+    audio_s = cfg["batch"] * cfg["seconds"]
+    ok = (counts == expected and len(words) == cfg["batch"]
+          and all(isinstance(w, str) for w in words)
+          and np.all(np.isfinite(scores)) and steps >= 1
+          and all(0 <= t < cfg["vocab"] for h in hyps for t in h))
+    return ok, {
+        "ancestry_kv": ancestry, "steps": steps, "words": words,
+        "hyp_lengths": [len(h) for h in hyps],
+        **{f"{name}_launches": n for name, n in counts.items()},
+        "expected_launches": expected,
+        "encode_ms": asr.last_encode_ms, "decode_ms": decoder.last_ms,
+        "transcribe_batch_ms": total_ms,
+        "audio_seconds_per_second": audio_s / (total_ms / 1e3),
+    }
+
+
+def run_serve_path(cfg, out_dir):
+    """NORTH served through the port's entry point: a model source
+    directory written from seed-0 modules through their savers and a
+    covering tokenizer; a second set of modules (seed 1) loaded from it by
+    a ``Pretrainer``, bit for bit; ``EncoderDecoderASR.transcribe_batch``
+    in bf16 with ancestry KV (B1 18 x steps, B3 once) and permuting (B4
+    36 x steps, B3 once); in fp32 against ``Pipeline.transcribe`` on the
+    same modules (tokens equal, scores within 1e-5); ``transcribe_file``
+    of a 10 s WAV against ``transcribe_batch`` of its samples; and
+    ``EncoderASR`` with greedy CTC (B3 only). Returns each run's launch
+    counts."""
+    t0 = time.perf_counter()
+    src = os.path.join(out_dir, "model")
+    os.makedirs(src)
+    pipe0 = Pipeline(cfg, device="cuda", dtype=torch.float32, seed=0)
+    for name, module in serve_modules(pipe0).items():
+        get_default_hook(module, DEFAULT_SAVE_HOOKS)(
+            module, os.path.join(src, f"{name}.ckpt"))
+    write_covering_bpe(src, cfg["vocab"])
+    source_bytes = sum(os.path.getsize(os.path.join(src, f))
+                       for f in os.listdir(src))
+
+    loaded = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pipe = Pipeline(cfg, device="cuda", dtype=dtype, seed=1)
+        pretrainer = Pretrainer(
+            collect_in=os.path.join(out_dir, f"collected_{dtype}"),
+            loadables=serve_modules(pipe))
+        pretrainer.collect_files(default_source=src)
+        pretrainer.load_collected()
+        loaded[dtype] = pipe
+    bit_equal = (
+        _bitwise_equal(serve_modules(loaded[torch.float32]),
+                       serve_modules(pipe0))
+        and _bitwise_equal(serve_modules(loaded[torch.bfloat16]),
+                           serve_modules(pipe0), cast=torch.bfloat16))
+    del pipe0
+    tokenizer = SentencePiece(src, cfg["vocab"], model_type="bpe")
+    load_seconds = time.perf_counter() - t0
+    wavs, lens = make_waveforms(cfg, "cuda")
+
+    asr = served_asr(loaded[torch.bfloat16], tokenizer)
+    frozen = not any(p.requires_grad for m in serve_modules(
+        loaded[torch.bfloat16]).values() for p in m.parameters())
+    ok_anc, anc = _served_run(asr, wavs, lens, ancestry=True)
+    ok_perm, perm = _served_run(asr, wavs, lens, ancestry=False)
+    del asr
+    loaded.pop(torch.bfloat16)
+    torch.cuda.empty_cache()
+
+    pipe = loaded[torch.float32]
+    asr32 = served_asr(pipe, tokenizer)
+    words32, hyps32 = asr32.transcribe_batch(wavs, lens)
+    scores32 = asr32.hparams.decoder.last_result[2]
+    ref_hyps, _, ref_scores, _ = pipe.transcribe(wavs, lens)
+    fp32_diff = float(np.max(np.abs(scores32 - ref_scores)))
+    fp32_ok = hyps32 == ref_hyps and fp32_diff <= 1e-5
+
+    signal = 0.1 * wavs[0].cpu().numpy()
+    wav_path = os.path.join(out_dir, "utterance.wav")
+    write_audio(wav_path, signal, SR)
+    file_words = asr32.transcribe_file(wav_path)
+    batch_words, _ = asr32.transcribe_batch(
+        torch.from_numpy(read_audio(wav_path))[None].cuda(),
+        torch.ones(1, device="cuda"))
+    file_ok = file_words == batch_words[0]
+
+    ctc_asr = EncoderASR(hparams={
+        "encoder": served_encoder(pipe, ctc=True),
+        "decoding_function": functools.partial(
+            ctc_greedy_decode, blank_id=cfg["blank"]),
+        "tokenizer": tokenizer, "sample_rate": SR,
+    }, run_opts={"device": "cuda"})
+    reset_launch_counts()
+    ctc_words, ctc_hyps = ctc_asr.transcribe_batch(wavs, lens)
+    ctc_counts = launch_counts()
+    ctc_expected = dict.fromkeys(KERNELS, 0)
+    ctc_expected["fused_fbank"] = 1
+    ctc_ok = (ctc_counts == ctc_expected and len(ctc_words) == cfg["batch"]
+              and all(0 <= t < cfg["vocab"] for h in ctc_hyps for t in h))
+
+    checks = {"pretrainer_bit_equal": bit_equal, "modules_frozen": frozen,
+              "ancestry": ok_anc, "permute": ok_perm,
+              "fp32_vs_pipeline": fp32_ok, "transcribe_file": file_ok,
+              "encoder_asr": ctc_ok}
+    ok = all(checks.values())
+    emit({
+        "phase": "serve_path", "ok": bool(ok), "checks": checks,
+        "config": {**cfg, "ctc_scorer": True, "fused_fbank": True},
+        "reduced": SERVE_REDUCED,
+        "source_files": sorted(os.listdir(src)),
+        "source_bytes": source_bytes, "build_and_load_seconds": load_seconds,
+        "bf16_ancestry": anc, "bf16_permute": perm,
+        "fp32_tokens_equal_pipeline": hyps32 == ref_hyps,
+        "fp32_max_score_diff": fp32_diff, "fp32_score_atol": 1e-5,
+        "fp32_words": words32,
+        "transcribe_file": {"seconds": cfg["seconds"], "words": file_words,
+                            "equals_batch_of_one": file_ok},
+        "encoder_asr": {"words": ctc_words,
+                        **{f"{n}_launches": c for n, c in ctc_counts.items()},
+                        "expected_launches": ctc_expected},
+        "seconds": time.perf_counter() - t0,
+        "gpu_name_power_limit": gpu_name_power_limit(),
+    })
+    if not ok:
+        raise AssertionError(f"serve_path: a check failed: {checks}")
+    return {"ancestry": {k: anc[f"{k}_launches"] for k in KERNELS},
+            "permute": {k: perm[f"{k}_launches"] for k in KERNELS},
+            "encoder_asr": ctc_counts}
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -2118,8 +2485,9 @@ def main():
     parser.add_argument(
         "--profile", action="store_true",
         help="also trace two training steps, one encode (B3 must launch "
-             "once) and one beam search with torch.profiler and print the "
-             "device's busy share and the heaviest kernels",
+             "once), one beam search and one transcribe_batch through the "
+             "entry point with torch.profiler and print the device's busy "
+             "share and the heaviest kernels",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2189,6 +2557,15 @@ def main():
     torch.cuda.empty_cache()
     kernels[1]["launches_by_path"]["recipe_path"] = sum(
         recipe_forwards.values())
+    with tempfile.TemporaryDirectory() as serve_dir:
+        served = run_serve_path(NORTH, serve_dir)
+    torch.cuda.empty_cache()
+    if args.profile:
+        profile_serve(NORTH)
+    for kernel in kernels:
+        by_path = kernel.setdefault("launches_by_path", {})
+        by_path["serve_path"] = {run: counts[kernel["name"]]
+                                 for run, counts in served.items()}
     kernels[1]["at_recipe_shape"] = measure_b3_at(
         CONFORMER_LARGE["batch_size"], recipe.SIG_PAD_MULTIPLE)
     emit({"kernels": kernels})

@@ -1,6 +1,7 @@
 """Manifests, audio files and token sequences (port of
-``load_data_json``, ``load_data_csv``, ``read_audio``, ``write_audio``,
-``merge_char`` and ``split_word`` from ``speechbrain_tpu/dataio/dataio.py``).
+``load_data_json``, ``load_data_csv``, ``read_audio``, ``read_audio_info``,
+``write_audio``, ``merge_char`` and ``split_word`` from
+``speechbrain_tpu/dataio/dataio.py``).
 
 Audio is PCM WAV through the standard library's ``wave`` module: 8-bit
 unsigned, 16- and 32-bit signed samples, scaled as soundfile scales them
@@ -77,6 +78,13 @@ def load_data_csv(csv_path, replacements=None):
 
 _PCM = {1: (np.uint8, 128.0), 2: (np.int16, 32768.0),
         4: (np.int32, 2147483648.0)}
+
+
+def read_audio_info(path):
+    """``(num_frames, sample_rate, num_channels)`` of a WAV file, from its
+    header."""
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes(), w.getframerate(), w.getnchannels()
 
 
 def read_audio(waveforms_obj):

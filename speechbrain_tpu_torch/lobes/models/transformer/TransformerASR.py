@@ -1,4 +1,5 @@
-"""Encoder-decoder Transformer/Conformer ASR wrapper (port of
+"""Encoder-decoder Transformer/Conformer ASR wrapper and its
+``EncoderWrapper`` (port of
 ``speechbrain_tpu/lobes/models/transformer/TransformerASR.py`` without its
 dynamic-chunk, streaming and Branchformer arms): joins an input
 projection, a Transformer or Conformer encoder and a Transformer decoder,
@@ -69,9 +70,10 @@ class TransformerASR(nn.Module):
         self.d_model = d_model
         self.attention_type = attention_type
         self.custom_src_module = Linear(d_model, input_size, **kw)
+        # no decoder, no target embedding (the JAX module's tree has none)
         self.custom_tgt_module = NormalizedEmbedding(
             d_model=d_model, vocab=tgt_vocab, **kw
-        )
+        ) if num_decoder_layers > 0 else None
         if attention_type == "RelPosMHAXL":
             self.pos_enc = RelPosEncXL(emb_dim=d_model)
         elif positional_encoding == "fixed_abs_sine":
@@ -212,3 +214,25 @@ class TransformerASR(nn.Module):
             memory_key_padding_mask=src_key_padding_mask,
         )
         return enc_out, dec_out
+
+
+class EncoderWrapper(nn.Module):
+    """The encoder of a ``TransformerASR`` alone, as ``(x, lengths) ->
+    encoder states``, so that a ``nnet/containers.LengthsCapableSequential``
+    can end in it (CTC-only models, served encoders).
+
+    Example
+    -------
+    >>> net = TransformerASR(tgt_vocab=8, input_size=12, d_model=16,
+    ...     nhead=2, num_encoder_layers=1, num_decoder_layers=0, d_ffn=32,
+    ...     device="cpu").eval()
+    >>> EncoderWrapper(net)(torch.ones(2, 10, 12), torch.ones(2)).shape
+    torch.Size([2, 10, 16])
+    """
+
+    def __init__(self, transformer):
+        super().__init__()
+        self.transformer = transformer
+
+    def forward(self, x, lengths=None):
+        return self.transformer.encode(x, wav_len=lengths)

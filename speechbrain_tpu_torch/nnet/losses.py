@@ -112,15 +112,23 @@ def kldiv_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
     return _reduce(loss, mask, reduction)
 
 
+# optax.ctc_loss's stand-in for log(0) (its ``log_epsilon`` default)
+CTC_LOG_EPSILON = -1e5
+
+
 def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
              reduction="mean"):
     """CTC loss of (batch, time, classes) log-probs with *relative* input
-    and target lengths, through ``torch.nn.functional.ctc_loss``.
-    ``"mean"`` divides each sequence's loss by its target length, then
-    averages over the batch.
+    and target lengths. ``"mean"`` divides each sequence's loss by its
+    target length, then averages over the batch.
 
-    An alignment that cannot be made (a target longer than its input
-    allows) gives ``inf``, where the JAX package's optax gives about 1e5.
+    Rows that can be aligned go through ``torch.nn.functional.ctc_loss``.
+    A row that cannot (fewer frames than targets plus their adjacent
+    repeats) has no path, and ``F.ctc_loss`` would give ``inf``; such rows
+    go through :func:`ctc_loss_log_epsilon`, optax's recursion with log(0)
+    taken as -1e5, and give the large finite value and the gradient that
+    the JAX package's optax gives. Finding those rows reads a (B,) mask on
+    the host: one sync a call.
 
     Example
     -------
@@ -132,12 +140,25 @@ def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
     """
     B, T, _ = log_probs.shape
     N = targets.shape[1]
+    targets = targets.long()
     in_abs = torch.round(input_lens * T).long()
     tgt_abs = torch.round(target_lens * N).long()
+    # frames a path needs: one a label, one more between equal neighbours
+    inside = (torch.arange(N - 1, device=targets.device)[None, :]
+              < tgt_abs[:, None] - 1)
+    repeats = ((targets[:, 1:] == targets[:, :-1]) & inside).sum(dim=1)
+    infeasible = in_abs < tgt_abs + repeats
     per_seq = F.ctc_loss(
-        log_probs.transpose(0, 1), targets.long(), in_abs, tgt_abs,
-        blank=blank_index, reduction="none", zero_infinity=False,
+        log_probs.transpose(0, 1), targets, in_abs, tgt_abs,
+        blank=blank_index, reduction="none", zero_infinity=True,
     )
+    if bool(infeasible.any()):
+        rows = infeasible.nonzero().squeeze(1)
+        twin = ctc_loss_log_epsilon(
+            log_probs[rows], targets[rows], in_abs[rows], tgt_abs[rows],
+            blank_index,
+        )
+        per_seq = per_seq.index_put((rows,), twin.to(per_seq.dtype))
     if reduction == "mean":
         return (per_seq / tgt_abs.clamp(min=1).to(per_seq.dtype)).mean()
     if reduction == "batchmean":
@@ -145,3 +166,66 @@ def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
     if reduction == "sum":
         return per_seq.sum()
     return per_seq
+
+
+def ctc_loss_log_epsilon(logits, targets, in_abs, tgt_abs, blank_index):
+    """Per-sequence CTC loss by ``optax.ctc_loss``'s recursion in plain
+    torch: log-softmax of ``logits`` (B, T, K), then a scan over the
+    frames of the blank and label forward variables with log(0) taken as
+    ``CTC_LOG_EPSILON``; a frame at or past ``in_abs`` leaves the state as it
+    is; the loss is read at ``tgt_abs``. Repeats are taken between
+    neighbours of the whole padded ``targets`` row, as optax takes them.
+    Autograd gives the gradient. A step a frame: meant for the few rows
+    ``F.ctc_loss`` cannot align, not for the training path."""
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    B, T, _ = logp.shape
+    N = targets.shape[1]
+    kw = dict(device=logp.device, dtype=logp.dtype)
+    repeat = torch.zeros(B, N, **kw)
+    repeat[:, :-1] = targets[:, :-1] == targets[:, 1:]
+    lp_blank = logp[:, :, blank_index:blank_index + 1]  # (B, T, 1)
+    lp_emit = torch.gather(logp, 2, targets[:, None, :].expand(B, T, N))
+    pad = (torch.arange(T, device=logp.device)[None, :, None]
+           >= in_abs[:, None, None]).to(logp.dtype)  # (B, T, 1)
+    phi = torch.full((B, N + 1), CTC_LOG_EPSILON, **kw)
+    phi[:, 0] = 0.0
+    emit = torch.full((B, N), CTC_LOG_EPSILON, **kw)
+
+    def add_to_tail(p, added):
+        return torch.cat([p[:, :1], _LogAddExp.apply(p[:, 1:], added)], dim=1)
+
+    for t in range(T):
+        phi_orig = phi
+        # label -> blank state with no frame, unless the next label repeats
+        phi = add_to_tail(phi, emit + CTC_LOG_EPSILON * repeat)
+        next_emit = _LogAddExp.apply(phi[:, :-1] + lp_emit[:, t],
+                                    emit + lp_emit[:, t])
+        next_phi = add_to_tail(
+            phi + lp_blank[:, t],
+            emit + lp_blank[:, t] + CTC_LOG_EPSILON * (1.0 - repeat),
+        )
+        emit = pad[:, t] * emit + (1.0 - pad[:, t]) * next_emit
+        phi = pad[:, t] * phi_orig + (1.0 - pad[:, t]) * next_phi
+    phi = add_to_tail(phi, emit)
+    return -torch.gather(phi, 1, tgt_abs[:, None]).squeeze(1)
+
+
+class _LogAddExp(torch.autograd.Function):
+    """``logaddexp`` with ``jnp.logaddexp``'s arithmetic: max + log1p(exp(
+    -|a - b|)) forward; backward g·exp(a - out) and g·exp(b - out). Next to
+    log(0) taken as -1e5 the operands are about 1e5 apart, where float32
+    keeps 2-3 decimals of their difference: torch's own backward,
+    g / (1 + exp(b - a)), rounds otherwise and drifts from optax's
+    gradient by about 1 %."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b)))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, out = ctx.saved_tensors
+        return grad * torch.exp(a - out), grad * torch.exp(b - out)

@@ -9,6 +9,10 @@
   a module's tensors load onto the device its parameters lie on;
 * any other object takes part through ``@mark_as_saver`` and
   ``@mark_as_loader`` methods on a ``@register_checkpoint_hooks`` class;
+* transfer hooks (``@mark_as_transfer``, ``DEFAULT_TRANSFER_HOOKS``) load
+  pretrained files for ``utils/parameter_transfer.Pretrainer``; a
+  module's refuses a file whose keys or shapes are not its own, before it
+  copies anything;
 * retention: ``save_and_keep_only`` with ``min_keys``/``max_keys``,
   ``num_to_keep`` and ``ckpt_predicate``.
 """
@@ -43,6 +47,7 @@ paramfiles: {recoverable_name: Path} of each saved object's file.
 
 DEFAULT_SAVE_HOOKS = {}
 DEFAULT_LOAD_HOOKS = {}
+DEFAULT_TRANSFER_HOOKS = {}
 
 
 def mark_as_saver(method):
@@ -70,13 +75,27 @@ def mark_as_loader(method):
     return method
 
 
+def mark_as_transfer(method):
+    """Mark ``method(self, path)`` as the transfer hook of its class: how
+    a ``Pretrainer`` loads a pretrained file into an instance."""
+    try:
+        inspect.signature(method).bind(object(), pathlib.Path("testpath"))
+    except TypeError:
+        raise TypeError("Transfer hook must take (self, path)")
+    method._speechbrain_transfer = True
+    return method
+
+
 def register_checkpoint_hooks(cls):
-    """Class decorator: register the class's marked saver and loader."""
+    """Class decorator: register the class's marked saver, loader and
+    transfer hook."""
     for method in cls.__dict__.values():
         if getattr(method, "_speechbrain_saver", False):
             DEFAULT_SAVE_HOOKS[cls] = method
         if getattr(method, "_speechbrain_loader", False):
             DEFAULT_LOAD_HOOKS[cls] = method
+        if getattr(method, "_speechbrain_transfer", False):
+            DEFAULT_TRANSFER_HOOKS[cls] = method
     return cls
 
 
@@ -115,9 +134,36 @@ def torch_recovery(obj, path, end_of_epoch=False):
         )
 
 
+def torch_transfer(module, path):
+    """Default transfer hook of modules: load a saved ``state_dict`` into
+    ``module`` onto its device, after checking that the file holds every
+    key of the module's state, no other key, and each tensor at its shape
+    (the checks of flax's ``from_bytes`` into a target). On a mismatch it
+    raises ``RuntimeError`` naming the keys, and the module is left as it
+    was: there is no partial load."""
+    state = torch.load(path, map_location=_module_device(module),
+                       weights_only=True)
+    own = module.state_dict()
+    missing = sorted(own.keys() - state.keys())
+    unexpected = sorted(state.keys() - own.keys())
+    shapes = sorted(
+        f"{k}: {tuple(state[k].shape)} for {tuple(own[k].shape)}"
+        for k in own.keys() & state.keys()
+        if tuple(state[k].shape) != tuple(own[k].shape)
+    )
+    if missing or unexpected or shapes:
+        raise RuntimeError(
+            f"{path} does not fit {type(module).__name__}: missing keys "
+            f"{missing}, unexpected keys {unexpected}, shape mismatches "
+            f"{shapes}"
+        )
+    module.load_state_dict(state, strict=True)
+
+
 for _cls in (torch.nn.Module, torch.optim.Optimizer):
     DEFAULT_SAVE_HOOKS[_cls] = torch_save
     DEFAULT_LOAD_HOOKS[_cls] = torch_recovery
+DEFAULT_TRANSFER_HOOKS[torch.nn.Module] = torch_transfer
 
 
 def ckpt_recency(ckpt):

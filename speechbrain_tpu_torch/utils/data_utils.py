@@ -107,3 +107,22 @@ def pad_time_to_multiple(x, lengths=None, multiple=128, value=0.0):
     if lengths is not None:
         lengths = lengths * (T / (T + pad))
     return x, lengths
+
+
+def split_path(path):
+    """``(source, filename)`` of a path or URI: split at its last ``/``,
+    a bare name lying in ``./``.
+
+    Example
+    -------
+    >>> split_path("models/asr/encoder.ckpt")
+    ('models/asr', 'encoder.ckpt')
+    >>> split_path("encoder.ckpt")
+    ('./', 'encoder.ckpt')
+    """
+    path = str(path)
+    if "/" in path:
+        source, filename = path.rsplit("/", maxsplit=1)
+    else:
+        source, filename = "./", path
+    return source, filename

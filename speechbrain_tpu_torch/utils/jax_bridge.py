@@ -214,7 +214,8 @@ def load_convolution_frontend(module, scope):
 
 def load_transformer_asr(module, scope):
     load(module.custom_src_module, scope.sub("src_proj"))
-    load(module.custom_tgt_module, scope.sub("tgt_emb"))
+    if module.custom_tgt_module is not None:
+        load(module.custom_tgt_module, scope.sub("tgt_emb"))
     load(module.encoder, scope.sub("encoder"))
     if module.decoder is not None:
         load(module.decoder, scope.sub("decoder"))

@@ -1,7 +1,9 @@
 """The port stands alone: nothing of it imports JAX, flax or the JAX
-package; it imports where there is no nvcc, triton or GPU; and an entry
-point asked for a CUDA device that is not there raises instead of
-carrying on on the CPU."""
+package (every module under ``speechbrain_tpu_torch/``, found anew at each
+run, and ``chip_smoke.py``); it imports where there is no nvcc, triton,
+GPU or PyYAML; and an entry point asked for a CUDA device that is not
+there (the serving interfaces included) raises instead of carrying on on
+the CPU."""
 
 import ast
 import importlib
@@ -92,6 +94,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     )
     from speechbrain_tpu_torch.core import Brain
     from speechbrain_tpu_torch.dataio.batch import PaddedBatch
+    from speechbrain_tpu_torch.inference.ASR import (
+        EncoderASR,
+        EncoderDecoderASR,
+    )
     from speechbrain_tpu_torch.nnet.linear import Linear
 
     for build in (
@@ -102,6 +108,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: get_lookahead_mask(4),
         lambda: Brain(modules={"lin": torch.nn.Linear(2, 2)}),
         lambda: PaddedBatch([{"x": torch.ones(2)}]).to(),
+        lambda: EncoderDecoderASR(hparams={
+            "encoder": torch.nn.Linear(2, 2), "decoder": None,
+            "tokenizer": None}),
+        lambda: EncoderASR(hparams={
+            "encoder": torch.nn.Linear(2, 2), "decoding_function": None,
+            "tokenizer": None}),
     ):
         with pytest.raises((RuntimeError, AssertionError)):
             build()

@@ -6,9 +6,8 @@ that leave padding, and ``compute_length_mask``.
 Tolerance: 1e-5 relative and 1e-6 absolute for the masked sums (float32
 on both sides, summed in another order); 2e-5 relative for CTC, whose
 forward recursion runs over up to 40 frames in another order (optax's
-against torch's). CTC is held only on alignments that can be made: on
-one that cannot, torch gives ``inf`` where optax gives about 1e5 (its
-``log_epsilon``); the last test pins that difference."""
+against torch's). On an alignment that cannot be made optax gives about
+1e5 (its ``log_epsilon``), and so does the port (the last test)."""
 
 import numpy as np
 import pytest
@@ -133,16 +132,34 @@ def test_ctc_loss_gradient_matches():
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), atol=2e-6)
 
 
-def test_ctc_loss_infeasible_alignment_differs_from_optax():
-    # 6 labels with a repeat need 7 frames; the input has 4
-    logp = _log_probs(np.random.default_rng(5), (1, 4, 5))
-    targets = np.array([[1, 1, 2, 3, 4, 2]], np.int32)
-    ones = np.ones(1, np.float32)
-    t = tl.ctc_loss(torch.from_numpy(logp), torch.from_numpy(targets),
-                    torch.from_numpy(ones), torch.from_numpy(ones),
-                    blank_index=0, reduction="batch")
-    j = jl.ctc_loss(jnp.asarray(logp), jnp.asarray(targets),
-                    jnp.asarray(ones), jnp.asarray(ones), blank_index=0,
-                    reduction="batch")
-    assert torch.isinf(t).all()
-    assert np.all(np.asarray(j) > 1e4) and np.all(np.isfinite(j))
+@pytest.mark.parametrize("reduction", ["mean", "batchmean", "batch", "sum"])
+def test_ctc_loss_infeasible_alignment_differs_from_optax(reduction):
+    """Row 0 cannot be aligned: 6 labels with a repeat need 7 frames and
+    the input has 4 (half of 8); row 1 can, its last label equal to the
+    padding label. The port gives optax's large finite value on row 0 and
+    F.ctc_loss's on row 1, each with optax's gradient. Tolerances: 1e-6
+    relative on the loss (about 2e5 on row 0; float32 sums in the same
+    order, rounded apart by the last bits), 2e-6 absolute on the
+    gradient (as for alignable rows above)."""
+    import jax
+
+    logp = _log_probs(np.random.default_rng(5), (2, 8, 5))
+    targets = np.array([[1, 1, 2, 3, 4, 2], [3, 4, 2, 0, 0, 0]], np.int32)
+    in_lens = np.array([0.5, 1.0], np.float32)
+    tgt_lens = np.array([1.0, 0.5], np.float32)
+
+    def jloss(x):
+        return jl.ctc_loss(x, jnp.asarray(targets), jnp.asarray(in_lens),
+                           jnp.asarray(tgt_lens), blank_index=0,
+                           reduction=reduction)
+
+    j = jloss(jnp.asarray(logp))
+    jg = jax.grad(lambda x: jnp.sum(jloss(x)))(jnp.asarray(logp))
+    x = torch.from_numpy(logp).requires_grad_(True)
+    t = tl.ctc_loss(x, torch.from_numpy(targets), torch.from_numpy(in_lens),
+                    torch.from_numpy(tgt_lens), blank_index=0,
+                    reduction=reduction)
+    t.sum().backward()
+    assert torch.isfinite(t).all() and np.max(np.asarray(j)) > 1e3
+    _close(t, j, rtol=1e-6, atol=0.0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), atol=2e-6)

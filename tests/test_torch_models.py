@@ -1,10 +1,13 @@
 """The port's models against the JAX package's at a small size:
 ``ConvolutionFrontEnd``, ``TransformerASR`` (encode, decode, decode_step)
-and ``TransformerLM`` (forward, score_step). Weights come from flax's init,
+and ``TransformerLM`` (forward, score_step); the containers of
+``nnet/containers.py`` and ``TransformerASR.EncoderWrapper``. Weights come from flax's init,
 perturbed, through ``utils/jax_bridge``; inputs from numpy.
 
 atol 1e-4: float32 throughout, a few layers deep; the two frameworks sum
 in another order."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -296,3 +299,132 @@ def test_initialisation_follows_the_generator():
         device="cpu", generator=torch.Generator().manual_seed(0),
     ).out.weight
     assert abs(float(w.detach().std()) - 64 ** -0.5) < 0.01
+
+
+# -- containers and EncoderWrapper (nnet/containers.py) ----------------------
+
+def _jax_linear(n):
+    from speechbrain_tpu.nnet.linear import Linear as JaxLinear
+
+    return JaxLinear(n_neurons=n)
+
+
+def _port_linear(n, d):
+    from speechbrain_tpu_torch.nnet.linear import Linear
+
+    return Linear(n, d, device="cpu")
+
+
+def _container_case(name):
+    """(JAX container, port container, port modules by the flax scope that
+    holds their weights, whether it takes lengths)."""
+    from speechbrain_tpu.nnet import containers as jc
+    from speechbrain_tpu_torch.nnet import containers as tc
+
+    if name == "sequential":
+        a, b = _port_linear(16, 8), _port_linear(4, 16)
+        return (jc.Sequential(layers=(_jax_linear(16), jnp.tanh,
+                                      _jax_linear(4))),
+                tc.Sequential([a, torch.tanh, b]),
+                {"layers_0": a, "layers_2": b}, False)
+    if name == "module_list":
+        a, b = _port_linear(8, 8), _port_linear(8, 8)
+        return (jc.ModuleList(layers=(_jax_linear(8), _jax_linear(8))),
+                tc.ModuleList([a, b]), {"layers_0": a, "layers_1": b}, False)
+    if name.startswith("connect"):
+        kind = name.split("_", 1)[1]
+        shortcut, combine = {"residual": ("residual", "add"),
+                             "avg": ("residual", "avg"),
+                             "skip": ("skip", "add")}[kind]
+        a, b = _port_linear(8, 8), _port_linear(6, 8)
+        port = tc.ConnectBlocks([a, b], shortcut_type=shortcut,
+                                shortcut_projection=shortcut != "skip",
+                                combine_fn=combine, device="cpu")
+        scopes = {"blocks_0": a, "blocks_1": b}
+        if shortcut != "skip":
+            port(torch.zeros(1, 1, 8))  # makes the projection
+            scopes["proj_1"] = port.projections["proj_1"]
+        return (jc.ConnectBlocks(blocks=(_jax_linear(8), _jax_linear(6)),
+                                 shortcut_type=shortcut,
+                                 shortcut_projection=shortcut != "skip",
+                                 combine_fn=combine),
+                port, scopes, False)
+    # lengths: a Linear, the encoder alone, a Linear
+    cfg = dict(ASR_CONFIGS["conformer_relpos_prenorm"], input_size=8,
+               num_decoder_layers=0, num_encoder_layers=1)
+    net = TransformerASR(**cfg, device="cpu").eval()
+    a, b = _port_linear(8, 8), _port_linear(4, 16)
+    from speechbrain_tpu.lobes.models.transformer.TransformerASR import (
+        EncoderWrapper as JaxEncoderWrapper,
+    )
+    from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
+        EncoderWrapper,
+    )
+
+    jax_net = JaxASR(**cfg)
+    return (jc.LengthsCapableSequential(layers=(
+                _jax_linear(8), JaxEncoderWrapper(transformer=jax_net),
+                _jax_linear(4))),
+            tc.LengthsCapableSequential([a, EncoderWrapper(net), b]),
+            {"layers_0": a, "layers_1/transformer": net, "layers_2": b},
+            True)
+
+
+CONTAINER_CASES = ["sequential", "module_list", "connect_residual",
+                   "connect_avg", "connect_skip", "lengths_encoder"]
+
+
+@pytest.mark.parametrize("name", CONTAINER_CASES)
+def test_containers_match_jax(name):
+    """The same weights (flax's init, perturbed) in each container of both
+    packages; the lengths case ends in ``EncoderWrapper`` with an
+    utterance at 0.6 of the padded length."""
+    jax_mod, port, scopes, takes_lengths = _container_case(name)
+    x = np.random.default_rng(3).standard_normal((2, 10, 8)).astype(
+        np.float32)
+    lens = np.array([1.0, 0.6], np.float32)
+    kwargs = {"lengths": jnp.asarray(lens)} if takes_lengths else {}
+    v = _perturb(jax_mod.init(KEY, jnp.asarray(x), **kwargs))
+    ref = jax_mod.apply(v, jnp.asarray(x), **kwargs)
+    params = _np_tree(v)["params"]
+    for path, module in scopes.items():
+        tree = params
+        for key in path.split("/"):
+            tree = tree[key]
+        load(module, tree)
+    port.eval()
+    with torch.no_grad():
+        out = port(_t(x), lengths=_t(lens)) if takes_lengths else port(_t(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_lengths_capable_sequential_carries_new_lengths():
+    """A layer that pads the time axis hands its rescaled lengths to the
+    layers after it and to the caller; a chain without one returns the
+    output alone."""
+    from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
+        EncoderWrapper,
+    )
+    from speechbrain_tpu_torch.nnet.containers import (
+        LengthsCapableSequential,
+    )
+
+    cfg = dict(ASR_CONFIGS["conformer_relpos_prenorm"], input_size=8,
+               num_decoder_layers=0, num_encoder_layers=1)
+    net = TransformerASR(**cfg, device="cpu").eval()
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 10, 8)).astype(np.float32))
+    lens = torch.tensor([1.0, 0.6])
+    chain = LengthsCapableSequential([
+        functools.partial(pad_time_to_multiple, multiple=8),
+        EncoderWrapper(net)])
+    with torch.no_grad():
+        out, out_lens = chain(x, lengths=lens)
+        padded, lens_p = pad_time_to_multiple(x, lens, multiple=8)
+        ref = net.encode(padded, wav_len=lens_p)
+        plain = LengthsCapableSequential([EncoderWrapper(net)])(x, lens)
+    assert out.shape[1] == 16 and torch.equal(out_lens, lens_p)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    assert isinstance(plain, torch.Tensor)
+    assert set(dict(chain.named_parameters())) == {
+        "1." + k for k, _ in EncoderWrapper(net).named_parameters()}

@@ -11,9 +11,10 @@ The run is checked by what it leaves: the tokenizer's model, the train
 log, the resolved ``hyperparams.yaml`` (which loads again, with the
 overrides in it) and one checkpoint whose ``meta`` loss is finite. At
 those flags BPE with 32 pieces splits the words into more pieces than the
-encoder has frames, so CTC cannot align the valid utterances: their loss
-is infinite, skipped by the average, and the valid loss reads 0.0 (the
-JAX recipe reads optax's large finite value instead; ``ROADMAP.md`` C11).
+encoder has frames, so CTC cannot align the valid utterances: their CTC
+loss is optax's large finite value (log(0) taken as -1e5), as in the JAX
+recipe, and the valid loss reads hundreds where it read 0.0 before the
+port's ``ctc_loss`` followed optax on such rows (``ROADMAP.md`` C11).
 Samples: within one step of 1/32768 (both write 16-bit PCM)."""
 
 import importlib.util
@@ -173,6 +174,9 @@ def test_the_twin_runs_end_to_end_from_its_yaml(twin_run):
     assert len(ckpts) == 1
     meta = json.loads((ckpts[0] / "CKPT.yaml").read_text())
     assert math.isfinite(meta["loss"]) and meta["end-of-epoch"] is True
+    # CTC weight 0.3 of about 1e5 a row over tens of target pieces: the
+    # unalignable valid rows count, as optax counts them
+    assert meta["loss"] > 100.0
     assert {p.name for p in ckpts[0].iterdir()} == {
         "CKPT.yaml", "brain.ckpt", "modules.ckpt", "optimizer.ckpt",
         "dataloader-TRAIN.ckpt"}

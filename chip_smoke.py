@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives six paths at the full width of the
+(``grad_guard``), and drives seven paths at the full width of the
 conformer-large LibriSpeech recipe with random weights made from a seed:
 
 - ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
@@ -39,7 +39,15 @@ conformer-large LibriSpeech recipe with random weights made from a seed:
   permuting search: kernels ``fused_fbank`` with ``ancestry_attention``,
   then with ``row_gather``), the same in float32 against
   ``Pipeline.transcribe``, ``transcribe_file`` of a WAV, and
-  ``EncoderASR`` with greedy CTC (kernel ``fused_fbank``).
+  ``EncoderASR`` with greedy CTC (kernel ``fused_fbank``);
+- ``host_path``: ``train_path``'s training through the loop's host side:
+  ``DynamicBatchSampler`` batches of at most 160 s from four length
+  buckets, four read-ahead threads, the native WAV reader and the loss
+  read every four micro-batches (kernel ``fused_fbank`` on every batch);
+  then float32 checks of the windowed loss reads against the per-step
+  ones, of a window of NaN micro-batches (nothing changes, bit for bit),
+  of a threaded mid-epoch resume, of averaged checkpoints, and of the
+  native WAV reader and edit distance against their plain versions.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -55,9 +63,11 @@ import contextlib
 import copy
 import ctypes
 import functools
+import gc
 import itertools
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -70,6 +80,7 @@ from speechbrain_tpu_torch.core import Brain, Stage
 from speechbrain_tpu_torch.dataio.dataio import read_audio, write_audio
 from speechbrain_tpu_torch.dataio.dataloader import make_dataloader
 from speechbrain_tpu_torch.dataio.dataset import DynamicItemDataset
+from speechbrain_tpu_torch.dataio.sampler import DynamicBatchSampler
 from speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
 from speechbrain_tpu_torch.decoders.scorer import (
     CTCScorer,
@@ -127,6 +138,11 @@ from speechbrain_tpu_torch.utils.checkpoints import (
     get_default_hook,
 )
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
+from speechbrain_tpu_torch.utils.edit_distance import (
+    accumulatable_wer_stats,
+    count_ops,
+    op_table,
+)
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
 from speechbrain_tpu_torch.utils.parameter_transfer import Pretrainer
 from speechbrain_tpu_torch.utils.seed import seed_everything
@@ -1709,22 +1725,33 @@ def profile_serve(cfg, repeats=3):
     })
 
 
-def profile_train(cfg, out_dir, datasets, steps=2):
+def profile_train(cfg, out_dir, datasets, steps=2, host=False):
     """``--profile`` only: ``steps`` optimizer steps of the train path
-    timed without the profiler (after two warm-up steps), then the same
-    number under ``torch.profiler``: device time by kernel, B3's share,
-    and the device's busy share of the unprofiled wall time."""
+    (with ``host``, one epoch of ``host_path``'s loop: dynamic batches,
+    four read-ahead threads, pinned batches, the loss read every four
+    micro-batches) timed without the profiler (after two warm-up steps,
+    or a warm-up epoch), then the same again under ``torch.profiler``:
+    device time by kernel, B3's share, and the device's busy share of the
+    unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out_dir = os.path.join(out_dir, "profile")  # no checkpoint to recover
+    name = "profile_host" if host else "profile_train"
+    out_dir = os.path.join(out_dir, name)  # no checkpoint to recover
     os.makedirs(out_dir)
-    brain = train_brain(cfg, out_dir, brain_cls=ASR)
+    gaf = cfg["grad_accumulation_factor"]
+    if host:
+        brain = train_brain(cfg, out_dir, brain_cls=ASR, run_opts={
+            "loss_sync_interval": HOST["loss_sync_interval"]})
+        loader = make_dataloader(
+            datasets["train"], pin_memory=True,
+            **host_loader_kwargs(cfg, datasets["train"]))
+    else:
+        brain = train_brain(cfg, out_dir, brain_cls=ASR)
+        loader = make_dataloader(datasets["train"],
+                                 **asr_loader_kwargs(cfg, shuffle=True))
     brain.on_fit_start()
     brain.modules.train()
-    gaf = cfg["grad_accumulation_factor"]
-    loader = make_dataloader(datasets["train"],
-                             **asr_loader_kwargs(cfg, shuffle=True))
 
     def epochs():
         for epoch in itertools.count(1):
@@ -1738,13 +1765,23 @@ def profile_train(cfg, out_dir, datasets, steps=2):
             brain.fit_batch(next(batches))
         torch.cuda.synchronize()
 
+    if host:
+        # one whole epoch a run, the timed and the traced run the same
+        # epoch's batches through the loader's threads
+        def run(epoch):
+            loader.set_epoch(epoch)
+            for batch in loader:
+                brain.fit_batch(batch)
+            torch.cuda.synchronize()
+
+        steps = len(loader) / gaf
     run(2)
     t0 = time.perf_counter()
-    run(steps)
+    run(steps if not host else 3)
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run(steps)
+        run(steps if not host else 3)
     # device activity by name: kernels and copies, not the annotations
     # (the optimizer's step) that the profiler mirrors onto the device
     by_name = {}
@@ -1761,7 +1798,7 @@ def profile_train(cfg, out_dir, datasets, steps=2):
         raise AssertionError("the profiler recorded no device time")
     b3 = [r for r in rows if "fused_fbank" in r[0]]
     emit({
-        "phase": "profile_train", "optimizer_steps": steps,
+        "phase": name, "optimizer_steps": steps,
         "micro_batches": steps * gaf,
         "wall_ms_unprofiled": wall_ms, "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
@@ -1830,10 +1867,11 @@ class TimedASR(ASR):
 
 
 def train_brain(cfg, out_dir, modules_seed=0, brain_cls=TimedASR,
-                device="cuda"):
+                device="cuda", run_opts=None):
     """The recipe's Brain at ``cfg`` on the card, with a checkpointer of
     the Noam scheduler and the epoch counter (the Brain adds itself, the
-    modules, the optimizer and the train loader)."""
+    modules, the optimizer and the train loader); ``run_opts`` adds to
+    the recipe's."""
     hparams = make_asr_hparams(cfg, out_dir, device=device)
     checkpointer = Checkpointer(
         os.path.join(out_dir, "save"),
@@ -1847,7 +1885,7 @@ def train_brain(cfg, out_dir, modules_seed=0, brain_cls=TimedASR,
                   "grad_accumulation_factor":
                       cfg["grad_accumulation_factor"],
                   "max_grad_norm": cfg["max_grad_norm"],
-                  "noprogressbar": True, "seed": 2024},
+                  "noprogressbar": True, "seed": 2024, **(run_opts or {})},
         checkpointer=checkpointer,
     )
 
@@ -1857,6 +1895,7 @@ def run_train_path(cfg, out_dir, datasets, device="cuda"):
     epochs, bf16 autocast, accumulation 2: kernel B3 must launch once a
     forward pass, train and valid, and no other kernel at all."""
     brain = train_brain(cfg, out_dir, device=device)
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1909,6 +1948,472 @@ def run_train_path(cfg, out_dir, datasets, device="cuda"):
     if not ok:
         raise AssertionError("train_path: a check of the fit failed")
     return brain
+
+
+# -- phase: the training loop's host side ------------------------------------
+
+# host_path: TRAIN (above) through the host side a user of a real corpus
+# configures: batches of at most 160 s of audio from four length buckets,
+# drawn in a random order (DynamicBatchSampler), read ahead by four
+# threads through the native WAV decoder, and the train loss read by the
+# host once every four micro-batches (loss_sync_interval).
+HOST = dict(max_batch_length=160.0, num_buckets=4, num_workers=4,
+            loss_sync_interval=4, epochs=3, fp32_micro_batches=8)
+HOST_REDUCED = {
+    "number_of_epochs": "120 -> 3 epochs of TRAIN's 32 utterances",
+    "fp32_read_check": "8 micro-batches a run, dropout 0",
+}
+# the k = 4 window means against the k = 1 per-step means, float32 runs
+# from the same weights: the same arithmetic but for cuDNN's and the
+# atomics' order, so a few float32 roundings of a loss of about 10
+HOST_LOSS_RTOL = 1e-4
+WER_PAIRS = 2620  # LibriSpeech test-clean's utterances
+
+
+class HostASR(TimedASR):
+    """``TimedASR`` that also keeps each train epoch's batches' ids, and
+    the peak memory of each micro-batch by its shape (batch, padded
+    seconds)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.epoch_batches = []
+        self.peak_by_shape = {}
+
+    def on_stage_start(self, stage, epoch=None):
+        super().on_stage_start(stage, epoch)
+        if stage == Stage.TRAIN:
+            self.epoch_batches.append([])
+
+    def on_fit_batch_start(self, batch):
+        super().on_fit_batch_start(batch)
+        self.epoch_batches[-1].append(list(batch.id))
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        super().on_fit_batch_end(batch, outputs, loss, should_step)
+        shape = f"{len(batch)} x {batch.sig.data.shape[1] / SR:g} s"
+        self.peak_by_shape[shape] = max(self.peak_by_shape.get(shape, 0),
+                                        torch.cuda.max_memory_allocated())
+
+
+def host_loader_kwargs(cfg, dataset, seed=42):
+    """The host path's train loader: dynamic batches, four threads."""
+    return {"batch_sampler": DynamicBatchSampler(
+                dataset, HOST["max_batch_length"],
+                num_buckets=HOST["num_buckets"],
+                length_func=lambda x: x["length"], shuffle=True,
+                batch_ordering="random", seed=seed),
+            "num_workers": HOST["num_workers"],
+            "pad_to_multiple": {"sig": cfg["sig_multiple"]}}
+
+
+def write_wav_encoded(path, wav, sr, fmt, bits):
+    """``wav`` (float, mono) as a WAV file of IEEE float32 (``fmt`` 3) or
+    ``bits``-bit PCM (``fmt`` 1), header written byte by byte (the
+    ``wave`` module writes neither float nor, before Python 3.12, 24-bit
+    files)."""
+    if fmt == 3:
+        data = np.asarray(wav, "<f4").tobytes()
+    else:
+        q = np.clip(np.round(np.asarray(wav, np.float64) * 2 ** (bits - 1)),
+                    -2 ** (bits - 1), 2 ** (bits - 1) - 1).astype("<i4")
+        data = np.stack([(q >> s) & 0xFF for s in range(0, bits, 8)], -1) \
+            .astype(np.uint8).tobytes()
+    block = bits // 8
+    body = (b"WAVE" + b"fmt " + struct.pack("<IHHIIHH", 16, fmt, 1, sr,
+                                             sr * block, block, bits)
+            + b"data" + struct.pack("<I", len(data)) + data)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def check_native_wav(manifests, out_dir):
+    """Check 7: every corpus file through the native decoder equals the
+    ``wave`` module's bytes as numpy decodes them, bit for bit; a 24-bit
+    and a float file of the first utterance read back within one
+    quantisation step. Returns the check's record."""
+    import wave
+
+    paths = [u["wav"] for m in manifests.values()
+             for u in json.load(open(m)).values()]
+    equal, t_native, t_wave = True, 0.0, 0.0
+    for path in paths:
+        t0 = time.perf_counter()
+        ours = read_audio(path)
+        t1 = time.perf_counter()
+        with wave.open(path, "rb") as w:
+            ref = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        ref = ref.astype(np.float32) / 32768.0
+        t2 = time.perf_counter()
+        equal = equal and np.array_equal(ours, ref)
+        t_native += t1 - t0
+        t_wave += t2 - t1
+    wav = read_audio(paths[0])
+    errs = {}
+    for name, fmt, bits, step in (("pcm24", 1, 24, 2.0 ** -23),
+                                  ("float32", 3, 32, 0.0)):
+        path = os.path.join(out_dir, f"encoded_{name}.wav")
+        write_wav_encoded(path, wav, SR, fmt, bits)
+        err = float(np.abs(read_audio(path) - wav).max())
+        errs[name] = {"max_abs_err": err, "limit": step,
+                      "ok": err <= step}
+    return {"files": len(paths), "bit_equal_to_wave_numpy": bool(equal),
+            "native_ms": t_native * 1e3, "wave_numpy_ms": t_wave * 1e3,
+            "encoded": errs,
+            "ok": bool(equal and all(e["ok"] for e in errs.values()))}
+
+
+def check_native_wer(wer_metric):
+    """Check 8: ``recipe_path``'s test WER counted again by the native
+    core (``accumulatable_wer_stats``) equals the pure-Python DP's counts
+    (``ErrorRateStats``); then both timed on the host over WER_PAIRS
+    synthetic pairs of about 20 words."""
+    refs = [d["ref_tokens"] for d in wer_metric.scores]
+    hyps = [d["hyp_tokens"] for d in wer_metric.scores]
+    native = accumulatable_wer_stats(refs, hyps)
+    dp = wer_metric.summarize()
+    keys = ("insertions", "deletions", "substitutions")
+    same = (all(native[k] == dp[k] for k in keys)
+            and native["num_ref_tokens"] == dp["num_scored_tokens"])
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(800)]
+    refs = [[words[i] for i in rng.integers(0, 800, rng.integers(15, 26))]
+            for _ in range(WER_PAIRS)]
+    hyps = [[w if rng.random() > 0.15 else words[rng.integers(0, 800)]
+             for w in r if rng.random() > 0.05] for r in refs]
+    t0 = time.perf_counter()
+    native_big = accumulatable_wer_stats(refs, hyps)
+    t1 = time.perf_counter()
+    dp_ops = [count_ops(op_table(r, h)) for r, h in zip(refs, hyps)]
+    t2 = time.perf_counter()
+    same_big = all(native_big[k] == sum(o[k] for o in dp_ops)
+                   for k in keys)
+    return {"recipe_pairs": len(wer_metric.scores),
+            "recipe_counts_native": {k: native[k] for k in keys},
+            "recipe_counts_dp": {k: dp[k] for k in keys},
+            "recipe_WER": native["WER"],
+            "synthetic_pairs": WER_PAIRS, "synthetic_WER": native_big["WER"],
+            "native_ms": (t1 - t0) * 1e3, "dp_ms": (t2 - t1) * 1e3,
+            "ok": bool(same and same_big)}
+
+
+def count_syncs(fn):
+    """``fn()``'s result and the synchronizing CUDA calls it made
+    (``torch.cuda.set_sync_debug_mode``), counted by the Python line that
+    made them."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, sites
+
+
+def fp32_host_brain(cfg, k, device):
+    """The recipe's Brain in float32, dropout 0, seed-1 weights, with
+    ``loss_sync_interval`` k, its optimizer built."""
+    brain = ASR(modules=make_asr_modules(cfg, device=device, seed=1,
+                                         dropout=0.0),
+                opt_class=adamw(cfg),
+                hparams=make_asr_hparams(cfg, device=device),
+                run_opts={"device": device, "precision": "fp32",
+                          "grad_accumulation_factor":
+                              cfg["grad_accumulation_factor"],
+                          "max_grad_norm": cfg["max_grad_norm"],
+                          "loss_sync_interval": k, "seed": 2024})
+    brain.init_optimizers()
+    brain.modules.train()
+    return brain
+
+
+def check_loss_reads_nan_window_averaging(cfg, batches, out_dir, device):
+    """Checks 3, 4 and 6 on float32 Brains from the same weights: the
+    k = 4 window means against the k = 1 per-step means; a window of two
+    NaN micro-batches leaving every parameter and AdamW tensor as it was;
+    ``load_averaged_checkpoints(2)`` of the weights before and after the
+    steps against their float64 mean. Counts the synchronizing calls a
+    window for k = 1 and k = 4."""
+    gaf = cfg["grad_accumulation_factor"]
+    n = len(batches)
+    reads, syncs, sync_sites = {}, {}, {}
+    for k in (1, HOST["loss_sync_interval"]):
+        brain = fp32_host_brain(cfg, k, device)
+        if k > 1:
+            ckpt = Checkpointer(os.path.join(out_dir, "avg"),
+                                {"modules": brain.modules})
+            brain.checkpointer = ckpt
+            ckpt.save_checkpoint(meta={"step": 0})
+
+        def run():
+            out = [brain.fit_batch(copy.copy(b)) for b in batches]
+            out.append(brain._flush_pending_loss())
+            return out
+
+        reads[k], sites = count_syncs(run)
+        torch.cuda.synchronize()
+        syncs[k] = sum(sites.values())
+        sync_sites[k] = dict(sites.most_common(12))
+        if k == 1:
+            del brain
+            torch.cuda.empty_cache()
+    per_step = [x for x in reads[1] if x is not None]
+    k = HOST["loss_sync_interval"]
+    windows = [x for x in reads[k] if x is not None]
+    rel = [abs(m - float(np.mean(per_step[i * k:(i + 1) * k])))
+           / abs(float(np.mean(per_step[i * k:(i + 1) * k])))
+           for i, (m, _) in enumerate(windows)]
+    loss_reads = {
+        "per_step_k1": per_step, "window_means_k4": [m for m, _ in windows],
+        "max_rel_diff": max(rel), "rtol": HOST_LOSS_RTOL,
+        "host_reads": {"k1": len(per_step), "k4": len(windows)},
+        "sync_calls": {"k1": syncs[1], "k4": syncs[k]},
+        "sync_calls_a_window": {"k1": syncs[1] * gaf / n,
+                                "k4": syncs[k] * gaf / n},
+        "sync_sites": {"k1": sync_sites[1], "k4": sync_sites[k]},
+        "ok": len(per_step) == n and len(windows) == n // k
+        and all(c == k for _, c in windows) and max(rel) <= HOST_LOSS_RTOL,
+    }
+
+    # 4: a window of NaN micro-batches
+    params = [p.detach().clone() for p in brain.modules.parameters()]
+    state = {(i, key): v.clone()
+             for i, st in enumerate(brain.optimizer.state.values())
+             for key, v in st.items() if torch.is_tensor(v)}
+    window = [w.clone() for w in brain._window]
+    count = brain._window_count.clone()
+    bad = copy.copy(batches[0])
+    bad.sig = bad.sig._replace(data=torch.full_like(bad.sig.data, np.nan))
+    for _ in range(gaf):
+        brain.fit_batch(copy.copy(bad))
+    drained = brain._drain_loss_accum()
+    same_params = all(torch.equal(p, q) for p, q in
+                      zip(brain.modules.parameters(), params))
+    same_state = all(
+        torch.equal(v, state[(i, key)])
+        for i, st in enumerate(brain.optimizer.state.values())
+        for key, v in st.items() if torch.is_tensor(v))
+    nan_window = {
+        "micro_batches": gaf, "params_bitwise_equal": same_params,
+        "adamw_state_bitwise_equal": same_state,
+        "adamw_state_tensors": len(state),
+        "window_unchanged": all(torch.equal(a, b) for a, b in
+                                zip(brain._window, window))
+        and torch.equal(brain._window_count, count),
+        "nonfinite_counted": brain.nonfinite_count, "drained": drained,
+    }
+    nan_window["ok"] = bool(same_params and same_state
+                            and nan_window["window_unchanged"]
+                            and brain.nonfinite_count == gaf
+                            and drained is None)
+    del params, state, window
+
+    # 6: the mean of two full-width checkpoints
+    brain.checkpointer.save_checkpoint(meta={"step": n})
+    ckpts = brain.checkpointer.find_checkpoints(max_num_checkpoints=2)
+    files = [torch.load(c.paramfiles["modules"], map_location="cpu",
+                        weights_only=True) for c in ckpts]
+    t0 = time.perf_counter()
+    averaged = brain.load_averaged_checkpoints(2)
+    avg_s = time.perf_counter() - t0
+    state = brain.modules.state_dict()
+    equal = all(
+        torch.equal(state[key].cpu(), ((files[0][key].double()
+                                        + files[1][key].double()) / 2)
+                    .to(state[key].dtype))
+        for key in state if torch.is_floating_point(state[key]))
+    moved = any(not torch.equal(files[0][key], files[1][key])
+                for key in state)
+    averaging = {"checkpoints": averaged, "bytes_each": sum(
+        v.numel() * v.element_size() for v in files[0].values()),
+        "seconds": avg_s, "equal_to_float64_mean": equal,
+        "checkpoints_differ": moved, "ok": bool(equal and moved
+                                                and averaged == 2)}
+    del brain, files, state
+    torch.cuda.empty_cache()
+    return loss_reads, nan_window, averaging
+
+
+def check_threaded_resume(cfg, dataset, out_dir):
+    """Check 5: a mid-epoch checkpoint of the threaded loader, three
+    batches in, resumes a threaded and an unthreaded loader on the batch
+    an unthreaded loader gives next."""
+    def loader(workers):
+        kw = host_loader_kwargs(cfg, dataset, seed=11)
+        kw["num_workers"] = workers
+        return make_dataloader(dataset, **kw)
+
+    reference = loader(0)
+    reference.set_epoch(2)
+    expected = [list(b.id) for b in itertools.islice(reference, 4)]
+    threaded = loader(HOST["num_workers"])
+    threaded.set_epoch(2)
+    it = iter(threaded)
+    for _ in range(3):
+        next(it)
+    ckpt = Checkpointer(os.path.join(out_dir, "resume"),
+                        {"loader": threaded})
+    ckpt.save_checkpoint(end_of_epoch=False)
+    own_next = list(next(it).id)
+    del it
+    resumed = {}
+    for workers in (0, HOST["num_workers"]):
+        fresh = loader(workers)
+        Checkpointer(os.path.join(out_dir, "resume"),
+                     {"loader": fresh}).recover_if_possible()
+        fresh.set_epoch(2)
+        resumed[workers] = list(next(iter(fresh)).id)
+    return {"expected_next": expected[3], "threaded_next": own_next,
+            "resumed_unthreaded": resumed[0],
+            "resumed_threaded": resumed[HOST["num_workers"]],
+            "ok": expected[3] == own_next == resumed[0]
+            == resumed[HOST["num_workers"]]}
+
+
+def time_num_workers(brain, cfg, dataset):
+    """What the read-ahead threads buy: one epoch's batches read and
+    collated alone, and one epoch of ``fit_batch`` fed by the loader, with
+    0 and ``HOST["num_workers"]`` threads, in turns (0, N, N, 0), the same
+    epoch's batches each time. Seconds."""
+    seconds = {"read_alone": {}, "epoch_of_fit_batch": {}}
+    for workers in (0, HOST["num_workers"], HOST["num_workers"], 0):
+        kw = host_loader_kwargs(cfg, dataset)
+        kw["num_workers"] = workers
+        loader = make_dataloader(dataset, pin_memory=True, **kw)
+        loader.set_epoch(9)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        seconds["read_alone"].setdefault(workers, []).append(
+            time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in loader:
+            brain.fit_batch(batch)
+        brain._flush_pending_loss()
+        brain._drain_loss_accum()
+        torch.cuda.synchronize()
+        seconds["epoch_of_fit_batch"].setdefault(workers, []).append(
+            time.perf_counter() - t0)
+    seconds["batches"] = n
+    return seconds
+
+
+def run_host_path(cfg, out_dir, manifests, wer_metric, device="cuda"):
+    """TRAIN through the host side of the loop (``HOST``): ``Brain.fit``
+    at full width with dynamic batches, four read-ahead threads and the
+    loss read every four micro-batches, then checks 1-8 of the phase's
+    record. B3 must launch once a forward pass, and no other kernel."""
+    t_phase = time.perf_counter()
+    cfg = dict(cfg, epochs=HOST["epochs"])
+    os.makedirs(out_dir, exist_ok=True)
+    datasets = {split: asr_dataset(path, cfg, train=split == "train")
+                for split, path in manifests.items()}
+    lengths = {uid: u["length"] for m in manifests.values()
+               for uid, u in json.load(open(m)).items()}
+    brain = train_brain(cfg, out_dir, brain_cls=HostASR, device=device,
+                        run_opts={"loss_sync_interval":
+                                  HOST["loss_sync_interval"]})
+    train_kw = host_loader_kwargs(cfg, datasets["train"])
+    sampler = train_kw["batch_sampler"]
+    gc.collect()  # earlier phases' Brains (reference cycles with their
+    torch.cuda.empty_cache()  # checkpointers) hold device memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain.fit(brain.hparams.epoch_counter, datasets["train"],
+              datasets["valid"], train_loader_kwargs=train_kw,
+              valid_loader_kwargs=dict(asr_loader_kwargs(cfg, False),
+                                       num_workers=HOST["num_workers"]))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = max(brain.peak_by_shape.values())
+    n_train = brain.forwards[Stage.TRAIN]
+    n_valid = brain.forwards[Stage.VALID]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_train + n_valid
+    step_ms = brain.step_ms()
+    # 2: every example once an epoch, no batch over the limit
+    ids = sorted(k for k in lengths if k.startswith("train"))
+    batch_seconds = [sum(lengths[i] for i in b)
+                     for epoch in brain.epoch_batches for b in epoch]
+    once = all(sorted(i for b in epoch for i in b) == ids
+               for epoch in brain.epoch_batches)
+    records = {
+        "b3_launches": {"counts": counts, "expected": expected,
+                        "ok": counts == expected},
+        "every_example_once": {
+            "epochs": len(brain.epoch_batches),
+            "batches_an_epoch": [len(e) for e in brain.epoch_batches],
+            "batch_sizes_epoch_1": [len(b) for b in brain.epoch_batches[0]],
+            "max_batch_seconds": max(batch_seconds),
+            "limit_seconds": HOST["max_batch_length"],
+            "bucket_edges_seconds": [float(x) for x in
+                                     sampler._bucket_boundaries],
+            "ok": once and len(brain.epoch_batches) == cfg["epochs"]
+            and max(batch_seconds) <= HOST["max_batch_length"]},
+    }
+    fit_reads = brain.host_syncs
+    windows = n_train // cfg["grad_accumulation_factor"]
+    ok_fit = (all(np.isfinite(brain.epoch_losses))
+              and brain.optimizer_step == windows
+              and len(step_ms) == windows)
+    emit_fit = {
+        "micro_batches": n_train, "valid_batches": n_valid,
+        "optimizer_steps": brain.optimizer_step,
+        "step_ms_median_after_2": float(np.median(step_ms[2:])),
+        "step_ms_min_max_after_2": [float(min(step_ms[2:])),
+                                    float(max(step_ms[2:]))],
+        "train_seconds": brain.train_seconds,
+        "train_audio_seconds": brain.audio_seconds,
+        "train_audio_seconds_per_second":
+            brain.audio_seconds / brain.train_seconds,
+        "fit_seconds": fit_s,
+        "max_memory_allocated_bytes_train_micro_batches": peak,
+        "max_memory_allocated_bytes_by_batch_shape": dict(brain.peak_by_shape),
+        "loss_host_reads": fit_reads,
+        "loss_host_reads_a_window": fit_reads / windows,
+        "epoch_train_losses": brain.epoch_losses,
+        "num_workers": time_num_workers(brain, cfg, datasets["train"]),
+    }
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loader = make_dataloader(datasets["train"],
+                             **host_loader_kwargs(cfg, datasets["train"]))
+    loader.set_epoch(1)
+    batches = list(itertools.islice(loader, HOST["fp32_micro_batches"]))
+    reads, nan_window, averaging = check_loss_reads_nan_window_averaging(
+        cfg, batches, out_dir, device)
+    del batches
+    records["loss_reads"] = reads
+    records["nan_window"] = nan_window
+    records["threaded_resume"] = check_threaded_resume(
+        cfg, datasets["train"], out_dir)
+    records["averaged_checkpoints"] = averaging
+    records["native_wav"] = check_native_wav(manifests, out_dir)
+    records["native_wer"] = check_native_wer(wer_metric)
+    ok = ok_fit and all(r["ok"] for r in records.values())
+    emit({"phase": "host_path", "ok": bool(ok),
+          "config": {k: v for k, v in cfg.items()}, "host": HOST,
+          "reduced": HOST_REDUCED,
+          "precision": "bf16 autocast, float32 parameters",
+          **emit_fit, **records,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    if not ok:
+        raise AssertionError("host_path: a check failed")
+    return n_train + n_valid
 
 
 # B3 against its plain version in one float32 training step: the features
@@ -2242,7 +2747,7 @@ def run_recipe_path(out_dir):
     })
     if not ok:
         raise AssertionError("recipe_path: a check of the chain failed")
-    return n
+    return n, brain.wer_metric
 
 
 # -- phase: the serving entry point ------------------------------------------
@@ -2532,6 +3037,7 @@ def main():
     del flash_shapes
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
+        # TRAIN's corpus serves train_path, then host_path after recipe_path
         paths = write_asr_corpus(TRAIN, out_dir)
         datasets = {split: asr_dataset(path, TRAIN, train=split == "train")
                     for split, path in paths.items()}
@@ -2551,12 +3057,17 @@ def main():
             # training's (host and device; torch 2.11 on an H100)
             profile_decode(NORTH)
             profile_train(TRAIN, out_dir, datasets)
-    # the recipe's checkpoints (about 1.3 GB each) go with the directory
-    with tempfile.TemporaryDirectory() as recipe_dir:
-        recipe_forwards = run_recipe_path(recipe_dir)
-    torch.cuda.empty_cache()
-    kernels[1]["launches_by_path"]["recipe_path"] = sum(
-        recipe_forwards.values())
+        # the recipe's checkpoints (about 1.3 GB each) go with the directory
+        with tempfile.TemporaryDirectory() as recipe_dir:
+            recipe_forwards, wer_metric = run_recipe_path(recipe_dir)
+        torch.cuda.empty_cache()
+        kernels[1]["launches_by_path"]["recipe_path"] = sum(
+            recipe_forwards.values())
+        kernels[1]["launches_by_path"]["host_path"] = run_host_path(
+            TRAIN, os.path.join(out_dir, "host"), paths, wer_metric)
+        torch.cuda.empty_cache()
+        if args.profile:
+            profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
         served = run_serve_path(NORTH, serve_dir)
     torch.cuda.empty_cache()

@@ -7,25 +7,35 @@ In PyTorch's idiom: ``modules`` is an ``nn.ModuleDict`` on one device
 ``params -> torch.optim.Optimizer`` factory; subclasses override
 ``compute_forward(batch, stage)`` and ``compute_objectives(predictions,
 batch, stage)``. The epoch loop, its hooks, the loss reporting and the
-checkpoint cadence are the JAX package's, and so is the update:
+checkpoint cadence are the JAX package's, and so is the update, decided
+on the device as the JAX train step decides it:
 
+* the backward always runs; a micro-batch is *finite* where its loss is
+  (with ``skip_nonfinite_grads``, and its gradients' global norm), a
+  flag that stays on the device. A micro-batch that is not contributes
+  zero gradients and leaves the parameters, the optimizer's state (its
+  step count too) and the accumulation window exactly as they were, as
+  the JAX step keeps the old ``opt_state`` of ``optax.MultiSteps``: a
+  window with such a micro-batch in it stretches by one;
 * each micro-batch's gradients are clipped to global norm
   ``max_grad_norm`` (``scale = min(1, max_norm / (norm + 1e-6))``), and
   with ``grad_accumulation_factor`` k the optimizer steps on the **mean**
   of k clipped gradients, as ``optax.MultiSteps`` after the JAX step's
   clip;
-* a micro-batch whose loss (with ``skip_nonfinite_grads``, or whose
-  gradient norm) is not finite leaves the parameters, the optimizer's
-  state and the accumulation window as they were;
-* ``fit_batch`` returns the previous micro-batch's loss, and the epoch's
-  tail is drained at its end, so ``avg_train_loss`` averages the same
-  losses in the same order;
+* since the host does not know where a window ends, the optimizer steps
+  on every micro-batch and a device flag keeps or undoes the step
+  (:class:`_MaskedUpdate`);
+* with ``loss_sync_interval`` 1, ``fit_batch`` returns the previous
+  micro-batch's loss (one host read a micro-batch, a step behind the
+  device); with N > 1 the (sum, count, non-finite) of the losses build
+  up on the device and the host reads them once every N micro-batches,
+  returning ``(mean, count)``. The epoch's tail is drained at its end,
+  so ``avg_train_loss`` averages the same losses;
 * ``precision="bf16"`` runs ``compute_forward`` under ``torch.autocast``
   with bfloat16, parameters in float32 (the JAX package instead casts
   every float input, the waveform too, to bfloat16).
 
-Not ported: meshes and several hosts, GAN steps, checkpoint averaging,
-the profiler, device-side loss accumulation (``loss_sync_interval``).
+Not ported: meshes and several hosts, GAN steps.
 """
 
 import argparse
@@ -35,7 +45,6 @@ import math
 import os
 import re
 import shutil
-import sys
 import time
 from dataclasses import dataclass
 from enum import Enum, auto
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from speechbrain_tpu_torch.dataio.dataloader import (
+    LoopedLoader,
     SaveableDataLoader,
     make_dataloader,
 )
@@ -54,8 +64,12 @@ from speechbrain_tpu_torch.utils.checkpoints import (
     mark_as_saver,
     register_checkpoint_hooks,
 )
+from speechbrain_tpu_torch.utils.logger import get_environment_description
+from speechbrain_tpu_torch.utils.profiling import prepare_profiler
 
 logger = logging.getLogger(__name__)
+
+_LOADERS = (SaveableDataLoader, LoopedLoader)
 
 INTRA_EPOCH_CKPT_FLAG = "brain_intra_epoch_ckpt"
 
@@ -84,9 +98,14 @@ class RunOptions:
     grad_accumulation_factor: int = 1
     optimizer_step_limit: int = None  # stop after N optimizer updates
     nonfinite_patience: int = 3
+    loss_sync_interval: int = 1  # read the train loss every N micro-batches
     ckpt_interval_minutes: float = 0.0
     ckpt_interval_steps: int = 0
     noprogressbar: bool = False
+    train_log_interval: int = 100  # log the running train loss every N
+    profile_training: bool = False  # torch.profiler over some batches
+    profile_warmup: int = 5
+    profile_steps: int = 10
     seed: int = 563375142
 
     @classmethod
@@ -236,8 +255,7 @@ def create_experiment_directory(experiment_directory,
     logging.getLogger().addHandler(handler)
     with open(os.path.join(experiment_directory, "env.log"), "w",
               encoding="utf-8") as f:
-        f.write(f"Python: {sys.version}\ntorch: {torch.__version__}\n"
-                f"CUDA: {torch.version.cuda}\n")
+        f.write(get_environment_description())
 
 
 @register_checkpoint_hooks
@@ -284,11 +302,15 @@ class Brain:
         self.checkpointer = checkpointer
         self.optimizer = None
         self.step = 0  # batch within the current stage
-        self.optimizer_step = 0  # optimizer updates applied in all
+        self.optimizer_step = 0  # windows the host has counted
         self._micro_step = 0  # micro-batches seen
         self._pending_loss = None  # the loss reported one call late
+        self._loss_accum = None  # (sum, count, non-finite) on the device
+        self._grads = None  # _FlatGrads: the parameters' .grad
         self._window = None  # running mean of the window's gradients
-        self._window_count = 0  # micro-batches in the window
+        self._window_count = None  # finite micro-batches in it (device)
+        self._masked_update = _MaskedUpdate()
+        self.host_syncs = 0  # host reads of the train loss
         self.avg_train_loss = 0.0
         self.nonfinite_count = 0
         self.last_ckpt_time = time.time()
@@ -336,12 +358,37 @@ class Brain:
 
     def init_optimizers(self):
         """Build the optimizer from ``opt_class`` (once) and register it
-        with the checkpointer."""
+        with the checkpointer. On a CUDA device, an optimizer with a
+        ``capturable`` option (Adam, AdamW) gets it, so that its step
+        count lives on the device, where the update is kept or undone
+        without a host read."""
         if self.opt_class is None or self.optimizer is not None:
             return
         self.optimizer = self.opt_class(self.modules.parameters())
+        if self.device.type == "cuda":
+            for group in self.optimizer.param_groups:
+                if "capturable" in group:
+                    group["capturable"] = True
         if self.checkpointer is not None:
             self.checkpointer.add_recoverable("optimizer", self.optimizer)
+
+    def load_averaged_checkpoints(self, n, max_key=None, min_key=None):
+        """Load into the modules the elementwise mean of the modules'
+        state in the ``n`` best checkpoints by ``max_key``/``min_key``
+        (the newest without a key): float entries averaged in float64,
+        integer ones taken from the first. Returns how many were
+        averaged."""
+        from speechbrain_tpu_torch.utils.checkpoints import (
+            average_checkpoints,
+        )
+
+        ckpts = self.checkpointer.find_checkpoints(
+            max_key=max_key, min_key=min_key, max_num_checkpoints=n
+        )
+        if not ckpts:
+            raise RuntimeError("No checkpoints found to average")
+        self.modules.load_state_dict(average_checkpoints(ckpts, "modules"))
+        return len(ckpts)
 
     # -- checkpoint of the Brain's own state ------------------------------
     @mark_as_saver
@@ -369,7 +416,12 @@ class Brain:
 
     # -- one batch --------------------------------------------------------
     def _prepare_batch(self, batch):
-        return batch.to(self.device) if hasattr(batch, "to") else batch
+        """The batch on the device. The upload does not wait for the
+        device (``non_blocking``: from pinned memory, as the Brain's
+        loaders pin their batches on a CUDA device, it is a queued DMA)."""
+        if hasattr(batch, "to"):
+            return batch.to(self.device, non_blocking=True)
+        return batch
 
     def _objectives(self, predictions, batch, stage):
         objectives = self.compute_objectives(predictions, batch, stage)
@@ -382,79 +434,92 @@ class Brain:
 
     def fit_batch(self, batch):
         """One training micro-batch: forward, backward, this micro-batch's
-        clip, accumulation, and every k-th call the optimizer's update.
+        clip, accumulation, and the optimizer's update where a window is
+        full, with no host read before the update is issued.
 
-        Returns the PREVIOUS call's loss as a Python float (None on the
-        first call of an epoch), as the JAX package does.
+        Returns, with ``loss_sync_interval`` 1, the PREVIOUS call's loss
+        as a Python float (None on the first call of an epoch), as the
+        JAX package does; with N > 1, ``(mean, count)`` of the finite
+        losses of the last N micro-batches every N-th call, else None.
         """
         batch = self._prepare_batch(batch)
         with autocast(self.run_opts.precision, self.device):
             predictions = self.compute_forward(batch, Stage.TRAIN)
         loss, metrics = self._objectives(predictions, batch, Stage.TRAIN)
         params = self._params_with_grads()
-        for p in params:
-            p.grad = None
-        if bool(torch.isfinite(loss)):
-            loss.backward()
-            self._accumulate(params, [
-                torch.zeros_like(p) if p.grad is None else p.grad
-                for p in params
-            ])
-        for p in params:
-            p.grad = None
+        self._flat_grads(params).zero_()
+        loss.backward()
+        loss = loss.detach()
+        finite = self._accumulate(params, torch.isfinite(loss))
         gaf = max(1, self.run_opts.grad_accumulation_factor)
         self._micro_step += 1
         should_step = self._micro_step % gaf == 0
         if should_step:
             self.optimizer_step += 1
-        loss = loss.detach()
         self.on_fit_batch_end(batch, metrics, loss, should_step)
+        k = max(1, self.run_opts.loss_sync_interval)
+        if k > 1:
+            ok = finite.to(torch.float32)
+            step = torch.stack([torch.where(finite, loss.float(), 0.0), ok,
+                                1.0 - ok])
+            self._loss_accum = (step if self._loss_accum is None
+                                else self._loss_accum + step)
+            if self._micro_step % k == 0:
+                return self._drain_loss_accum()
+            return None
         pending, self._pending_loss = self._pending_loss, loss
         if pending is None:
             return None
         return self._host_loss(pending)
 
-    def _accumulate(self, params, grads):
-        """Clip this micro-batch's gradients, fold them into the window's
-        running mean, and update when the window is full. Returns False,
-        changing nothing, where the gradient norm is not finite and
-        ``skip_nonfinite_grads`` is set."""
-        max_norm = self.run_opts.max_grad_norm
-        if (max_norm and max_norm > 0) or self.run_opts.skip_nonfinite_grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))
-            )
-            if self.run_opts.skip_nonfinite_grads and not bool(
-                    torch.isfinite(norm)):
-                return False
-            if max_norm and max_norm > 0:
-                scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-                torch._foreach_mul_(grads, scale)
-        gaf = max(1, self.run_opts.grad_accumulation_factor)
+    def _flat_grads(self, params):
+        """The parameters' gradients as a :class:`_FlatGrads` (made anew,
+        holding the current ``.grad`` values, where a ``.grad`` is not
+        its view)."""
+        if self._grads is None or not self._grads.holds(params):
+            self._grads = _FlatGrads(params)
+        return self._grads
+
+    @torch.no_grad()
+    def _accumulate(self, params, finite):
+        """Clip this micro-batch's gradients (the parameters' ``.grad``),
+        fold them into the window's running mean, and step the optimizer
+        where the window is full. ``finite`` (a 0-d device flag) becomes
+        false also where ``skip_nonfinite_grads`` finds the gradient norm
+        not finite; a micro-batch that is not finite changes nothing.
+        Returns the flag."""
+        opts = self.run_opts
+        grads = self._flat_grads(params)
+        if opts.skip_nonfinite_grads:
+            finite = finite & torch.isfinite(grads.norm())
+        grads.zero_where_not(finite)
+        if opts.max_grad_norm and opts.max_grad_norm > 0:
+            scale = torch.clamp(opts.max_grad_norm / (grads.norm() + 1e-6),
+                                max=1.0)
+            grads.mul_(scale)
+        gaf = max(1, opts.grad_accumulation_factor)
         if gaf == 1:
-            mean = grads
+            do_step = finite
         else:
             if self._window is None:
-                self._window = [torch.zeros_like(g) for g in grads]
-            self._window_count += 1
-            # running mean, acc + (g - acc) / n, as optax.MultiSteps
-            torch._foreach_lerp_(self._window, grads,
-                                 1.0 / self._window_count)
-            if self._window_count < gaf:
-                return True
-            mean = self._window
-        for p, g in zip(params, mean):
-            p.grad = g
-        self.optimizer.step()
-        for p in params:
-            p.grad = None
-        if gaf > 1:
-            self._window = None
-            self._window_count = 0
-        return True
-
+                self._window = [torch.zeros_like(b) for b in grads.buffers]
+                self._window_count = torch.zeros((), device=self.device)
+            ok = finite.to(torch.float32)
+            count = self._window_count + ok
+            # running mean, acc + (g - acc) / n, as optax.MultiSteps; a
+            # weight of 0 leaves it as it was
+            weight = ok / torch.clamp(count, min=1.0)
+            for w, g in zip(self._window, grads.buffers):
+                w.lerp_(g, weight)
+            do_step = count >= gaf
+            self._window_count = torch.where(do_step, 0.0, count)
+            grads.copy_from(self._window)
+        self._masked_update.step(self.optimizer, params, do_step)
+        return finite
     def _host_loss(self, loss):
-        """The loss as a Python float, with the nonfinite patience."""
+        """The loss as a Python float (a host read), with the nonfinite
+        patience."""
+        self.host_syncs += 1
         loss = float(loss)
         if not np.isfinite(loss):
             self.nonfinite_count += 1
@@ -472,6 +537,29 @@ class Brain:
         pending, self._pending_loss = self._pending_loss, None
         return None if pending is None else self._host_loss(pending)
 
+    def _drain_loss_accum(self):
+        """One host read of the device's (sum, count, non-finite) since
+        the last; applies the nonfinite patience to the whole count.
+        Returns ``(mean, count)``, or None where no loss was finite."""
+        if self._loss_accum is None:
+            return None
+        self.host_syncs += 1
+        total, n, bad = self._loss_accum.tolist()
+        self._loss_accum = None
+        if bad:
+            self.nonfinite_count += int(bad)
+            logger.warning("%d nonfinite loss step(s) in the last window; "
+                           "updates skipped (patience %d/%d).", int(bad),
+                           self.nonfinite_count,
+                           self.run_opts.nonfinite_patience)
+            if self.nonfinite_count > self.run_opts.nonfinite_patience:
+                raise ValueError(
+                    "Loss is not finite and patience is exhausted."
+                )
+        if n < 1:
+            return None
+        return total / n, int(n)
+
     @torch.no_grad()
     def evaluate_batch(self, batch, stage):
         """One forward-only batch; returns the loss as a Python float."""
@@ -484,10 +572,16 @@ class Brain:
     # -- loops ------------------------------------------------------------
     def make_dataloader(self, dataset, stage, ckpt_prefix="dataloader-",
                         **loader_kwargs):
-        """A loader of ``dataset``; the TRAIN one is registered with the
-        checkpointer, so that an epoch resumes on its next batch."""
-        if isinstance(dataset, SaveableDataLoader):
+        """A loader of ``dataset`` (``loader_kwargs`` go to
+        ``dataio.dataloader.make_dataloader``: ``batch_size``, ``shuffle``,
+        ``sampler``, ``batch_sampler``, ``drop_last``, ``num_workers``,
+        ``pin_memory`` (by default on a CUDA device), ``pad_to_multiple``,
+        ``looped_nominal_epoch``); the TRAIN one is
+        registered with the checkpointer, so that an epoch resumes on its
+        next batch."""
+        if isinstance(dataset, _LOADERS):
             return dataset
+        loader_kwargs.setdefault("pin_memory", self.device.type == "cuda")
         dataloader = make_dataloader(dataset, **loader_kwargs)
         if (self.checkpointer is not None and ckpt_prefix is not None
                 and stage == Stage.TRAIN):
@@ -500,11 +594,10 @@ class Brain:
             valid_loader_kwargs={}):
         """The training loop: for each epoch, a TRAIN stage over
         ``train_set`` and a VALID stage over ``valid_set``."""
-        if not isinstance(train_set, SaveableDataLoader):
+        if not isinstance(train_set, _LOADERS):
             train_set = self.make_dataloader(train_set, stage=Stage.TRAIN,
                                              **train_loader_kwargs)
-        if valid_set is not None and not isinstance(valid_set,
-                                                    SaveableDataLoader):
+        if valid_set is not None and not isinstance(valid_set, _LOADERS):
             valid_set = self.make_dataloader(
                 valid_set, stage=Stage.VALID, ckpt_prefix=None,
                 **valid_loader_kwargs,
@@ -531,8 +624,12 @@ class Brain:
         return limit is not None and self.optimizer_step >= limit
 
     def _add_train_loss(self, loss):
-        self._loss_count += 1
-        self.avg_train_loss += (loss - self.avg_train_loss) / self._loss_count
+        """Fold a read loss, a float or ``(mean, count)``, into the
+        epoch's running mean."""
+        mean, n = loss if isinstance(loss, tuple) else (loss, 1)
+        self._loss_count += n
+        self.avg_train_loss += (n * (mean - self.avg_train_loss)
+                                / self._loss_count)
 
     def _fit_train(self, train_set, epoch, enable):
         self.modules.train()
@@ -543,21 +640,41 @@ class Brain:
         self.nonfinite_count = 0
         self._loss_count = 0
         self._pending_loss = None
+        self._loss_accum = None
+        profiler = None
+        if self.run_opts.profile_training:
+            profiler = prepare_profiler(
+                self.run_opts.profile_warmup, self.run_opts.profile_steps,
+                os.path.join(getattr(self.hparams, "output_folder", None)
+                             or ".", "profiler_logs"),
+            )
+        log_every = self.run_opts.train_log_interval
         t = _progress(train_set, enable, f"Epoch {epoch} TRAIN")
-        for self.step, batch in enumerate(t, start=1):
-            self.on_fit_batch_start(batch)
-            loss = self.fit_batch(batch)
-            if loss is not None:
-                self._add_train_loss(loss)
-            if hasattr(t, "set_postfix"):
-                t.set_postfix(train_loss=self.avg_train_loss)
-            if self._debug_stop():
-                break
-            if self._step_limit_reached():
-                break
-            if self._should_save_intra_epoch_ckpt():
-                self._save_intra_epoch_ckpt()
+        try:
+            for self.step, batch in enumerate(t, start=1):
+                if profiler is not None:
+                    profiler.step()
+                self.on_fit_batch_start(batch)
+                loss = self.fit_batch(batch)
+                if loss is not None:
+                    self._add_train_loss(loss)
+                if hasattr(t, "set_postfix"):
+                    t.set_postfix(train_loss=self.avg_train_loss)
+                if log_every and self.step % log_every == 0:
+                    logger.info("epoch %s, batch %d: train loss %.4f",
+                                epoch, self.step, self.avg_train_loss)
+                if self._debug_stop():
+                    break
+                if self._step_limit_reached():
+                    break
+                if self._should_save_intra_epoch_ckpt():
+                    self._save_intra_epoch_ckpt()
+        finally:
+            if profiler is not None:
+                profiler.stop()
         loss = self._flush_pending_loss()
+        if loss is None:
+            loss = self._drain_loss_accum()
         if loss is not None:
             self._add_train_loss(loss)
         self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
@@ -586,7 +703,7 @@ class Brain:
         checkpoint by ``max_key``/``min_key``; returns the mean loss."""
         if progressbar is None:
             progressbar = not self.run_opts.noprogressbar
-        if not isinstance(test_set, SaveableDataLoader):
+        if not isinstance(test_set, _LOADERS):
             test_set = self.make_dataloader(test_set, Stage.TEST,
                                             ckpt_prefix=None,
                                             **test_loader_kwargs)
@@ -635,6 +752,145 @@ class Brain:
             avg_loss -= avg_loss / self.step
             avg_loss += loss / self.step
         return avg_loss
+
+
+class _FlatGrads:
+    """The trainable parameters' ``.grad`` as views of one flat buffer a
+    (dtype, device), so that the update's work on the gradients (zero,
+    mask, norm, clip, the window's mean) is one kernel a buffer, however
+    many parameters there are. Autograd adds into a ``.grad`` that
+    exists, in place, so the views stay the gradients."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        groups = {}
+        for p in self.params:
+            groups.setdefault((p.dtype, p.device), []).append(p)
+        self.buffers = []
+        for (dtype, device), ps in groups.items():
+            buf = torch.zeros(sum(p.numel() for p in ps), dtype=dtype,
+                              device=device)
+            offset = 0
+            for p in ps:
+                view = buf[offset:offset + p.numel()].view(p.shape)
+                if p.grad is not None:
+                    view.copy_(p.grad)
+                p.grad = view
+                offset += p.numel()
+            self.buffers.append(buf)
+        self.grads = [p.grad for p in self.params]
+
+    def holds(self, params):
+        """Whether ``params`` are this object's and still carry its
+        views."""
+        return len(params) == len(self.params) and all(
+            p is q and p.grad is g
+            for p, q, g in zip(params, self.params, self.grads)
+        )
+
+    def zero_(self):
+        for b in self.buffers:
+            b.zero_()
+
+    def norm(self):
+        """The global L2 norm, in float32, on the device."""
+        norms = [torch.linalg.vector_norm(b, dtype=torch.float32)
+                 for b in self.buffers]
+        return norms[0] if len(norms) == 1 else torch.linalg.vector_norm(
+            torch.stack(norms))
+
+    def zero_where_not(self, flag):
+        """Zero every gradient where the 0-d bool ``flag`` is false
+        (NaN and inf included)."""
+        for b in self.buffers:
+            b.masked_fill_(~flag, 0.0)
+
+    def mul_(self, scale):
+        for b in self.buffers:
+            b.mul_(scale)
+
+    def copy_from(self, buffers):
+        for b, src in zip(self.buffers, buffers):
+            b.copy_(src)
+
+
+class _MaskedUpdate:
+    """``optimizer.step()`` kept only where a 0-d device flag is true,
+    with no host read: the parameters and the optimizer's state are
+    copied to flat buffers before the step and selected back after it
+    (``torch.where``, exact either way). State that the optimizer makes
+    at its first step counts as zero before it, which is Adam's and
+    AdamW's initial state. The step must update its state in place and
+    keep it on the parameters' device (``Brain.init_optimizers`` makes
+    Adam and AdamW ``capturable`` on a CUDA device).
+
+    Cost: the step runs on every micro-batch (the host does not know
+    where a window ends, since a non-finite micro-batch stretches it),
+    and about 9 bytes of traffic for each byte of parameters and state:
+    the snapshot (2), the mirror of the new values (2), the select (3)
+    and the copy back (2)."""
+
+    def __init__(self):
+        self._key = None
+        self._groups = []  # [(tensors, snapshot views, mirror views,
+        #                      snapshot flat, mirror flat)]
+
+    @staticmethod
+    def _tensors(optimizer, params):
+        """For each parameter: the parameter, then its state tensors."""
+        return [[p] + [v for v in optimizer.state.get(p, {}).values()
+                       if torch.is_tensor(v)] for p in params]
+
+    def _allocate(self, tensors, device):
+        groups = {}
+        for t in tensors:
+            if t.device != device:
+                raise ValueError(
+                    f"the optimizer keeps a tensor on {t.device}, the "
+                    f"parameters lie on {device}: the update is kept or "
+                    f"undone on the device (make Adam or AdamW with "
+                    f"capturable=True)"
+                )
+            groups.setdefault(t.dtype, []).append(t)
+        self._groups = []
+        for dtype, ts in groups.items():
+            n = sum(t.numel() for t in ts)
+            flats = [torch.empty(n, dtype=dtype, device=device)
+                     for _ in range(2)]
+            views = []
+            for flat in flats:
+                offset, vs = 0, []
+                for t in ts:
+                    vs.append(flat[offset:offset + t.numel()].view(t.shape))
+                    offset += t.numel()
+                views.append(vs)
+            self._groups.append((ts, views[0], views[1], *flats))
+
+    @torch.no_grad()
+    def step(self, optimizer, params, keep):
+        before = self._tensors(optimizer, params)
+        flat = [t for ts in before for t in ts]
+        key = tuple(map(id, flat))
+        if key != self._key:
+            self._allocate(flat, keep.device)
+            self._key = key
+        for ts, snap, _, _, _ in self._groups:
+            torch._foreach_copy_(snap, ts)
+        optimizer.step()
+        for old, new in zip(before, self._tensors(optimizer, params)):
+            if any(a is not b for a, b in zip(old, new)):
+                raise RuntimeError(
+                    "the optimizer replaced a state tensor in its step; "
+                    "the masked update needs its state updated in place"
+                )
+            for t in new[len(old):]:  # made by this first step
+                if t.device != keep.device:
+                    self._allocate([t], keep.device)  # raises
+                t.copy_(torch.where(keep, t, torch.zeros_like(t)))
+        for ts, snap, mirror, snap_flat, mirror_flat in self._groups:
+            torch._foreach_copy_(mirror, ts)
+            torch.where(keep, mirror_flat, snap_flat, out=mirror_flat)
+            torch._foreach_copy_(ts, mirror)
 
 
 def _progress(iterable, enable, desc):

@@ -515,9 +515,11 @@ fused_fbank_kernel(const Params p) {
           for (int f = 0; f < kFrames / 2; ++f) {
             const int frame = f0 + fh + f;
             if (fh + f < p.fpb && frame < p.n_frames) {
+              // the clamp keeps a NaN, as torch.clamp does: fmaxf alone
+              // would turn a NaN waveform into finite features
+              const float v = isnan(sum[f]) ? sum[f] : fmaxf(sum[f], p.amin);
               p.out[((size_t)b * p.n_frames + frame) * p.n_mels + m] =
-                  p.multiplier * log10f(fmaxf(sum[f], p.amin)) -
-                  p.db_offset;
+                  p.multiplier * log10f(v) - p.db_offset;
             }
           }
         }

@@ -88,6 +88,11 @@ class PaddedBatch:
     def __len__(self):
         return self.__length
 
+    @property
+    def batchsize(self):
+        """The number of examples."""
+        return self.__length
+
     def __getitem__(self, key):
         if key in self.__keys:
             return getattr(self, key)
@@ -103,6 +108,15 @@ class PaddedBatch:
         """
         return iter(getattr(self, key) for key in self.__keys)
 
+    def pin_memory(self):
+        """Move the padded keys' tensors to page-locked host memory, in
+        place; returns the batch."""
+        for key in self.__padded_keys:
+            data, lengths = getattr(self, key)
+            setattr(self, key, PaddedData(data.pin_memory(),
+                                          lengths.pin_memory()))
+        return self
+
     def to(self, device="cuda", non_blocking=False):
         """Move the padded keys' tensors to ``device``, in place; returns
         the batch."""
@@ -113,3 +127,33 @@ class PaddedBatch:
                 lengths.to(device, non_blocking=non_blocking),
             ))
         return self
+
+
+class BatchsizeGuesser:
+    """The number of examples in whatever a loader yields: a batch's
+    ``batchsize``, the length of a dict's first value, of a sequence's
+    first element, or of the batch itself (the first that works is kept),
+    else 1."""
+
+    def __init__(self):
+        self.method = None
+
+    def __call__(self, batch):
+        if self.method is not None:
+            try:
+                return self.method(batch)
+            except (AttributeError, TypeError, KeyError, IndexError):
+                pass
+        for method in (lambda b: b.batchsize,
+                       lambda b: len(next(iter(b.values()))),
+                       lambda b: len(b[0]),
+                       len):
+            try:
+                size = method(batch)
+            except (AttributeError, TypeError, KeyError, IndexError,
+                    StopIteration):
+                continue
+            self.method = method
+            return size
+        self.method = lambda b: 1
+        return 1

@@ -1,19 +1,25 @@
 """Manifests, audio files and token sequences (port of
 ``load_data_json``, ``load_data_csv``, ``read_audio``, ``read_audio_info``,
-``write_audio``, ``merge_char`` and ``split_word`` from
+``read_audio_multichannel``, ``write_audio``, ``merge_char`` and
+``split_word`` from
 ``speechbrain_tpu/dataio/dataio.py``).
 
-Audio is PCM WAV through the standard library's ``wave`` module: 8-bit
-unsigned, 16- and 32-bit signed samples, scaled as soundfile scales them
-(16-bit by 1/32768), multi-channel audio averaged to mono.
+Audio is WAV read by the native decoder (``io/native.py``: 8-bit
+unsigned, 16-, 24- and 32-bit signed PCM and IEEE float32, scaled as
+soundfile scales them, 16-bit by 1/32768), multi-channel audio averaged to
+mono by ``read_audio``; another format raises. ``write_audio`` writes
+16-bit PCM through the standard library's ``wave`` module.
 """
 
 import csv
 import json
+import os
 import re
 import wave
 
 import numpy as np
+
+from speechbrain_tpu_torch.io.native import read_wav, read_wav_mono, wav_info
 
 
 def load_data_json(json_path, replacements=None):
@@ -76,44 +82,59 @@ def load_data_csv(csv_path, replacements=None):
     return result
 
 
-_PCM = {1: (np.uint8, 128.0), 2: (np.int16, 32768.0),
-        4: (np.int32, 2147483648.0)}
+def _wav_path(path):
+    """``path`` as a string, refusing any file that is not a WAV file:
+    the port decodes WAV only (``io/native.py``), and has no reader for
+    other formats yet."""
+    path = str(path)
+    suffix = os.path.splitext(path)[1].lower()
+    if suffix != ".wav":
+        raise ValueError(
+            f"{path}: {suffix[1:] or 'extension-less'} audio is not read; "
+            f"the port reads WAV files only"
+        )
+    return path
+
+
+def _segment(waveforms_obj):
+    """(path, start, stop) of a path or a ``{"file", "start", "stop"}``
+    spec."""
+    if isinstance(waveforms_obj, (str, os.PathLike)):
+        return _wav_path(waveforms_obj), 0, None
+    stop = waveforms_obj.get("stop")
+    return (_wav_path(waveforms_obj["file"]),
+            int(waveforms_obj.get("start", 0)),
+            None if stop is None else int(stop))
 
 
 def read_audio_info(path):
     """``(num_frames, sample_rate, num_channels)`` of a WAV file, from its
     header."""
-    with wave.open(str(path), "rb") as w:
-        return w.getnframes(), w.getframerate(), w.getnchannels()
+    return wav_info(_wav_path(path))
 
 
 def read_audio(waveforms_obj):
-    """Read a PCM WAV file as float32 numpy, averaged to mono. Takes a
-    path, or ``{"file": path, "start": sample, "stop": sample}``."""
-    if isinstance(waveforms_obj, str):
-        path, start, stop = waveforms_obj, 0, None
+    """Read a WAV file (PCM 8/16/24/32-bit or IEEE float32) as float32
+    numpy, averaged to mono, by the native decoder. Takes a path, or
+    ``{"file": path, "start": sample, "stop": sample}``."""
+    path, start, stop = _segment(waveforms_obj)
+    return read_wav_mono(path, start, stop)[0]
+
+
+def read_audio_multichannel(waveforms_obj):
+    """Read WAV audio keeping its channels: float32 ``(time, channels)``.
+    Takes a path, or ``{"file": path}`` or ``{"files": [paths]}`` (the
+    files' channels side by side) with optional ``start``/``stop``."""
+    if isinstance(waveforms_obj, (str, os.PathLike)):
+        files, start, stop = [waveforms_obj], 0, None
     else:
-        path = waveforms_obj["file"]
-        start = int(waveforms_obj.get("start", 0))
+        files = waveforms_obj.get("files") or [waveforms_obj["file"]]
         stop = waveforms_obj.get("stop")
-        stop = int(stop) if stop is not None else None
-    with wave.open(str(path), "rb") as w:
-        n = w.getnframes()
-        width = w.getsampwidth()
-        channels = w.getnchannels()
-        stop = n if stop is None else min(stop, n)
-        w.setpos(start)
-        raw = w.readframes(max(0, stop - start))
-    if width not in _PCM:
-        raise ValueError(f"{path}: {8 * width}-bit PCM is not read")
-    dtype, scale = _PCM[width]
-    data = np.frombuffer(raw, dtype=dtype).astype(np.float32)
-    if width == 1:
-        data -= 128.0
-    data /= scale
-    if channels > 1:
-        data = data.reshape(-1, channels).mean(axis=-1)
-    return data
+        start = int(waveforms_obj.get("start", 0))
+        stop = None if stop is None else int(stop)
+    return np.concatenate(
+        [read_wav(_wav_path(f), start, stop)[0] for f in files], axis=-1
+    )
 
 
 def write_audio(filepath, audio, samplerate):

@@ -30,10 +30,9 @@ CACHE_LENGTH_MULTIPLE = 32
 
 
 def get_lookahead_mask(T, device="cuda"):
-    """Causal (True = masked) (T, T) bool mask."""
-    return torch.from_numpy(np.triu(np.ones((T, T), dtype=bool), k=1)).to(
-        device
-    )
+    """Causal (True = masked) (T, T) bool mask, made on ``device`` (an
+    upload from the host would wait for the device's queue)."""
+    return torch.ones(T, T, dtype=torch.bool, device=device).triu_(1)
 
 
 def get_key_padding_mask(padded_input_len, max_len):

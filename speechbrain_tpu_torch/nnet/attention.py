@@ -273,7 +273,10 @@ class RelPosEncXL(nn.Module):
 
     def forward(self, x):
         pe = rel_pos_encoding(x.shape[1], self.emb_dim)
-        return torch.from_numpy(pe).to(device=x.device, dtype=x.dtype)
+        # non_blocking: the host array is staged at once, and the upload
+        # does not wait for the device's queue
+        return torch.from_numpy(pe).to(device=x.device, dtype=x.dtype,
+                                       non_blocking=True)
 
 
 def _rel_shift(x):
@@ -328,7 +331,7 @@ class RelPosMHAXL(nn.Module):
         if pos_embs is None:
             pos_embs = torch.from_numpy(
                 rel_pos_encoding(Tk, self.embed_dim)
-            ).to(device=q.device, dtype=q.dtype)
+            ).to(device=q.device, dtype=q.dtype, non_blocking=True)
         p = self.pos_proj(pos_embs).reshape(-1, H, hd)  # (2Tk-1, H, hd)
 
         q_u = (q + self.pos_bias_u).transpose(1, 2)  # (B, H, Tq, hd)

@@ -2,7 +2,8 @@
 ``speechbrain_tpu/processing/features.py`` that ``Fbank`` and training
 need): windows, framing, ``STFT`` with its real power spectrogram, the
 mel filter matrix, ``Filterbank`` with dB compression and the
-per-sequence ``top_db`` clamp, and ``InputNormalization``. Constants are
+per-sequence ``top_db`` clamp, ``InputNormalization`` and ``GlobalNorm``.
+Constants are
 built in numpy, exactly as the JAX package builds them, and moved to the
 device once.
 """
@@ -195,9 +196,11 @@ class Filterbank:
 @register_checkpoint_hooks
 class InputNormalization:
     """Mean and variance normalisation over time, per sentence, over the
-    batch, or with global statistics kept as a running average and
-    checkpointed. Statistics are masked by the relative lengths; the
-    ``"speaker"`` type is not ported yet.
+    batch, per speaker or with global statistics, the last two kept as
+    running averages on the host and checkpointed. Statistics are masked
+    by the relative lengths. The ``"speaker"`` type takes the batch's
+    speaker ids (``spk_ids``) and reads each sentence's statistics to the
+    host, as the JAX package does.
 
     Example
     -------
@@ -208,11 +211,7 @@ class InputNormalization:
 
     def __init__(self, mean_norm=True, std_norm=True, norm_type="global",
                  avg_factor=None, update_until_epoch=2, epsilon=1e-10):
-        if norm_type == "speaker":
-            raise NotImplementedError(
-                "InputNormalization(norm_type='speaker') is not ported yet"
-            )
-        if norm_type not in ("sentence", "batch", "global"):
+        if norm_type not in ("sentence", "batch", "speaker", "global"):
             raise ValueError(f"Unknown norm_type {norm_type}")
         self.mean_norm = mean_norm
         self.std_norm = std_norm
@@ -223,6 +222,9 @@ class InputNormalization:
         self.glob_mean = torch.tensor(0.0)
         self.glob_std = torch.tensor(1.0)
         self.count = 0
+        self.spk_dict_mean = {}
+        self.spk_dict_std = {}
+        self.spk_dict_count = {}
 
     def _masked_moments(self, x, lengths):
         """Per-sentence masked mean and std over time: (B, 1, ...)."""
@@ -249,6 +251,8 @@ class InputNormalization:
             return (x - mean.mean(dim=0, keepdim=True)) / std.mean(
                 dim=0, keepdim=True
             )
+        if self.norm_type == "speaker":
+            return self._speaker_norm(x, mean, std, spk_ids)
         if epoch is None or epoch < self.update_until_epoch:
             bmean = mean.mean(dim=0).detach()
             bstd = std.mean(dim=0).detach()
@@ -266,10 +270,38 @@ class InputNormalization:
         gs = self.glob_std.to(x.device) if self.std_norm else 1.0
         return (x - gm) / gs
 
+    def _speaker_norm(self, x, mean, std, spk_ids):
+        """Each sentence normalised by its speaker's running statistics,
+        updated first with the sentence's own (a running mean, or
+        ``avg_factor``'s exponential one), on the host."""
+        out = []
+        for i, spk in enumerate(list(spk_ids)):
+            spk = str(spk)
+            m_i = mean[i].detach().cpu()
+            s_i = std[i].detach().cpu()
+            if spk not in self.spk_dict_mean:
+                self.spk_dict_mean[spk] = m_i
+                self.spk_dict_std[spk] = s_i
+                self.spk_dict_count[spk] = 1
+            else:
+                c = self.spk_dict_count[spk] + 1
+                self.spk_dict_count[spk] = c
+                w = 1.0 / c if self.avg_factor is None else self.avg_factor
+                self.spk_dict_mean[spk] = ((1 - w) * self.spk_dict_mean[spk]
+                                           + w * m_i)
+                self.spk_dict_std[spk] = ((1 - w) * self.spk_dict_std[spk]
+                                          + w * s_i)
+            out.append((x[i] - self.spk_dict_mean[spk].to(x.device))
+                       / self.spk_dict_std[spk].to(x.device))
+        return torch.stack(out)
+
     @mark_as_saver
     def _save(self, path):
         torch.save({"glob_mean": self.glob_mean, "glob_std": self.glob_std,
-                    "count": self.count}, path)
+                    "count": self.count,
+                    "spk_dict_mean": self.spk_dict_mean,
+                    "spk_dict_std": self.spk_dict_std,
+                    "spk_dict_count": self.spk_dict_count}, path)
 
     @mark_as_loader
     def _load(self, path, end_of_epoch=False):
@@ -278,3 +310,55 @@ class InputNormalization:
         self.glob_mean = state["glob_mean"]
         self.glob_std = state["glob_std"]
         self.count = int(state["count"])
+        self.spk_dict_mean = dict(state.get("spk_dict_mean", {}))
+        self.spk_dict_std = dict(state.get("spk_dict_std", {}))
+        self.spk_dict_count = dict(state.get("spk_dict_count", {}))
+
+
+class GlobalNorm:
+    """Normalise to a target mean and std (``norm_mean``, ``norm_std``)
+    from a running mean and std of the whole input, updated on the host
+    by every call until ``update_steps`` calls (all calls by default) or
+    ``freeze()``; ``denormalize`` inverts it (port of the JAX package's
+    ``GlobalNorm``).
+
+    Example
+    -------
+    >>> norm = GlobalNorm()
+    >>> y = norm(torch.tensor([1.0, 3.0]))
+    >>> [round(v, 4) for v in y.tolist()], norm.denormalize(y).tolist()
+    ([-1.0, 1.0], [1.0, 3.0])
+    """
+
+    def __init__(self, norm_mean=0.0, norm_std=1.0, update_steps=None,
+                 length_dim=2, mask_value=0.0):
+        self.norm_mean = norm_mean
+        self.norm_std = norm_std
+        self.update_steps = update_steps
+        self.mask_value = mask_value
+        self.step_count = 0
+        self.running_mean = 0.0
+        self.running_std = 1.0
+        self.frozen = False
+
+    def freeze(self):
+        self.frozen = True
+
+    def unfreeze(self):
+        self.frozen = False
+
+    def __call__(self, x, lengths=None):
+        if not self.frozen and (self.update_steps is None
+                                or self.step_count < self.update_steps):
+            m = float(x.mean())
+            s = float(x.std(unbiased=False))
+            w = 1.0 / (self.step_count + 1)
+            self.running_mean = (1 - w) * self.running_mean + w * m
+            self.running_std = (1 - w) * self.running_std + w * s
+            self.step_count += 1
+        x = (x - self.running_mean) / (self.running_std + 1e-8)
+        return x * self.norm_std + self.norm_mean
+
+    def denormalize(self, x):
+        x = (x - self.norm_mean) / self.norm_std
+        return x * (self.running_std + 1e-8) + self.running_mean

@@ -381,3 +381,27 @@ class Checkpointer:
         shutil.rmtree(checkpoint.path)
         if verbosity:
             logger.info("Deleted checkpoint in %s", checkpoint.path)
+
+
+def average_checkpoints(checkpoint_list, recoverable_name):
+    """The elementwise mean of one recoverable's state dict over
+    ``checkpoint_list`` (the reference's checkpoint averaging for
+    evaluation): each floating entry averaged in float64, each other
+    entry (integer counters) taken from the first checkpoint. The tensors
+    load on the CPU; ``load_state_dict`` casts them to the module's
+    dtypes."""
+    states = [
+        torch.load(c.paramfiles[recoverable_name], map_location="cpu",
+                   weights_only=True)
+        for c in checkpoint_list
+    ]
+    first = states[0]
+    for state in states[1:]:
+        if state.keys() != first.keys():
+            raise KeyError(f"{recoverable_name}: the checkpoints hold "
+                           f"different entries")
+    return {
+        key: (sum(s[key].to(torch.float64) for s in states) / len(states)
+              if torch.is_floating_point(value) else value)
+        for key, value in first.items()
+    }

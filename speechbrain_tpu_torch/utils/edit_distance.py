@@ -1,14 +1,17 @@
 """Edit distance and accumulatable WER statistics (port of
 ``speechbrain_tpu/utils/edit_distance.py``): Levenshtein statistics with
 insertion, deletion and substitution counts, alignments and per-utterance
-details, in plain Python on the host. The JAX package's native batch path
-(``editdist_native``) is not ported: this module has one path, the JAX
-package's pure-Python one.
+details on the host. ``accumulatable_wer_stats`` counts every batch with
+the native C++ core (``editdist_native.edit_ops_batch``); the pure-Python
+DP (``op_table``, ``count_ops``) serves the alignments and the
+per-utterance details.
 """
 
 import collections
 
 import numpy as np
+
+from speechbrain_tpu_torch.utils.editdist_native import edit_ops_batch
 
 EDIT_SYMBOLS = {
     "eq": "=",
@@ -43,9 +46,15 @@ def accumulatable_wer_stats(refs, hyps, stats=None):
     # derived fields must not double-accumulate
     for derived in ("WER", "num_edits"):
         updated_stats.pop(derived, None)
-    for ref, hyp in zip(_batch_to_list(refs), _batch_to_list(hyps)):
-        updated_stats.update(count_ops(op_table(ref, hyp)))
-        updated_stats.update({"num_ref_tokens": len(ref)})
+    refs = _batch_to_list(refs)
+    hyps = _batch_to_list(hyps)
+    ops = edit_ops_batch(refs, hyps).sum(axis=0)
+    updated_stats.update({
+        "insertions": int(ops[0]),
+        "deletions": int(ops[1]),
+        "substitutions": int(ops[2]),
+        "num_ref_tokens": sum(len(r) for r in refs),
+    })
     updated = dict(updated_stats)
     for key in ("insertions", "deletions", "substitutions"):
         updated.setdefault(key, 0)

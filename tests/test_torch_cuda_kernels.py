@@ -162,6 +162,22 @@ def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
     assert float((out - _plain_fbank(wav, fused, hop)).abs().max()) <= 5e-3
 
 
+def test_fused_fbank_kernel_keeps_a_nan_as_its_plain_version(card):
+    """A NaN waveform gives NaN features, as the plain version's clamp
+    gives them, so that a training step sees a loss that is not finite;
+    the other rows stay finite and equal to the plain version's."""
+    wav = torch.from_numpy(make_check_signal("noise", 3, 16000, seed=4))
+    wav = wav.to(card)
+    wav[1] = float("nan")
+    wav[2, 5000] = float("nan")
+    fused = Fbank(n_mels=80, fused=True, device=card)
+    out = fused(wav)
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert bool(torch.isnan(out[1]).all()) and bool(torch.isnan(out[2]).all())
+    assert float((out[0] - plain[0]).abs().max()) <= 5e-3
+
+
 def test_fused_fbank_kernel_raises_on_what_it_does_not_take(card):
     fused = Fbank(n_mels=80, fused=True, device=card)
     window = fused.compute_STFT.window

@@ -1,7 +1,9 @@
 """The port's ``InputNormalization`` against the JAX package's on the same
-numpy features and relative lengths: the sentence, batch and global
-types, the global type's running statistics over several batches (and
-their freeze after ``update_until_epoch``), and their checkpoint.
+numpy features and relative lengths: the sentence, batch, speaker and
+global types, the running statistics of the global and speaker types over
+several batches (and the global one's freeze after
+``update_until_epoch``), and their checkpoints; and ``GlobalNorm``
+(running mean and std, freeze, ``denormalize``).
 
 Tolerance: 1e-5 absolute on outputs of size about 1 (float32 masked sums
 over up to 12 frames in another order)."""
@@ -12,10 +14,14 @@ import torch
 
 import jax.numpy as jnp
 
+from speechbrain_tpu.processing.features import GlobalNorm as JaxGlobalNorm
 from speechbrain_tpu.processing.features import (
     InputNormalization as JaxNorm,
 )
-from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.processing.features import (
+    GlobalNorm,
+    InputNormalization,
+)
 
 ATOL = 1e-5
 LENS = np.array([1.0, 0.5, 0.75], np.float32)
@@ -65,3 +71,51 @@ def test_statistics_stay_float32_under_autocast():
     with torch.autocast("cpu", torch.bfloat16):
         out = norm(x.to(torch.bfloat16), torch.from_numpy(LENS))
     assert out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("avg_factor", [None, 0.3])
+def test_speaker_running_statistics_match(avg_factor, tmp_path):
+    j = JaxNorm(norm_type="speaker", avg_factor=avg_factor)
+    t = InputNormalization(norm_type="speaker", avg_factor=avg_factor)
+    for seed, spk in ((1, ["a", "b", "a"]), (2, ["c", "a", "b"]),
+                      (3, ["b", "b", "a"])):
+        x = _feats(seed)
+        jo = j(jnp.asarray(x), jnp.asarray(LENS), spk_ids=spk)
+        to = t(torch.from_numpy(x), torch.from_numpy(LENS), spk_ids=spk)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL)
+    assert t.spk_dict_count == j.spk_dict_count == {"a": 4, "b": 4, "c": 1}
+    for spk in "abc":
+        np.testing.assert_allclose(t.spk_dict_mean[spk].numpy(),
+                                   np.asarray(j.spk_dict_mean[spk]),
+                                   atol=ATOL)
+    t._save(tmp_path / "spk.ckpt")
+    fresh = InputNormalization(norm_type="speaker", avg_factor=avg_factor)
+    fresh._load(tmp_path / "spk.ckpt")
+    assert fresh.spk_dict_count == t.spk_dict_count
+    x = torch.from_numpy(_feats(4))
+    assert torch.equal(fresh(x, torch.from_numpy(LENS), spk_ids=["c"] * 3),
+                       t(x, torch.from_numpy(LENS), spk_ids=["c"] * 3))
+
+
+def test_global_norm_matches():
+    j = JaxGlobalNorm(norm_mean=0.5, norm_std=2.0, update_steps=2)
+    t = GlobalNorm(norm_mean=0.5, norm_std=2.0, update_steps=2)
+    for seed in (1, 2, 3):
+        x = _feats(seed)
+        np.testing.assert_allclose(t(torch.from_numpy(x)).numpy(),
+                                   np.asarray(j(jnp.asarray(x))),
+                                   rtol=1e-5, atol=ATOL)
+    assert t.step_count == j.step_count == 2  # no update past update_steps
+    assert t.running_mean == pytest.approx(j.running_mean, rel=1e-6)
+    assert t.running_std == pytest.approx(j.running_std, rel=1e-6)
+    y = torch.from_numpy(_feats(5))
+    np.testing.assert_allclose(t.denormalize(y).numpy(),
+                               np.asarray(j.denormalize(jnp.asarray(
+                                   y.numpy()))), rtol=1e-5, atol=ATOL)
+    frozen = GlobalNorm()
+    frozen.freeze()
+    frozen(y)
+    assert frozen.step_count == 0
+    frozen.unfreeze()
+    frozen(y)
+    assert frozen.step_count == 1

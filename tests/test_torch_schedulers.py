@@ -127,6 +127,15 @@ def _jax_micro_step(opt, params, opt_state, grads, skip_nonfinite):
     return new_params, new_state
 
 
+def _accumulate(brain, params, grads):
+    """One micro-batch's gradients, with a finite loss, through the
+    Brain's update as ``fit_batch`` hands them on after its backward;
+    returns whether the micro-batch counted as finite."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    return bool(brain._accumulate(params, torch.tensor(True)))
+
+
 def test_clip_accumulate_adamw_matches_optax_multisteps():
     rng = np.random.default_rng(0)
     init = {k: rng.standard_normal(s).astype(np.float32)
@@ -170,8 +179,8 @@ def test_clip_accumulate_adamw_matches_optax_multisteps():
             opt, j_params, j_state, {k: jnp.asarray(v) for k, v in g.items()},
             skip_nonfinite=True)
         before = brain._window_count
-        ok = brain._accumulate(
-            params, [torch.from_numpy(g[n].copy()) for n in names])
+        ok = _accumulate(
+            brain, params, [torch.from_numpy(g[n].copy()) for n in names])
         assert ok == bool(np.all([np.isfinite(v).all() for v in g.values()]))
         stepped = ok and before == 1
         if stepped:
@@ -195,7 +204,7 @@ def test_accumulation_without_clip_is_the_mean():
                             "max_grad_norm": 0.0})
     brain.init_optimizers()
     params = list(module.parameters())
-    brain._accumulate(params, [torch.tensor([1.0, 2.0, 30.0])])
+    _accumulate(brain, params, [torch.tensor([1.0, 2.0, 30.0])])
     assert torch.equal(params[0].detach(), torch.zeros(3))
-    brain._accumulate(params, [torch.tensor([3.0, 4.0, 50.0])])
+    _accumulate(brain, params, [torch.tensor([3.0, 4.0, 50.0])])
     assert torch.allclose(params[0].detach(), -torch.tensor([2.0, 3.0, 40.0]))

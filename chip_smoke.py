@@ -5,8 +5,9 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives seven paths at the full width of the
-conformer-large LibriSpeech recipe with random weights made from a seed:
+(``grad_guard``), and drives eight paths at full width with random weights
+made from a seed, the first seven at that of the conformer-large
+LibriSpeech recipe:
 
 - ``main_path``: batched ``transcribe`` — waveform -> fused Fbank ->
   convolutional front end -> 12-layer Conformer encoder -> ancestry KV beam
@@ -47,7 +48,16 @@ conformer-large LibriSpeech recipe with random weights made from a seed:
   then float32 checks of the windowed loss reads against the per-step
   ones, of a window of NaN micro-batches (nothing changes, bit for bit),
   of a threaded mid-epoch resume, of averaged checkpoints, and of the
-  native WAV reader and edit distance against their plain versions.
+  native WAV reader and edit distance against their plain versions;
+- ``family_path``: the recipe's seven other hparams files (transformer,
+  conformer_large_rope, branchformer_large, hyperconformer_22M and _8M,
+  hyperbranchformer_25M and _13M) at their full width and depth: bf16
+  ``transcribe`` (ancestry search, CTC at 0.3, no LM: kernel
+  ``ancestry_attention`` in every decoder layer at every step, head dims 128,
+  64, 32 and 18, and ``fused_fbank`` once), the same in float32 through the
+  kernels and their plain versions, two bf16 training steps of the twin
+  ``ASR`` (``fused_fbank`` on every micro-batch), and branchformer_large's
+  float32 step with ``encoder_remat`` against without.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -202,7 +212,13 @@ def emit(obj):
 
 
 class Pipeline:
-    """waveform -> hypotheses, assembled from the port's public modules."""
+    """waveform -> hypotheses, assembled from the port's public modules.
+
+    The encoder family, its attention and the decoder's norm placement come
+    from ``cfg`` (``encoder_module``, ``attention_type``,
+    ``normalize_before``; NORTH's conformer, ``RelPosMHAXL`` and pre-norm
+    where it names none), and ``cfg["lm"] = False`` leaves the LM out of the
+    search (CTC alone is fused then)."""
 
     def __init__(self, cfg, device="cuda", dtype=torch.float32, seed=0,
                  ancestry=True):
@@ -223,8 +239,10 @@ class Pipeline:
             tgt_vocab=C["vocab"], input_size=n_feat, d_model=C["d_model"],
             nhead=C["nhead"], num_encoder_layers=C["enc_layers"],
             num_decoder_layers=C["dec_layers"], d_ffn=C["d_ffn"],
-            encoder_module="conformer", attention_type="RelPosMHAXL",
-            kernel_size=C["kernel_size"], normalize_before=True, **kw,
+            encoder_module=C.get("encoder_module", "conformer"),
+            attention_type=C.get("attention_type", "RelPosMHAXL"),
+            kernel_size=C["kernel_size"],
+            normalize_before=C.get("normalize_before", True), **kw,
         ).eval()
         self.ctc_lin = Linear(C["vocab"], C["d_model"], **kw)
         self.seq_lin = Linear(C["vocab"], C["d_model"], **kw)
@@ -232,7 +250,7 @@ class Pipeline:
             vocab=C["vocab"], d_model=C["lm_d_model"], nhead=C["lm_nhead"],
             num_encoder_layers=C["lm_layers"], d_ffn=C["lm_d_ffn"],
             dropout=0.0, activation="gelu", normalize_before=False, **kw,
-        ).eval()
+        ).eval() if C.get("lm", True) else None
         self.ancestry = ancestry
         self.fbank_calls = 0
         self.searcher = None
@@ -255,19 +273,20 @@ class Pipeline:
                 cache, attn,
             )
 
+        weights, full_scorers = {"ctc": C["ctc_weight"]}, {}
+        if lm is not None:
+            weights["transformerlm"] = C["lm_weight"]
+            full_scorers["transformerlm"] = KVTransformerLMScorer(
+                step_fn=lm.score_step,
+                init_cache_fn=lm.init_cache,
+                max_length=max_steps + 1,
+                temperature=C["temperature"],
+                # ancestry beam decoding: LM cache rows never move
+                ancestry=self.ancestry,
+            )
         scorer = ScorerBuilder(
-            weights={"ctc": C["ctc_weight"],
-                     "transformerlm": C["lm_weight"]},
-            full_scorers={
-                "transformerlm": KVTransformerLMScorer(
-                    step_fn=lm.score_step,
-                    init_cache_fn=lm.init_cache,
-                    max_length=max_steps + 1,
-                    temperature=C["temperature"],
-                    # ancestry beam decoding: LM cache rows never move
-                    ancestry=self.ancestry,
-                )
-            },
+            weights=weights,
+            full_scorers=full_scorers,
             partial_scorers={
                 "ctc": CTCScorer(
                     ctc_fn=lambda enc: torch.log_softmax(
@@ -454,8 +473,11 @@ TRAIN_REDUCED = {
 }
 
 
-def make_asr_modules(cfg, device="cuda", seed=0, dropout=None):
-    """The recipe's four modules, random weights from ``seed``."""
+def make_asr_modules(cfg, device="cuda", seed=0, dropout=None,
+                     encoder_remat=False):
+    """The recipe's four modules, random weights from ``seed``; the encoder
+    family and its attention from ``cfg`` (the conformer and
+    ``RelPosMHAXL`` where it names none)."""
     gen = torch.Generator().manual_seed(seed)
     drop = cfg["dropout"] if dropout is None else dropout
     kw = dict(device=device, generator=gen)
@@ -470,8 +492,10 @@ def make_asr_modules(cfg, device="cuda", seed=0, dropout=None):
             d_model=cfg["d_model"], nhead=cfg["nhead"],
             num_encoder_layers=cfg["enc_layers"],
             num_decoder_layers=cfg["dec_layers"], d_ffn=cfg["d_ffn"],
-            dropout=drop, encoder_module="conformer",
-            attention_type="RelPosMHAXL", kernel_size=cfg["kernel_size"],
+            dropout=drop,
+            encoder_module=cfg.get("encoder_module", "conformer"),
+            attention_type=cfg.get("attention_type", "RelPosMHAXL"),
+            kernel_size=cfg["kernel_size"], encoder_remat=encoder_remat,
             **kw,
         ),
         "ctc_head": Linear(cfg["vocab"], cfg["d_model"], **kw),
@@ -673,7 +697,9 @@ def check_b1():
     - a history longer than one chunk of staged ancestry entries (steps
       1023 to 1025 of 1100);
     - the published decode's shape, beam 66 and 288 positions with the
-      LM's 12 heads, at steps 0, 143 and 287."""
+      LM's 12 heads, at steps 0, 143 and 287;
+    - head dim 18 (the general instantiation) at the seams of its
+      batches."""
     results = []
     worst = 0.0
 
@@ -715,6 +741,14 @@ def check_b1():
     for dtype in (torch.float32, torch.bfloat16):
         run(8, 66, 12, 64, 288, dtype, (0, 143, 287), seed=66)
         torch.cuda.empty_cache()
+    # head dim 18 (the d-144, 8-head families' decoder): the general
+    # instantiation, at the seams of its batches
+    for dtype in (torch.float32, torch.bfloat16):
+        P = beam_attention.kernel_batch_positions(18, dtype)
+        run(8, 10, 8, 18, 64, dtype, sorted({0, 63, *seams(P, 3, 64)}),
+            seed=18)
+        run(2, 5, 3, 18, 100, dtype, sorted({*seams(P, 6, 100), 99}),
+            seed=118)
     emit({"phase": "kernel_check", "kernel": "ancestry_attention",
           "atol": {str(k_): v_ for k_, v_ in B1_ATOL.items()},
           "cases_BKHhdL_dtype_step_err": results, "max_abs_err": worst})
@@ -963,14 +997,13 @@ def expected_launches(cfg, ancestry, steps, fbank_calls):
     scorer's once after every step). Both run B3 once an ``Fbank`` call."""
     counts = dict.fromkeys(KERNELS, 0)
     counts["fused_fbank"] = fbank_calls
+    layers = cfg["dec_layers"] + (
+        cfg["lm_layers"] if cfg.get("lm", True) else 0
+    )
     if ancestry:
-        counts["ancestry_attention"] = (
-            cfg["dec_layers"] + cfg["lm_layers"]
-        ) * steps
+        counts["ancestry_attention"] = layers * steps
     else:
-        counts["row_gather"] = (
-            2 * cfg["dec_layers"] + 2 * cfg["lm_layers"]
-        ) * steps
+        counts["row_gather"] = 2 * layers * steps
     return counts
 
 
@@ -1015,14 +1048,15 @@ def run_transcribe_path(cfg, ancestry):
                   "decode_ms": pipe.last_decode_ms, "launches": counts}
 
 
-def run_fp32_comparison(cfg, ancestry, score_atol=1e-3):
+def run_fp32_comparison(cfg, ancestry, score_atol=1e-3, phase=None):
     """The same transcribe in float32, through the kernels and through the
     plain versions: tokens equal, scores within ``score_atol`` (the two
     differ by float32 summation order only; the slack is for its growth
     through 18 layers and up to 51 steps). On the permuting path the run
     is made once more with only B4 on its plain version: a row copy is
     exact, so its scores must equal the kernels' bit for bit."""
-    phase = "fp32_kernel_vs_plain" + ("" if ancestry else "_permute")
+    phase = phase or "fp32_kernel_vs_plain" + ("" if ancestry else
+                                                "_permute")
     wavs, lens = make_waveforms(cfg, "cuda")
     pipe = Pipeline(cfg, device="cuda", dtype=torch.float32, seed=0,
                     ancestry=ancestry)
@@ -1060,6 +1094,8 @@ def run_fp32_comparison(cfg, ancestry, score_atol=1e-3):
     emit(line)
     if not ok:
         raise AssertionError(f"{phase}: kernel path and plain path disagree")
+    del pipe
+    torch.cuda.empty_cache()
 
 
 def make_relative_lengths(batch, seed=1):
@@ -1196,13 +1232,41 @@ def b1_work(sets, n_pos, D, itemsize):
             2 * B * K * n_pos * D * itemsize + rest)
 
 
-def b1_sets(B, K, H, L):
+def b1_sets(B, K, H, L, hd=64):
     """bf16 input sets of one ancestry attention shape, enough to pass 2x
     the 50 MB L2 when cycled."""
-    set_bytes = 2 * B * K * L * H * 64 * 2
+    set_bytes = 2 * B * K * L * H * hd * 2
     n_sets = max(2, -(-120_000_000 // set_bytes))
-    return [make_b1_inputs(B, K, H, 64, L, torch.bfloat16, seed=i)
+    return [make_b1_inputs(B, K, H, hd, L, torch.bfloat16, seed=i)
             for i in range(n_sets)]
+
+
+def measure_b1_at(cfg, steps, max_steps):
+    """B1's general instantiation at a family's decoder shape (head dim
+    ``d_model / nhead``), bfloat16, at the last step that ran: kernel and
+    plain ms, and the bound by the same count as :func:`b1_work`."""
+    B, K, H = cfg["batch"], cfg["beam"], cfg["nhead"]
+    hd = cfg["d_model"] // H
+    L = -(-(max_steps + 1) // CACHE_LENGTH_MULTIPLE) * CACHE_LENGTH_MULTIPLE
+    last = steps - 1
+    sets = b1_sets(B, K, H, L, hd)
+    ms = time_ms(lambda i: beam_attention.ancestry_attention(
+        *sets[i], last), len(sets))
+    plain_ms = time_ms(lambda i: beam_attention.ancestry_attention_reference(
+        *sets[i], last), len(sets), iters=8)
+    nbytes, flops, unshared = b1_work(sets, last + 1, H * hd, 2)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bound = max(bytes_ms, flops_ms)
+    del sets
+    torch.cuda.empty_cache()
+    return {"B_K_H_hd_L_step": [B, K, H, hd, L, last], "dtype": "bfloat16",
+            "batch_positions":
+                beam_attention.kernel_batch_positions(hd, torch.bfloat16),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "ms_over_bound": ms / bound, "bytes": nbytes,
+            "bytes_if_no_row_shared": unshared, "flops": flops}
 
 
 def measure_b1(cfg, steps, max_steps, launches, err):
@@ -2917,6 +2981,239 @@ def run_serve_path(cfg, out_dir):
             "encoder_asr": ctc_counts}
 
 
+# -- phase: the recipe's other encoder families -------------------------------
+
+# family_path: the seven other hparams files of the LibriSpeech transformer
+# recipe (recipes/LibriSpeech/ASR/transformer/hparams/, twins under
+# speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transformer/hparams/) at
+# their full width and depth: the encoder, its attention and the sizes from
+# the YAML; the front end, heads, vocabulary and kernel size as in
+# conformer_large (the YAMLs share them).
+FAMILIES = {
+    "transformer": dict(d_model=512, nhead=4, enc_layers=12, dec_layers=6,
+                        d_ffn=2048, encoder_module="transformer",
+                        attention_type="regularMHA"),
+    "conformer_large_rope": dict(d_model=512, nhead=8, enc_layers=12,
+                                 dec_layers=6, d_ffn=2048,
+                                 encoder_module="conformer",
+                                 attention_type="RoPEMHA"),
+    "branchformer_large": dict(d_model=512, nhead=8, enc_layers=18,
+                               dec_layers=6, d_ffn=3072,
+                               encoder_module="branchformer",
+                               attention_type="RelPosMHAXL"),
+    "hyperconformer_22M": dict(d_model=256, nhead=8, enc_layers=10,
+                               dec_layers=4, d_ffn=1024,
+                               encoder_module="conformer",
+                               attention_type="hypermixing"),
+    "hyperconformer_8M": dict(d_model=144, nhead=8, enc_layers=10,
+                              dec_layers=4, d_ffn=576,
+                              encoder_module="conformer",
+                              attention_type="hypermixing"),
+    "hyperbranchformer_25M": dict(d_model=256, nhead=8, enc_layers=10,
+                                  dec_layers=4, d_ffn=1024,
+                                  encoder_module="branchformer",
+                                  attention_type="hypermixing"),
+    "hyperbranchformer_13M": dict(d_model=144, nhead=8, enc_layers=10,
+                                  dec_layers=4, d_ffn=1024,
+                                  encoder_module="branchformer",
+                                  attention_type="hypermixing"),
+}
+# serving: NORTH's batch and search, the YAMLs' post-norm decoder and their
+# ctc_weight_decode; the YAMLs name no LM
+FAMILY_SERVE = dict(normalize_before=False, lm=False, ctc_weight=0.3)
+FAMILY_REDUCED = {
+    "weights": "random, from a seed (no trained model of these families "
+               "is in the repository)",
+    "search": "beam 10 and max_decode_ratio 0.2 (the recipe's test "
+              "setting: 66 and 1.0), no LM, NORTH's 8 x 10 s of noise",
+    "training": "two optimizer steps (4 micro-batches) on TRAIN's "
+                "synthetic WAV corpus",
+}
+FAMILY_TRAIN_STEPS = 2
+# the branchformer with encoder_remat against without: one float32 step at
+# dropout 0 from the same weights; the recomputation replays the same
+# kernels, so only the atomics' order of the backward differs
+REMAT_RTOL = 1e-5
+
+
+def family_cfg(name):
+    return {**NORTH, **FAMILY_SERVE, **FAMILIES[name]}
+
+
+def family_train_cfg(name):
+    return {**TRAIN, **FAMILIES[name], "epochs": FAMILY_TRAIN_STEPS}
+
+
+def run_family_serve(name):
+    """bf16 ``transcribe`` through the family's pipeline, after a warm-up:
+    B1 in every decoder layer at every step, B3 once, nothing else."""
+    cfg = family_cfg(name)
+    wavs, lens = make_waveforms(cfg, "cuda")
+    pipe = Pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    pipe.transcribe(wavs, lens)
+    reset_launch_counts()
+    pipe.fbank_calls = 0
+    hyps, lengths, scores, _ = pipe.transcribe(wavs, lens)
+    counts = launch_counts()
+    steps = pipe.searcher.last_steps
+    expected = expected_launches(cfg, True, steps, pipe.fbank_calls)
+    ok = (
+        len(hyps) == cfg["batch"] and np.all(np.isfinite(scores))
+        and all(0 <= t < cfg["vocab"] for h in hyps for t in h)
+        and steps >= 1 and pipe.fbank_calls == 1 and counts == expected
+    )
+    line = {
+        "family": name, "ok": bool(ok), "head_dim":
+            cfg["d_model"] // cfg["nhead"],
+        "parameters": sum(
+            p.numel() for m in (pipe.frontend, pipe.net, pipe.ctc_lin,
+                                pipe.seq_lin) for p in m.parameters()),
+        "steps": steps, "hyp_lengths": [int(x) for x in lengths],
+        "launches": counts, "expected_launches": expected,
+        "encode_ms": pipe.last_encode_ms, "decode_ms": pipe.last_decode_ms,
+        "audio_seconds_per_second": cfg["batch"] * cfg["seconds"]
+        / ((pipe.last_encode_ms + pipe.last_decode_ms) / 1e3),
+        "max_steps": pipe.last_max_steps,
+    }
+    del pipe
+    torch.cuda.empty_cache()
+    if not ok:
+        emit({"phase": "family_path", **line})
+        raise AssertionError(f"family_path {name}: the bf16 run failed")
+    return line
+
+
+def run_family_train(name, out_dir, datasets):
+    """Two optimizer steps of the twin ``ASR`` Brain at the family's full
+    width: bf16 autocast, accumulation 2, B3 on every micro-batch."""
+    cfg = family_train_cfg(name)
+    os.makedirs(out_dir, exist_ok=True)
+    brain = train_brain(cfg, out_dir, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    brain.fit(brain.hparams.epoch_counter, datasets["train"],
+              train_loader_kwargs=asr_loader_kwargs(cfg, shuffle=False))
+    counts = launch_counts()
+    n_train = brain.forwards[Stage.TRAIN]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_train
+    step_ms = brain.step_ms()
+    line = {
+        "ok": bool(
+            counts == expected
+            and brain.optimizer_step == FAMILY_TRAIN_STEPS
+            and n_train == FAMILY_TRAIN_STEPS
+            * cfg["grad_accumulation_factor"]
+            and all(np.isfinite(brain.epoch_losses))
+        ),
+        "micro_batches": n_train, "optimizer_steps": brain.optimizer_step,
+        "fused_fbank_launches": counts["fused_fbank"],
+        "train_losses": brain.epoch_losses, "step_ms": step_ms,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def remat_step(cfg, batch, remat):
+    """One float32 micro-batch of the twin ``ASR`` Brain (dropout 0, seed-1
+    weights) with or without ``encoder_remat``: the loss, the gradients and
+    the peak memory of the step."""
+    brain = ASR(modules=make_asr_modules(cfg, seed=1, dropout=0.0,
+                                         encoder_remat=remat),
+                hparams=make_asr_hparams(cfg),
+                run_opts={"device": "cuda", "precision": "fp32"})
+    brain.modules.train()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = brain.compute_objectives(
+        brain.compute_forward(batch, Stage.TRAIN), batch, Stage.TRAIN)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {n: p.grad.detach().clone()
+             for n, p in brain.modules.named_parameters()}
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(loss.detach()), grads, peak
+
+
+def run_family_remat(name, datasets):
+    """``encoder_remat=True`` against without, float32, one micro-batch of
+    TRAIN's 16 utterances: loss and every gradient within REMAT_RTOL
+    (each tensor's error against its norm, plus 1e-6 of the global norm
+    for gradients that are zero up to rounding), and the peak memories."""
+    cfg = family_train_cfg(name)
+    batch = next(iter(make_train_loader(cfg, datasets))).to("cuda")
+    loss_0, grads_0, peak_0 = remat_step(cfg, batch, False)
+    loss_1, grads_1, peak_1 = remat_step(cfg, batch, True)
+    norms = {n: float(g.norm()) for n, g in grads_0.items()}
+    errs = {n: float((grads_1[n] - g).norm()) for n, g in grads_0.items()}
+    global_norm = float(np.sqrt(sum(v * v for v in norms.values())))
+    rel = {n: errs[n] / max(norms[n], 1e-30) for n in norms}
+    ok = (
+        grads_0.keys() == grads_1.keys()
+        and abs(loss_1 - loss_0) <= REMAT_RTOL * abs(loss_0)
+        and all(errs[n] <= REMAT_RTOL * norms[n] + 1e-6 * global_norm
+                for n in norms)
+    )
+    return {
+        "family": name, "ok": bool(ok), "dtype": "float32", "dropout": 0.0,
+        "loss": loss_0, "loss_remat": loss_1,
+        "loss_rel_diff": abs(loss_1 - loss_0) / abs(loss_0),
+        "grad_worst_rel_err": max(rel.values()),
+        "grad_global_rel_err": float(np.sqrt(sum(
+            v * v for v in errs.values()))) / global_norm,
+        "rtol": REMAT_RTOL, "step_peak_bytes": peak_0,
+        "step_peak_bytes_remat": peak_1,
+    }
+
+
+def run_family_path(out_dir, datasets):
+    """Each family: bf16 serving (B1 dec_layers x steps, B3 once), the same
+    transcribe in float32 through the kernels and their plain versions
+    (equal tokens), two bf16 training steps (B3 every micro-batch); then
+    branchformer_large with and without encoder_remat. Returns each
+    family's launches of B1 and B3 (serving and training), and the hd-18
+    family's steps and maximum steps."""
+    t0 = time.perf_counter()
+    lines, launches = {}, {}
+    for name in FAMILIES:
+        t1 = time.perf_counter()
+        serve = run_family_serve(name)
+        run_fp32_comparison(family_cfg(name), ancestry=True,
+                            phase=f"family_fp32_kernel_vs_plain/{name}")
+        train = run_family_train(name, os.path.join(out_dir, name), datasets)
+        lines[name] = {**serve, "train": train,
+                       "seconds": time.perf_counter() - t1}
+        launches[name] = {
+            "ancestry_attention": serve["launches"]["ancestry_attention"],
+            "fused_fbank": serve["launches"]["fused_fbank"]
+            + train["fused_fbank_launches"],
+        }
+        emit({"phase": "family_path", **lines[name]})
+        if not train["ok"]:
+            raise AssertionError(f"family_path {name}: training failed")
+    remat = run_family_remat("branchformer_large", datasets)
+    emit({"phase": "family_remat", **remat})
+    if not remat["ok"]:
+        raise AssertionError("family_remat: remat changed the step")
+    emit({"phase": "family_path_summary", "reduced": FAMILY_REDUCED,
+          "parameters": {n: l["parameters"] for n, l in lines.items()},
+          "launches": launches,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    hd18 = lines["hyperconformer_8M"]
+    return launches, (hd18["steps"], hd18["max_steps"])
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -3066,6 +3363,17 @@ def main():
         kernels[1]["launches_by_path"]["host_path"] = run_host_path(
             TRAIN, os.path.join(out_dir, "host"), paths, wer_metric)
         torch.cuda.empty_cache()
+        family, (hd18_steps, hd18_max) = run_family_path(
+            os.path.join(out_dir, "family"), datasets)
+        torch.cuda.empty_cache()
+        kernels[0]["launches_by_path"] = {
+            "main_path": main_launches["ancestry_attention"],
+            "family_path": {n: c["ancestry_attention"]
+                            for n, c in family.items()}}
+        kernels[1]["launches_by_path"]["family_path"] = {
+            n: c["fused_fbank"] for n, c in family.items()}
+        kernels[0]["at_head_dim_18"] = measure_b1_at(
+            family_cfg("hyperconformer_8M"), hd18_steps, hd18_max)
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:

@@ -56,6 +56,20 @@
 //   would need a merge between them and buys nothing while there are
 //   several blocks an SM.
 //
+// Other head dims. The fast path above wants a power-of-two number of
+// 16-byte lanes a position, which holds for head dims 32, 64 and 128 (the
+// main path's decoder and LM, and transformer.yaml's decoder); the TPU
+// kernel takes any head dim. Every other head dim up to kMaxHeadDim goes to
+// ancestry_attention_any_kernel: a warp takes a position and its 32 lanes
+// split the head's row into vectors of VB bytes, the widest of 16, 8, 4 and
+// 2 that divides the row's bytes (so that every head's offset is aligned as
+// well: head dim 18 loads 4-byte bf16x2 pairs in bfloat16 and 8-byte pairs
+// in float32); lanes past the row load nothing and add zero, and the dot
+// product is summed over the whole warp, so the shuffles never depend on
+// the head dim. Four warps hold kAnyUnroll positions each in flight, 16 a
+// batch. It is simple and right first; its time at head dim 18 is in
+// PERF.md.
+//
 // What a later change could still take: the decode loop issues 18 of these
 // launches a step from Python, and each eager call costs the host several
 // times the kernel's device time; capturing a decode step in a CUDA graph
@@ -256,6 +270,284 @@ ancestry_attention_kernel(const T* __restrict__ q,
   }
 }
 
+// -- any head dim up to kMaxHeadDim ---------------------------------------
+
+constexpr int kMaxHeadDim = 256;
+constexpr int kAnyWarps = kThreads / 32;
+constexpr int kAnyUnroll = 4;           // positions a warp loads a batch
+constexpr int kAnyLaneElems = kMaxHeadDim / 32;  // elements a lane at most
+
+template <int VB>
+struct Raw;  // an unsigned type of VB bytes
+template <>
+struct Raw<2> { using type = unsigned short; };
+template <>
+struct Raw<4> { using type = unsigned int; };
+template <>
+struct Raw<8> { using type = uint2; };
+template <>
+struct Raw<16> { using type = uint4; };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// E = VB / sizeof(T) values of T read as one VB-byte load, widened
+template <typename T, int VB>
+__device__ __forceinline__ void widen_any(
+    const typename Raw<VB>::type& r, float* out) {
+  constexpr int E = VB / (int)sizeof(T);
+  const T* t = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int e = 0; e < E; ++e) out[e] = to_float(t[e]);
+}
+
+template <typename T, int VB>
+__global__ void __launch_bounds__(kThreads)
+ancestry_attention_any_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_cache,
+                              const T* __restrict__ v_cache,
+                              const int* __restrict__ anc,
+                              T* __restrict__ out,
+                              int K, int L, int H, int HD, int step,
+                              float scale) {
+  constexpr int E = VB / (int)sizeof(T);  // values a vector
+  constexpr int NV = kAnyLaneElems / E;   // vectors a lane at most
+  constexpr int P = kAnyWarps * kAnyUnroll;  // positions a batch
+  static_assert(E >= 1 && NV >= 1, "bad vector width");
+  static_assert(kAncChunk % P == 0, "a chunk holds whole batches");
+  using R = typename Raw<VB>::type;
+
+  __shared__ int s_anc[kAncChunk];
+  __shared__ float s_m[kAnyWarps];
+  __shared__ float s_l[kAnyWarps];
+  __shared__ float s_acc[kAnyWarps * kMaxHeadDim];
+
+  const int D = H * HD;
+  const int head = blockIdx.x % H;
+  const int bh = blockIdx.x / H;     // b * K + h
+  const int b = bh / K;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nvec = HD / E;           // vectors a row
+  const int d_head = head * HD;
+  const int* anc_row = anc + (size_t)bh * L;
+  const size_t row0 = (size_t)b * K;
+
+  // this lane's vectors of the row are lane + 32 j; those past the row
+  // hold zeros and are never loaded
+  float qf[NV][E];
+  float acc[NV][E];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = lane + 32 * j;
+    if (vi < nvec) {
+      const R r = __ldg(reinterpret_cast<const R*>(
+          q + (size_t)bh * D + d_head + vi * E));
+      widen_any<T, VB>(r, qf[j]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qf[j][e] *= scale;
+      acc[j][e] = 0.f;
+    }
+  }
+  float m = -INFINITY;
+  float l = 0.f;
+
+  for (int c0 = 0; c0 <= step; c0 += kAncChunk) {
+    const int n = min(step + 1 - c0, kAncChunk);  // positions of this chunk
+    if (c0 > 0) __syncthreads();  // the last chunk's readers are done
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      s_anc[i] = __ldg(anc_row + c0 + i);
+    }
+    __syncthreads();
+
+    // every warp runs the same number of trips; the shuffles below are
+    // executed by whole warps
+    for (int p0 = 0; p0 < n; p0 += P) {
+      R kr[kAnyUnroll][NV], vr[kAnyUnroll][NV];
+#pragma unroll
+      for (int u = 0; u < kAnyUnroll; ++u) {
+        const int i = p0 + warp + kAnyWarps * u;
+        if (i < n) {
+          const size_t off =
+              ((row0 + s_anc[i]) * (size_t)L + (size_t)(c0 + i)) * D +
+              d_head;
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            const int vi = lane + 32 * j;
+            if (vi < nvec) {
+              kr[u][j] = __ldg(reinterpret_cast<const R*>(
+                  k_cache + off + vi * E));
+              vr[u][j] = __ldg(reinterpret_cast<const R*>(
+                  v_cache + off + vi * E));
+            }
+          }
+        }
+      }
+      float sc[kAnyUnroll];
+#pragma unroll
+      for (int u = 0; u < kAnyUnroll; ++u) {
+        float s = 0.f;
+        if (p0 + warp + kAnyWarps * u < n) {
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            if (lane + 32 * j < nvec) {
+              float kf[E];
+              widen_any<T, VB>(kr[u][j], kf);
+#pragma unroll
+              for (int e = 0; e < E; ++e) s = fmaf(qf[j][e], kf[e], s);
+            }
+          }
+        }
+        sc[u] = s;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kAnyUnroll; ++u) {
+          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
+        }
+      }
+      // positions p0 + warp + kAnyWarps u rise with u: a warp whose first
+      // is past the chunk has none in this batch
+      if (p0 + warp < n) {
+        float mb = sc[0];
+#pragma unroll
+        for (int u = 1; u < kAnyUnroll; ++u) {
+          if (p0 + warp + kAnyWarps * u < n) mb = fmaxf(mb, sc[u]);
+        }
+        const float m_new = fmaxf(m, mb);
+        const float corr = expf(m - m_new);  // exp(-inf) = 0 on the first
+        l *= corr;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[j][e] *= corr;
+        }
+#pragma unroll
+        for (int u = 0; u < kAnyUnroll; ++u) {
+          if (p0 + warp + kAnyWarps * u < n) {
+            const float p = expf(sc[u] - m_new);
+            l += p;
+#pragma unroll
+            for (int j = 0; j < NV; ++j) {
+              if (lane + 32 * j < nvec) {
+                float vf[E];
+                widen_any<T, VB>(vr[u][j], vf);
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                  acc[j][e] = fmaf(p, vf[e], acc[j][e]);
+                }
+              }
+            }
+          }
+        }
+        m = m_new;
+      }
+    }
+  }
+
+  if (lane == 0) {
+    s_m[warp] = m;
+    s_l[warp] = l;
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = lane + 32 * j;
+    if (vi < nvec) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        s_acc[warp * kMaxHeadDim + vi * E + e] = acc[j][e];
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float m_all = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kAnyWarps; ++w) m_all = fmaxf(m_all, s_m[w]);
+    float l_all = 0.f;
+    float o_all = 0.f;
+#pragma unroll
+    for (int w = 0; w < kAnyWarps; ++w) {
+      // a warp that saw no position has m = -inf and weighs nothing;
+      // position 0 is always valid, so m_all is finite
+      const float wt = expf(s_m[w] - m_all);
+      l_all = fmaf(s_l[w], wt, l_all);
+      o_all = fmaf(s_acc[w * kMaxHeadDim + d], wt, o_all);
+    }
+    out[(size_t)bh * D + d_head + d] = Vec16<T>::to(o_all / l_all);
+  }
+}
+
+// the widest of 16, 8, 4, 2 bytes that divides a row of hd values of T,
+// and so every head's offset too; at least one value of T
+template <typename T>
+int vector_bytes(int hd) {
+  const int bytes = hd * (int)sizeof(T);
+  for (int vb = 16; vb > (int)sizeof(T); vb /= 2) {
+    if (bytes % vb == 0) return vb;
+  }
+  return (int)sizeof(T);
+}
+
+template <typename T, int VB>
+int launch_any(const void* q, const void* k, const void* v, const void* anc,
+               void* out, int B, int K, int L, int H, int hd, int step,
+               float scale, cudaStream_t stream) {
+  const dim3 grid((unsigned)(B * K * H));
+  ancestry_attention_any_kernel<T, VB><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)anc, (T*)out, K, L,
+      H, hd, step, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_any_width(const void* q, const void* k, const void* v,
+                     const void* anc, void* out, int B, int K, int L, int H,
+                     int hd, int step, float scale, cudaStream_t stream);
+
+template <>
+int launch_any_width<float>(const void* q, const void* k, const void* v,
+                            const void* anc, void* out, int B, int K, int L,
+                            int H, int hd, int step, float scale,
+                            cudaStream_t stream) {
+  switch (vector_bytes<float>(hd)) {
+    case 16: return launch_any<float, 16>(q, k, v, anc, out, B, K, L, H, hd,
+                                          step, scale, stream);
+    case 8: return launch_any<float, 8>(q, k, v, anc, out, B, K, L, H, hd,
+                                        step, scale, stream);
+    default: return launch_any<float, 4>(q, k, v, anc, out, B, K, L, H, hd,
+                                         step, scale, stream);
+  }
+}
+
+template <>
+int launch_any_width<__nv_bfloat16>(const void* q, const void* k,
+                                    const void* v, const void* anc, void* out,
+                                    int B, int K, int L, int H, int hd,
+                                    int step, float scale,
+                                    cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  switch (vector_bytes<bf>(hd)) {
+    case 16: return launch_any<bf, 16>(q, k, v, anc, out, B, K, L, H, hd,
+                                       step, scale, stream);
+    case 8: return launch_any<bf, 8>(q, k, v, anc, out, B, K, L, H, hd, step,
+                                     scale, stream);
+    case 4: return launch_any<bf, 4>(q, k, v, anc, out, B, K, L, H, hd, step,
+                                     scale, stream);
+    default: return launch_any<bf, 2>(q, k, v, anc, out, B, K, L, H, hd,
+                                      step, scale, stream);
+  }
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* anc,
            void* out, int B, int K, int L, int H, int hd, int step,
@@ -270,7 +562,10 @@ int launch(const void* q, const void* k, const void* v, const void* anc,
     case 32: SB_LAUNCH(32); break;
     case 64: SB_LAUNCH(64); break;
     case 128: SB_LAUNCH(128); break;
-    default: return -1;
+    default:
+      if (hd < 1 || hd > kMaxHeadDim) return -1;
+      return launch_any_width<T>(q, k, v, anc, out, B, K, L, H, hd, step,
+                                 scale, stream);
   }
 #undef SB_LAUNCH
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
-"""Sequence-to-sequence decoding: batched beam search (port of the
-beam-search part of ``speechbrain_tpu/decoders/seq2seq.py``).
+"""Sequence-to-sequence decoding: greedy and batched beam search (port of
+``speechbrain_tpu/decoders/seq2seq.py`` without its RNN and Whisper
+searchers).
 
-The JAX package compiles the search into one ``lax.while_loop``; here it
+The JAX package compiles a search into one ``lax.while_loop``; here it
 is a Python loop over decode steps with the same early exit, and ``step``
 is a Python int handed to the model. Hypothesis memories (decoder KV /
 scorer state) are nested dicts and lists of tensors with leading dim
@@ -83,6 +84,94 @@ class S2SBaseSearcher:
 
     def change_max_decoding_length(self, min_decode_steps, max_decode_steps):
         return min_decode_steps, max_decode_steps
+
+
+def _check_device(device, enc_states):
+    if enc_states.device.type != device.type:
+        raise ValueError(
+            f"this searcher runs on {device}, but the encoder states lie "
+            f"on {enc_states.device}"
+        )
+
+
+class S2SGreedySearcher(S2SBaseSearcher):
+    """Greedy decoding with finished masking: a finished row only appends
+    eos and adds nothing to its score. The loop stops once every row has
+    finished (one host synchronisation a step), which is the same as running
+    out the bound: the buffers after it hold what the masked steps would
+    have written (eos, zero log-probabilities).
+
+    Returns (hyps, lengths, scores, log_probs): hyps a list of Python lists
+    cut at the first eos, numpy lengths and scores, and the step log-probs
+    (B, max_steps, V) as numpy.
+    """
+
+    def __init__(self, bos_index, eos_index, min_decode_ratio=0.0,
+                 max_decode_ratio=1.0, device="cuda"):
+        super().__init__(
+            bos_index, eos_index, min_decode_ratio, max_decode_ratio
+        )
+        self.device = torch.device(device)
+        # number of decode steps the last call ran (before the early exit)
+        self.last_steps = 0
+
+    @torch.no_grad()
+    def __call__(self, enc_states, wav_len):
+        _check_device(self.device, enc_states)
+        B, T = enc_states.shape[0], enc_states.shape[1]
+        max_steps = max(1, int(T * self.max_decode_ratio))
+        _, max_steps = self.change_max_decoding_length(0, max_steps)
+        dev = enc_states.device
+        memory = self.reset_mem(B, enc_states, wav_len)
+        tokens = torch.full(
+            (B,), self.bos_index, dtype=torch.int32, device=dev
+        )
+        finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+        scores = torch.zeros((B,), device=dev)
+        tokens_seq = torch.full(
+            (max_steps, B), self.eos_index, dtype=torch.int32, device=dev
+        )
+        lp_seq = None
+        step = 0
+        while step < max_steps and not bool(finished.all()):
+            log_probs, memory, _ = self.forward_step(
+                tokens, memory, enc_states, wav_len, step
+            )
+            log_probs = log_probs.float()
+            if lp_seq is None:
+                lp_seq = log_probs.new_zeros(
+                    (max_steps, B, log_probs.shape[-1])
+                )
+            step_scores, next_tokens = log_probs.max(dim=-1)
+            next_tokens = torch.where(
+                finished, self.eos_index, next_tokens.to(torch.int32)
+            )
+            scores = scores + torch.where(finished, 0.0, step_scores)
+            finished = finished | (next_tokens == self.eos_index)
+            tokens_seq[step] = next_tokens
+            lp_seq[step] = log_probs
+            tokens = next_tokens
+            step += 1
+        self.last_steps = step
+        hyps, lengths = _trim_eos_batch(
+            tokens_seq.t().cpu().numpy(), self.eos_index
+        )
+        return (
+            hyps, lengths, scores.cpu().numpy(),
+            lp_seq.transpose(0, 1).cpu().numpy(),
+        )
+
+
+def _trim_eos_batch(tokens, eos_index):
+    """Cut each row of a (B, L) numpy array at its first eos."""
+    hyps, lengths = [], []
+    for row in tokens:
+        row = row.tolist()
+        if eos_index in row:
+            row = row[: row.index(eos_index)]
+        hyps.append(row)
+        lengths.append(len(row))
+    return hyps, np.asarray(lengths)
 
 
 class S2SBeamSearcher(S2SBaseSearcher):
@@ -168,11 +257,7 @@ class S2SBeamSearcher(S2SBaseSearcher):
     # -- main entry ---------------------------------------------------------
     @torch.no_grad()
     def __call__(self, enc_states, wav_len):
-        if enc_states.device.type != self.device.type:
-            raise ValueError(
-                f"this searcher runs on {self.device}, but the encoder "
-                f"states lie on {enc_states.device}"
-            )
+        _check_device(self.device, enc_states)
         B, T = enc_states.shape[0], enc_states.shape[1]
         min_steps = int(T * self.min_decode_ratio)
         max_steps = max(1, int(T * self.max_decode_ratio))
@@ -417,6 +502,54 @@ class S2SBeamSearcher(S2SBaseSearcher):
 
 
 # ---------------------------------------------------------------------------
+# Searchers that re-decode the whole token buffer every step
+# ---------------------------------------------------------------------------
+
+class _TokenBufferMixin:
+    """The memory is a (N, max_length) token buffer, eos-filled, that starts
+    with bos; each step writes the consumed token at position ``step`` and
+    runs ``decode_fn(buffer, enc_states, enc_lens)`` -> (log-probs of every
+    position (N, max_length, V), attention) over the whole buffer, reading
+    position ``step``. Simple and O(L^2) a search: a cheap decode for a
+    valid stage."""
+
+    def reset_mem(self, batch_size, enc_states, enc_lens):
+        buf = torch.full(
+            (batch_size, self.max_length), self.eos_index,
+            dtype=torch.int32, device=enc_states.device,
+        )
+        buf[:, 0] = self.bos_index
+        return {"tokens": buf}
+
+    def forward_step(self, inp_tokens, memory, enc_states, enc_lens, step):
+        buf = memory["tokens"].clone()
+        buf[:, step] = inp_tokens
+        log_probs_all, attn = self.decode_fn(buf, enc_states, enc_lens)
+        return log_probs_all[:, step], {"tokens": buf}, attn
+
+
+class S2STransformerGreedySearcher(_TokenBufferMixin, S2SGreedySearcher):
+    """Greedy search over a TransformerASR decode half (see
+    ``_TokenBufferMixin``)."""
+
+    def __init__(self, decode_fn, vocab_size, max_length=512, **kwargs):
+        super().__init__(**kwargs)
+        self.decode_fn = decode_fn
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+
+
+class S2STransformerBeamSearcher(_TokenBufferMixin, S2SBeamSearcher):
+    """Beam search over TransformerASR.decode (see ``_TokenBufferMixin``);
+    the token buffer is permuted with the beams."""
+
+    def __init__(self, decode_fn, max_length=512, **kwargs):
+        super().__init__(**kwargs)
+        self.decode_fn = decode_fn
+        self.max_length = max_length
+
+
+# ---------------------------------------------------------------------------
 # KV-cached searchers: O(L) per decode step via explicit per-layer K/V
 # buffers instead of re-running the decoder over the whole token buffer
 # (the serving-speed path; pairs with TransformerASR.decode_step)
@@ -492,6 +625,14 @@ class _KVDecodeMixin:
         return self.decode_step_fn(
             inp_tokens, memory, enc_states, enc_lens, step
         )
+
+
+class S2SKVGreedySearcher(_KVDecodeMixin, S2SGreedySearcher):
+    """Greedy decoding over a KV-cached decode step."""
+
+    def __init__(self, decode_step_fn, init_cache_fn, **kwargs):
+        S2SGreedySearcher.__init__(self, **kwargs)
+        self._setup_kv(decode_step_fn, init_cache_fn)
 
 
 class S2SKVBeamSearcher(_KVDecodeMixin, S2SBeamSearcher):

@@ -1,4 +1,4 @@
-"""Conformer encoder (port of the full-context arm of
+"""Conformer encoder and decoder (port of the full-context arm of
 ``speechbrain_tpu/lobes/models/transformer/Conformer.py``; the dynamic
 chunk and streaming paths are not ported yet).
 """
@@ -8,7 +8,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
+    TransformerDecoder,
     _make_attention,
+    run_layer,
 )
 from speechbrain_tpu_torch.nnet.activations import swish
 from speechbrain_tpu_torch.nnet.attention import PositionalwiseFeedForward
@@ -115,6 +117,10 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Stack of Conformer layers with a final eps-1e-6 LayerNorm.
 
+    ``remat=True`` recomputes each layer in the backward pass
+    (``Transformer.run_layer``: ``torch.utils.checkpoint``, dropout masks
+    replayed).
+
     Example
     -------
     >>> enc = ConformerEncoder(num_layers=2, d_model=32, d_ffn=64, nhead=4,
@@ -126,9 +132,10 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, num_layers, d_model, d_ffn, nhead, kernel_size=31,
                  activation="swish", bias=True, dropout=0.0, causal=False,
-                 attention_type="RelPosMHAXL", device="cuda",
+                 attention_type="RelPosMHAXL", remat=False, device="cuda",
                  dtype=torch.float32, generator=None):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             ConformerEncoderLayer(
                 d_model=d_model, d_ffn=d_ffn, nhead=nhead,
@@ -146,8 +153,45 @@ class ConformerEncoder(nn.Module):
         output = src
         attns = []
         for layer in self.layers:
-            output, attn = layer(
-                output, src_mask, src_key_padding_mask, pos_embs
+            output, attn = run_layer(
+                layer, self.remat, output, src_mask, src_key_padding_mask,
+                pos_embs,
             )
             attns.append(attn)
         return self.norm(output), attns
+
+
+class ConformerDecoder(nn.Module):
+    """Conformer-style decoder: a ``TransformerDecoder`` (``dec``) of
+    post-norm layers with the swish activation (the JAX package's
+    ``kernel_size`` field, which it never reads, is not taken). Returns
+    (out, self-attention weights, cross-attention weights).
+
+    Example
+    -------
+    >>> dec = ConformerDecoder(num_layers=1, d_model=16, d_ffn=32, nhead=2,
+    ...                        device="cpu")
+    >>> out, _, _ = dec(torch.ones(2, 5, 16), torch.ones(2, 7, 16))
+    >>> out.shape
+    torch.Size([2, 5, 16])
+    """
+
+    def __init__(self, num_layers, d_model, d_ffn, nhead, dropout=0.0,
+                 activation="swish",
+                 attention_type="regularMHA", device="cuda",
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.dec = TransformerDecoder(
+            num_layers=num_layers, nhead=nhead, d_ffn=d_ffn, d_model=d_model,
+            dropout=dropout, activation=activation,
+            attention_type=attention_type, device=device, dtype=dtype,
+            generator=generator,
+        )
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                pos_embs_tgt=None, pos_embs_src=None):
+        return self.dec(
+            tgt, memory, tgt_mask, memory_mask, tgt_key_padding_mask,
+            memory_key_padding_mask, pos_embs_tgt, pos_embs_src,
+        )

@@ -1,6 +1,5 @@
 """Transformer encoder/decoder core (port of
-``speechbrain_tpu/lobes/models/transformer/Transformer.py`` without its
-RoPE, hypermixing and 1-D-CNN-FFN arms).
+``speechbrain_tpu/lobes/models/transformer/Transformer.py``).
 
 Incremental decoding keeps an explicit cache: a list with one
 ``{"self": {"k", "v"}[, "cross": {"k", "v"}]}`` dict per layer. The
@@ -14,13 +13,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from speechbrain_tpu_torch.nnet.attention import (
     MultiheadAttention,
     PositionalwiseFeedForward,
     RelPosMHAXL,
+    RoPEMHA,
 )
+from speechbrain_tpu_torch.nnet.CNN import Conv1d
 from speechbrain_tpu_torch.nnet.embedding import Embedding
+from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing
 from speechbrain_tpu_torch.nnet.normalization import LayerNorm
 
 # KV caches are allocated in whole multiples of this many positions, as in
@@ -100,9 +103,29 @@ def _make_attention(attention_type, d_model, nhead, dropout, **kw):
         return RelPosMHAXL(
             embed_dim=d_model, num_heads=nhead, dropout=dropout, **kw
         )
-    raise ValueError(
-        f"attention_type {attention_type!r} is unknown or not ported yet"
-    )
+    if attention_type == "RoPEMHA":
+        return RoPEMHA(nhead=nhead, d_model=d_model, dropout=dropout, **kw)
+    if attention_type == "hypermixing":
+        # token mixing in place of attention (the HyperConformer and
+        # HyperBranchformer configurations)
+        return HyperMixing(
+            input_output_dim=d_model, hypernet_size=d_model * 4,
+            num_heads=nhead, tied=False, **kw,
+        )
+    raise ValueError(f"Unknown attention_type {attention_type}")
+
+
+def run_layer(layer, remat, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is
+    set and a gradient is being recorded: the layer's activations are
+    recomputed in the backward pass instead of kept (the counterpart of the
+    JAX package's ``nn.remat``). Non-reentrant, and the random state is
+    replayed, so dropout draws the same masks in the recomputation."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(
+            layer, *args, use_reentrant=False, preserve_rng_state=True
+        )
+    return layer(*args)
 
 
 def _init_cache(num_layers, batch_size, max_len, d_model, device, dtype):
@@ -123,10 +146,15 @@ def _init_cache(num_layers, batch_size, max_len, d_model, device, dtype):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Self-attention + FFN with pre/post-norm."""
+    """Self-attention + FFN with pre/post-norm.
+
+    ``ffn_type="1dcnn"`` replaces the linear FFN with two 'same' 1-D
+    convolutions (reflect padding) of kernel sizes
+    ``ffn_cnn_kernel_size_list`` with a ReLU between them."""
 
     def __init__(self, d_ffn, nhead, d_model, dropout=0.0, activation="relu",
                  normalize_before=False, attention_type="regularMHA",
+                 ffn_type="regularFFN", ffn_cnn_kernel_size_list=(3, 3),
                  device="cuda", dtype=torch.float32, generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -135,10 +163,19 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = _make_attention(
             attention_type, d_model, nhead, dropout, **kw
         )
-        self.ffn = PositionalwiseFeedForward(
-            d_ffn=d_ffn, input_size=d_model, dropout=dropout,
-            activation=activation, **kw,
-        )
+        self.ffn = self.ffn_conv1 = self.ffn_conv2 = None
+        if ffn_type == "1dcnn":
+            self.ffn_conv1 = Conv1d(
+                d_ffn, ffn_cnn_kernel_size_list[0], in_channels=d_model, **kw
+            )
+            self.ffn_conv2 = Conv1d(
+                d_model, ffn_cnn_kernel_size_list[1], in_channels=d_ffn, **kw
+            )
+        else:
+            self.ffn = PositionalwiseFeedForward(
+                d_ffn=d_ffn, input_size=d_model, dropout=dropout,
+                activation=activation, **kw,
+            )
         self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
 
@@ -165,7 +202,10 @@ class TransformerEncoderLayer(nn.Module):
         if not self.normalize_before:
             src = self.norm1(src)
         src1 = self.norm2(src) if self.normalize_before else src
-        out = self.ffn(src1)
+        if self.ffn is None:
+            out = self.ffn_conv2(F.relu(self.ffn_conv1(src1)))
+        else:
+            out = self.ffn(src1)
         src = src + F.dropout(out, self.dropout, self.training)
         if not self.normalize_before:
             src = self.norm2(src)
@@ -176,20 +216,28 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers with a final eps-1e-6 LayerNorm, applied
-    whether or not the layers are pre-norm."""
+    whether or not the layers are pre-norm.
+
+    ``remat=True`` recomputes each layer in the backward pass
+    (:func:`run_layer`). ``layerdrop_prob`` is taken and not read, as in
+    the JAX package: no layer is ever dropped."""
 
     def __init__(self, num_layers, nhead, d_ffn, d_model, dropout=0.0,
                  activation="relu", normalize_before=False,
-                 attention_type="regularMHA", device="cuda",
+                 attention_type="regularMHA", layerdrop_prob=0.0,
+                 remat=False, ffn_type="regularFFN",
+                 ffn_cnn_kernel_size_list=(3, 3), device="cuda",
                  dtype=torch.float32, generator=None):
         super().__init__()
         self.d_model = d_model
+        self.remat = remat
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(
                 d_ffn=d_ffn, nhead=nhead, d_model=d_model, dropout=dropout,
                 activation=activation, normalize_before=normalize_before,
-                attention_type=attention_type, device=device, dtype=dtype,
-                generator=generator,
+                attention_type=attention_type, ffn_type=ffn_type,
+                ffn_cnn_kernel_size_list=ffn_cnn_kernel_size_list,
+                device=device, dtype=dtype, generator=generator,
             )
             for _ in range(num_layers)
         ])
@@ -205,8 +253,9 @@ class TransformerEncoder(nn.Module):
                     output, cache=cache[i], cache_index=cache_index, anc=anc
                 )
             else:
-                output, attn = layer(
-                    output, src_mask, src_key_padding_mask, pos_embs
+                output, attn = run_layer(
+                    layer, self.remat, output, src_mask,
+                    src_key_padding_mask, pos_embs,
                 )
                 attns.append(attn)
         output = self.norm(output)

@@ -1,14 +1,22 @@
 """Encoder-decoder Transformer/Conformer ASR wrapper and its
 ``EncoderWrapper`` (port of
 ``speechbrain_tpu/lobes/models/transformer/TransformerASR.py`` without its
-dynamic-chunk, streaming and Branchformer arms): joins an input
-projection, a Transformer or Conformer encoder and a Transformer decoder,
+dynamic-chunk and streaming arms): joins an input projection, a
+Transformer, Conformer or Branchformer encoder and a Transformer decoder,
 building the padding and causal masks from relative lengths.
+
+Positions: with ``RelPosMHAXL`` the encoder reads relative position
+embeddings and the source gets no absolute encoding; with any other
+attention (``RoPEMHA`` and ``hypermixing`` included) the absolute sine
+encoding is added to the source, as in the JAX package.
 """
 
 import torch
 import torch.nn as nn
 
+from speechbrain_tpu_torch.lobes.models.Branchformer import (
+    BranchformerEncoder,
+)
 from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
     ConformerEncoder,
 )
@@ -64,11 +72,13 @@ class TransformerASR(nn.Module):
                  positional_encoding="fixed_abs_sine", normalize_before=False,
                  kernel_size=31, bias=True, encoder_module="transformer",
                  attention_type="regularMHA", max_length=2500, causal=False,
-                 device="cuda", dtype=torch.float32, generator=None):
+                 encoder_remat=False, device="cuda", dtype=torch.float32,
+                 generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.d_model = d_model
         self.attention_type = attention_type
+        self.encoder_module = encoder_module
         self.custom_src_module = Linear(d_model, input_size, **kw)
         # no decoder, no target embedding (the JAX module's tree has none)
         self.custom_tgt_module = NormalizedEmbedding(
@@ -87,20 +97,26 @@ class TransformerASR(nn.Module):
                 num_layers=num_encoder_layers, d_model=d_model, d_ffn=d_ffn,
                 nhead=nhead, kernel_size=kernel_size, bias=bias,
                 dropout=dropout, causal=causal,
-                attention_type=attention_type, **kw,
+                attention_type=attention_type, remat=encoder_remat, **kw,
+            )
+        elif encoder_module == "branchformer":
+            # the JAX package does not hand encoder_remat to its
+            # branchformer (ROADMAP.md C27); values are the same either way
+            self.encoder = BranchformerEncoder(
+                num_layers=num_encoder_layers, d_model=d_model, nhead=nhead,
+                kernel_size=kernel_size, attention_type=attention_type,
+                csgu_linear_units=d_ffn, dropout=dropout,
+                remat=encoder_remat, **kw,
             )
         elif encoder_module == "transformer":
             self.encoder = TransformerEncoder(
                 num_layers=num_encoder_layers, nhead=nhead, d_ffn=d_ffn,
                 d_model=d_model, dropout=dropout, activation=activation,
                 normalize_before=normalize_before,
-                attention_type=attention_type, **kw,
+                attention_type=attention_type, remat=encoder_remat, **kw,
             )
         else:
-            raise ValueError(
-                f"encoder_module {encoder_module!r} is unknown or not "
-                "ported yet"
-            )
+            raise ValueError(f"Unknown encoder_module {encoder_module}")
         self.decoder = None
         if num_decoder_layers > 0:
             self.decoder = TransformerDecoder(
@@ -126,6 +142,18 @@ class TransformerASR(nn.Module):
             src = src + self.pos_enc(src)
         return src, pos_embs
 
+    def _encode(self, src, src_mask, src_key_padding_mask, pos_embs):
+        # a branchformer has no attention mask (full context)
+        if self.encoder_module == "branchformer":
+            return self.encoder(
+                src, src_key_padding_mask=src_key_padding_mask,
+                pos_embs=pos_embs,
+            )
+        return self.encoder(
+            src, src_mask=src_mask,
+            src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+        )
+
     def _memory_mask(self, encoder_out, enc_len):
         if enc_len is None:
             return None
@@ -137,9 +165,8 @@ class TransformerASR(nn.Module):
         src_key_padding_mask, _, src_mask, _ = make_transformer_src_tgt_masks(
             src, None, wav_len, pad_idx
         )
-        enc_out, _ = self.encoder(
-            src, src_mask=src_mask,
-            src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+        enc_out, _ = self._encode(
+            src, src_mask, src_key_padding_mask, pos_embs
         )
         return enc_out
 
@@ -200,9 +227,8 @@ class TransformerASR(nn.Module):
             src_mask,
             tgt_mask,
         ) = make_transformer_src_tgt_masks(src_proj, tgt, wav_len, pad_idx)
-        enc_out, _ = self.encoder(
-            src_proj, src_mask=src_mask,
-            src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+        enc_out, _ = self._encode(
+            src_proj, src_mask, src_key_padding_mask, pos_embs
         )
         if self.decoder is None or tgt is None:
             return enc_out, None

@@ -71,6 +71,20 @@ class TransformerLM(nn.Module):
         out, _ = self.encoder(emb, src_mask=mask)
         return self._head(out)
 
+    def embed_tokens(self, ids):
+        """Token ids -> model-space embeddings (the hook through which a
+        caller puts other embeddings, audio for one, in the same space)."""
+        return self._embed(ids)
+
+    def forward_embeds(self, embeds):
+        """The causal LM over a PRE-EMBEDDED sequence (B, T, d_model) ->
+        (B, T, vocab) logits, for a stream the caller has put together
+        from ``embed_tokens`` and other embeddings."""
+        emb = embeds + self.pos(embeds)
+        mask = get_lookahead_mask(embeds.shape[1], embeds.device)
+        out, _ = self.encoder(emb, src_mask=mask)
+        return self._head(out)
+
     def init_cache(self, batch_size, max_len, dtype=None):
         """Per-layer KV buffers for incremental scoring (score_step)."""
         return self.encoder.init_cache(batch_size, max_len, dtype)

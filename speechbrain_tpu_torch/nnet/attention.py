@@ -1,7 +1,8 @@
 """Attention mechanisms (port of the transformer-family part of
 ``speechbrain_tpu/nnet/attention.py``): ``MultiheadAttention`` in its five
-call modes, ``PositionalwiseFeedForward``, ``RelPosEncXL`` and
-``RelPosMHAXL``.
+call modes, ``PositionalwiseFeedForward``, ``RelPosEncXL``,
+``RelPosMHAXL`` and rotary position embeddings (``rope_sincos``,
+``apply_rope``, ``RoPEMHA``).
 
 Masks are additive biases built from bool masks (True = masked). In
 incremental decoding the K/V cache buffers are updated IN PLACE (the JAX
@@ -350,3 +351,95 @@ class RelPosMHAXL(nn.Module):
         out = torch.matmul(weights, v.transpose(1, 2))  # (B, H, Tq, hd)
         out = out.transpose(1, 2).reshape(B, Tq, self.embed_dim)
         return self.out_proj(out), weights.mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_sincos(T, dim, base=10000.0):
+    """RoPE (sin, cos) tables (T, dim/2) as numpy float32 arrays."""
+    inv_freq = 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    t = np.arange(T, dtype=np.float32)[:, None]
+    ang = t * inv_freq[None, :]
+    return np.sin(ang).astype(np.float32), np.cos(ang).astype(np.float32)
+
+
+def apply_rope(x, sin, cos, offset=0):
+    """Rotate the INTERLEAVED channel pairs (0, 1), (2, 3), ... of
+    (B, T, H, D) ``x`` by the angles of positions ``offset`` to
+    ``offset + T`` (tables (>= offset + T, D/2) on x's device)."""
+    T = x.shape[1]
+    sin_t = sin[offset: offset + T][None, :, None, :].to(x.dtype)
+    cos_t = cos[offset: offset + T][None, :, None, :].to(x.dtype)
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    rot1 = x1 * cos_t - x2 * sin_t
+    rot2 = x2 * cos_t + x1 * sin_t
+    return torch.stack([rot1, rot2], dim=-1).reshape(x.shape)
+
+
+class RoPEMHA(nn.Module):
+    """Multi-head attention with rotary position embeddings on queries and
+    keys (both indexed from position 0), the RoPE-Conformer's MHSA. Returns
+    (output, weights averaged over heads).
+
+    The tables span ``max(max_len, Tk)`` positions; they are built once per
+    length and device and kept.
+
+    Example
+    -------
+    >>> mha = RoPEMHA(nhead=4, d_model=32, device="cpu")
+    >>> x = torch.ones(2, 10, 32)
+    >>> out, w = mha(x, x, x)
+    >>> out.shape, w.shape
+    (torch.Size([2, 10, 32]), torch.Size([2, 10, 10]))
+    """
+
+    def __init__(self, nhead, d_model, dropout=0.0, max_len=8192,
+                 rope_base=10000.0, device="cuda", dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        if d_model % nhead:
+            raise ValueError("d_model must be a multiple of nhead")
+        self.nhead = nhead
+        self.d_model = d_model
+        self.dropout = dropout
+        self.max_len = max_len
+        self.rope_base = rope_base
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.q_proj = Linear(d_model, d_model, **kw)
+        self.k_proj = Linear(d_model, d_model, **kw)
+        self.v_proj = Linear(d_model, d_model, **kw)
+        self.out_proj = Linear(d_model, d_model, **kw)
+        self._tables = {}
+
+    def _sincos(self, T, device):
+        key = (T, str(device))
+        if key not in self._tables:
+            sin, cos = rope_sincos(
+                T, self.d_model // self.nhead, self.rope_base
+            )
+            self._tables[key] = (
+                torch.from_numpy(sin).to(device),
+                torch.from_numpy(cos).to(device),
+            )
+        return self._tables[key]
+
+    def forward(self, query, key, value, attn_mask=None,
+                key_padding_mask=None, pos_embs=None):
+        B, Tq, _ = query.shape
+        Tk = key.shape[1]
+        H, hd = self.nhead, self.d_model // self.nhead
+        sin, cos = self._sincos(max(self.max_len, Tk), query.device)
+        q = self.q_proj(query).reshape(B, Tq, H, hd)
+        k = self.k_proj(key).reshape(B, Tk, H, hd)
+        v = self.v_proj(value).reshape(B, Tk, H, hd)
+        q = apply_rope(q, sin, cos).transpose(1, 2)
+        k = apply_rope(k, sin, cos).transpose(1, 2)
+        bias = make_mask_bias(key_padding_mask, attn_mask, q.dtype)
+        out, w = scaled_dot_product_attention(
+            q, k, v.transpose(1, 2), bias, self.dropout, self.training
+        )
+        out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
+        return self.out_proj(out), w.mean(dim=1)

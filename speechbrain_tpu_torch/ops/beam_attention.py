@@ -12,7 +12,9 @@ Attention through the indirection is a hand-written CUDA kernel
 (``csrc/beam_attention.cu``): a block owns one (utterance, hypothesis,
 head), stages its ancestry entries in shared memory with one coalesced load,
 then gathers each K/V row directly, the loads of many positions in flight at
-once.
+once. Head dims 32, 64 and 128 have a fast instantiation each; every other
+head dim up to ``MAX_HEAD_DIM`` goes to a general one that reads the rows in
+the widest vectors that divide them.
 ``ancestry_attention_reference`` is the plain PyTorch version of the same
 function; the wrapper takes it only for tensors that lie on the CPU.
 """
@@ -26,8 +28,10 @@ from speechbrain_tpu_torch.ops._build import load_library
 
 NEG_INF = -1e30
 
-# head dims the CUDA kernel is instantiated for
+# head dims with a fast instantiation of the CUDA kernel; every other head
+# dim up to MAX_HEAD_DIM takes the general one (the JAX kernel takes any)
 KERNEL_HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # number of kernel launches made by this process (the plain version does
@@ -38,12 +42,17 @@ launches = 0
 # stages the ancestry entries ANCESTRY_CHUNK at a time, and loads the K/V
 # rows of kernel_batch_positions(hd, dtype) positions a batch.
 ANCESTRY_CHUNK = 1024
+# positions a batch of the general instantiation: four warps, a position a
+# warp, four positions a warp
+GENERAL_BATCH_POSITIONS = 16
 
 
 def kernel_batch_positions(hd, dtype):
-    """Positions in one batch of the kernel's K/V loads: a block of 128
-    threads, ``hd * itemsize / 16`` lanes a position, four positions a lane
-    group."""
+    """Positions in one batch of the kernel's K/V loads. The fast head
+    dims: a block of 128 threads, ``hd * itemsize / 16`` lanes a position,
+    four positions a lane group. Any other: ``GENERAL_BATCH_POSITIONS``."""
+    if hd not in KERNEL_HEAD_DIMS:
+        return GENERAL_BATCH_POSITIONS
     lanes = hd * (torch.finfo(dtype).bits // 8) // 16
     return 128 // lanes * 4
 
@@ -107,10 +116,10 @@ def _ancestry_attention_cuda(q, k_cache, v_cache, anc, step):
             f"the ancestry attention kernel takes float32 and bfloat16, "
             f"not {q.dtype}"
         )
-    if hd not in KERNEL_HEAD_DIMS:
+    if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(
-            f"the ancestry attention kernel takes head dims "
-            f"{KERNEL_HEAD_DIMS}, not {hd}"
+            f"the ancestry attention kernel takes head dims 1 to "
+            f"{MAX_HEAD_DIM}, not {hd}"
         )
     if H * hd != D:
         raise ValueError(f"cache width {D} is not H*hd = {H}*{hd}")

@@ -13,7 +13,11 @@ the way:
 * ``LayerNorm``: ``scale``/``bias``, found inside flax's nested
   ``LayerNorm_0`` scope where the JAX module wraps ``nn.LayerNorm``;
 * attention blocks: ``q_proj/k_proj/v_proj/out_proj`` (+ ``pos_proj``,
-  ``pos_bias_u/v``), kept as separate projections.
+  ``pos_bias_u/v``), kept as separate projections; ``HyperMixing``:
+  ``hyper/w1_gen``, ``hyper/w2_gen``, ``out_proj``;
+* Branchformer layers: ``norm_attn``, the attention, ``norm_conv``,
+  ``cgmlp/up``, ``cgmlp/csgu/norm``, ``cgmlp/csgu/dw_conv``, ``cgmlp/down``,
+  ``merge``; the stack's ``norm_out``.
 
 A key that a module needs and the tree lacks, or one the tree holds and no
 module takes, raises ``KeyError``.
@@ -22,8 +26,15 @@ module takes, raises ``KeyError``.
 import numpy as np
 import torch
 
+from speechbrain_tpu_torch.lobes.models.Branchformer import (
+    BranchformerEncoder,
+    BranchformerEncoderLayer,
+    ConvolutionalSpatialGatingUnit,
+    ConvolutionBranch,
+)
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+    ConformerDecoder,
     ConformerEncoder,
     ConformerEncoderLayer,
     ConvolutionModule,
@@ -45,14 +56,17 @@ from speechbrain_tpu_torch.nnet.attention import (
     MultiheadAttention,
     PositionalwiseFeedForward,
     RelPosMHAXL,
+    RoPEMHA,
 )
 from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d
 from speechbrain_tpu_torch.nnet.embedding import Embedding
+from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing, HyperNetwork
 from speechbrain_tpu_torch.nnet.linear import Linear
 from speechbrain_tpu_torch.nnet.normalization import LayerNorm
 
 # names flax gives the unnamed attention submodule of a compact layer
-_FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0")
+_FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0",
+                          "RoPEMHA_0", "HyperMixing_0")
 
 
 class _Scope:
@@ -152,6 +166,18 @@ def load_relpos_mha(module, scope):
     scope.done()
 
 
+def load_hypernetwork(module, scope):
+    load(module.w1_gen, scope.sub("w1_gen"))
+    if module.w2_gen is not None:
+        load(module.w2_gen, scope.sub("w2_gen"))
+    scope.done()
+
+
+def load_hypermixing(module, scope):
+    _load_children(module, scope, ("hyper", "out_proj"))
+    scope.done()
+
+
 def load_ffn(module, scope):
     _load_children(module, scope, ("ffn1", "ffn2"))
     scope.done()
@@ -168,7 +194,8 @@ def _take_attention_scope(scope):
 
 def load_transformer_encoder_layer(module, scope):
     load(module.self_attn, _take_attention_scope(scope))
-    _load_children(module, scope, ("ffn", "norm1", "norm2"))
+    ffn = ("ffn",) if module.ffn is not None else ("ffn_conv1", "ffn_conv2")
+    _load_children(module, scope, (*ffn, "norm1", "norm2"))
     scope.done()
 
 
@@ -185,6 +212,34 @@ def load_layer_stack(module, scope):
     for i, layer in enumerate(module.layers):
         load(layer, scope.sub(f"layer_{i}"))
     load(module.norm, scope.sub("norm"))
+    scope.done()
+
+
+def load_csgu(module, scope):
+    _load_children(module, scope, ("norm", "dw_conv"))
+    scope.done()
+
+
+def load_convolution_branch(module, scope):
+    _load_children(module, scope, ("up", "csgu", "down"))
+    scope.done()
+
+
+def load_branchformer_layer(module, scope):
+    load(module.attn, _take_attention_scope(scope))
+    _load_children(module, scope, ("norm_attn", "norm_conv", "cgmlp", "merge"))
+    scope.done()
+
+
+def load_branchformer_encoder(module, scope):
+    for i, layer in enumerate(module.layers):
+        load(layer, scope.sub(f"layer_{i}"))
+    load(module.norm_out, scope.sub("norm_out"))
+    scope.done()
+
+
+def load_conformer_decoder(module, scope):
+    load(module.dec, scope.sub("dec"))
     scope.done()
 
 
@@ -239,6 +294,9 @@ _LOADERS = {
     NormalizedEmbedding: load_normalized_embedding,
     MultiheadAttention: load_mha,
     RelPosMHAXL: load_relpos_mha,
+    RoPEMHA: load_mha,
+    HyperNetwork: load_hypernetwork,
+    HyperMixing: load_hypermixing,
     PositionalwiseFeedForward: load_ffn,
     TransformerEncoderLayer: load_transformer_encoder_layer,
     TransformerDecoderLayer: load_transformer_decoder_layer,
@@ -247,6 +305,11 @@ _LOADERS = {
     ConvolutionModule: load_convolution_module,
     ConformerEncoderLayer: load_conformer_encoder_layer,
     ConformerEncoder: load_layer_stack,
+    ConformerDecoder: load_conformer_decoder,
+    ConvolutionalSpatialGatingUnit: load_csgu,
+    ConvolutionBranch: load_convolution_branch,
+    BranchformerEncoderLayer: load_branchformer_layer,
+    BranchformerEncoder: load_branchformer_encoder,
     ConvolutionFrontEnd: load_convolution_frontend,
     TransformerASR: load_transformer_asr,
     TransformerLM: load_transformer_lm,

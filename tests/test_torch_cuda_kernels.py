@@ -51,7 +51,7 @@ def _ancestry_case(case, hd, dtype):
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [18, 32, 36, 48, 64, 128])
 @pytest.mark.parametrize("case", ["small", "seams", "long_history",
                                   "beam66"])
 def test_ancestry_attention_kernel_matches_plain(card, dtype, atol, hd, case):
@@ -79,8 +79,8 @@ def test_ancestry_attention_kernel_matches_plain(card, dtype, atol, hd, case):
 
 
 def test_ancestry_attention_kernel_raises_on_what_it_does_not_take(card):
-    q = torch.zeros(1, 2, 2, 48, device=card)
-    kv = torch.zeros(1, 2, 8, 96, device=card)
+    q = torch.zeros(1, 2, 2, 320, device=card)
+    kv = torch.zeros(1, 2, 8, 640, device=card)
     anc = torch.zeros(1, 2, 8, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head dims"):
         beam_attention.ancestry_attention(q, kv, kv, anc, 0)

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives eight paths at full width with random weights
+(``grad_guard``), and drives nine paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -57,7 +57,21 @@ LibriSpeech recipe:
   64, 32 and 18, and ``fused_fbank`` once), the same in float32 through the
   kernels and their plain versions, two bf16 training steps of the twin
   ``ASR`` (``fused_fbank`` on every micro-batch), and branchformer_large's
-  float32 step with ``encoder_remat`` against without.
+  float32 step with ``encoder_remat`` against without;
+- ``crdnn_path``: recurrent seq2seq ASR, the LibriSpeech CRDNN recipe
+  (``train_BPE_1000.yaml``: 2 CNN blocks, a 4-layer bi-LSTM of 1024, 2 DNN
+  blocks of 512, a GRU decoder of 1024 with location-aware attention, 1000
+  outputs) with its RNNLM (2 x 2048 LSTM): NORTH's batch through
+  ``EncoderDecoderASR.transcribe_batch``, encoder ``Fbank(fused=True)``
+  at 40 mels -> ``InputNormalization`` -> CRDNN, decoder an
+  ``S2SRNNBeamSearcher`` at beam 16 fused with CTC 0.4, the RNNLM 0.5 and
+  coverage 1.5 (bf16, then float32 through the kernel and its plain
+  version: encoder states within 1e-5, tokens equal over 50 steps); one
+  float32 ``transcribe`` of the sligru
+  variant; two bf16 Adadelta steps of the twin ``ASR`` on TRAIN's WAV
+  corpus and its valid stage (``fused_fbank`` on every batch), one
+  float32 step through the kernel against its plain version; two AdamW
+  steps of the LM twin at batch 80.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -101,6 +115,8 @@ from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
 from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
 from speechbrain_tpu_torch.lobes.features import Fbank
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
+from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN as CRDNNEncoder
+from speechbrain_tpu_torch.lobes.models.RNNLM import RNNLM
 from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
     CACHE_LENGTH_MULTIPLE,
     get_key_padding_mask,
@@ -119,8 +135,14 @@ from speechbrain_tpu_torch.nnet.attention import (
     make_mask_bias,
 )
 from speechbrain_tpu_torch.nnet.containers import LengthsCapableSequential
+from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.linear import Linear
-from speechbrain_tpu_torch.nnet.schedulers import NoamScheduler
+from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d
+from speechbrain_tpu_torch.nnet.RNN import AttentionalRNNDecoder
+from speechbrain_tpu_torch.nnet.schedulers import (
+    NewBobScheduler,
+    NoamScheduler,
+)
 from speechbrain_tpu_torch.ops import (
     _build,
     attention,
@@ -129,12 +151,16 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.seq2seq import (
+    train as seq2seq_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer import (
     train as recipe,
 )
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
     ASR,
 )
+from speechbrain_tpu_torch.recipes.LibriSpeech.LM import train as lm_recipe
 from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
     prepare_synthetic,
 )
@@ -400,16 +426,29 @@ def served_encoder(pipe, ctc=False):
 
 
 class TimedEncoderDecoderASR(EncoderDecoderASR):
-    """``EncoderDecoderASR`` that synchronises the card around its
-    encoder, as ``Pipeline.transcribe`` does, and keeps the encode's wall
-    time (the decode's is the decoder's)."""
+    """``EncoderDecoderASR`` that synchronises the card around its encoder
+    and around its whole call, as ``Pipeline.transcribe`` does, and keeps
+    the encode's wall time and the rest of the call's (the decode's)."""
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def encode_batch(self, wavs, wav_lens):
-        self.hparams.decoder.pipe._sync()
+        self._sync()
         t0 = time.perf_counter()
         out = super().encode_batch(wavs, wav_lens)
-        self.hparams.decoder.pipe._sync()
+        self._sync()
         self.last_encode_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def transcribe_batch(self, wavs, wav_lens):
+        self._sync()
+        t0 = time.perf_counter()
+        out = super().transcribe_batch(wavs, wav_lens)
+        self._sync()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        self.last_decode_ms = total_ms - self.last_encode_ms
         return out
 
 
@@ -562,11 +601,13 @@ def write_asr_corpus(cfg, out_dir, seed=0):
     return paths
 
 
-def asr_dataset(manifest, cfg, train):
+def asr_dataset(manifest, cfg, train, fold=False):
     """The recipe's data pipeline (``train.py:126-164``) over a manifest
     whose ``tokens`` entry holds the ids in place of words: audio read
     from the WAV file, and the ids as tokens, BOS + tokens, tokens +
-    EOS."""
+    EOS. With ``fold`` the ids are folded into ``1 .. cfg["vocab"] - 1``
+    (a head narrower than the corpus's ids, whose id 0 is bos, eos and
+    blank)."""
     ds = DynamicItemDataset.from_json(manifest)
     if train:
         ds = ds.filtered_sorted(sort_key="length")
@@ -574,6 +615,8 @@ def asr_dataset(manifest, cfg, train):
 
     def tokens_pipeline(text):
         ids = [int(t) for t in text.split()]
+        if fold:
+            ids = [1 + i % (cfg["vocab"] - 1) for i in ids]
         yield np.asarray(ids, np.int32)
         yield np.asarray([cfg["bos"]] + ids, np.int32)
         yield np.asarray(ids + [cfg["eos"]], np.int32)
@@ -774,12 +817,13 @@ def check_b3():
     hops; the two signals that show a DFT scheme's precision
     (:func:`make_check_signal`), the chirp with noise 60 dB down at the main
     path's shape from eight seeds and noise bursts with digital silence,
-    also at n_fft 512; and hops whose 64 frames do not fit a block (320 at
-    16 kHz; 441 at 44.1 kHz and n_fft 2048)."""
+    also at n_fft 512; hops whose 64 frames do not fit a block (320 at
+    16 kHz; 441 at 44.1 kHz and n_fft 2048); and the three signals at the
+    CRDNN recipe's 40 mels (80 elsewhere)."""
     worst = 0.0
     rows = []
     cases = [
-        # (signal, batch, seconds, hop ms, n_fft, sample rate, seed)
+        # (signal, batch, seconds, hop ms, n_fft, sample rate, seed[, mels])
         ("noise", 8, 10.0, 10, 400, SR, 10),
         ("noise", 2, 4.0, 8, 400, SR, 8),
         ("noise", 2, 4.0, 16, 400, SR, 16),
@@ -788,14 +832,19 @@ def check_b3():
         ("bursts", 2, 4.0, 10, 512, SR, 10),
         ("chirp", 2, 4.0, 20, 400, SR, 20),
         ("noise", 2, 4.0, 10, 2048, 44100, 44),
+        # the CRDNN recipe's 40 mels
+        ("noise", 8, 10.0, 10, 400, SR, 40, 40),
+        ("chirp", 8, 10.0, 10, 400, SR, 41, 40),
+        ("bursts", 8, 10.0, 10, 400, SR, 42, 40),
     ]
-    for kind, batch, seconds, hop_ms, n_fft, sr, seed in cases:
+    for kind, batch, seconds, hop_ms, n_fft, sr, seed, *mels in cases:
+        n_mels = mels[0] if mels else 80
         wav = torch.from_numpy(make_check_signal(
             kind, batch, int(sr * seconds), seed=seed, sample_rate=sr
         )).cuda()
-        fused = Fbank(sample_rate=sr, n_mels=80, hop_length=hop_ms,
+        fused = Fbank(sample_rate=sr, n_mels=n_mels, hop_length=hop_ms,
                       n_fft=n_fft, fused=True)
-        unfused = Fbank(sample_rate=sr, n_mels=80, hop_length=hop_ms,
+        unfused = Fbank(sample_rate=sr, n_mels=n_mels, hop_length=hop_ms,
                         n_fft=n_fft, fused=False)
         out = fused(wav)
         torch.cuda.synchronize()
@@ -815,7 +864,7 @@ def check_b3():
             )
         worst = max(worst, err_plain, err_unfused)
         rows.append({"signal": kind, "seed": seed, "shape": list(wav.shape),
-                     "hop": hop, "n_fft": n_fft,
+                     "hop": hop, "n_fft": n_fft, "n_mels": n_mels,
                      "frames_a_block": b3_layout(fused)[2],
                      "frames": out.shape[1], "err_vs_plain": err_plain,
                      "err_vs_unfused_fbank": err_unfused,
@@ -3214,6 +3263,508 @@ def run_family_path(out_dir, datasets):
     return launches, (hd18["steps"], hd18["max_steps"])
 
 
+# -- phase: recurrent seq2seq ASR (the CRDNN recipe) --------------------------
+
+# crdnn_path: the LibriSpeech CRDNN seq2seq recipe
+# (recipes/LibriSpeech/ASR/seq2seq/hparams/train_BPE_1000.yaml, twin under
+# speechbrain_tpu_torch/recipes/LibriSpeech/ASR/seq2seq/) at its full width
+# and depth, and its RNNLM (recipes/LibriSpeech/LM/hparams/RNNLM.yaml), with
+# random weights from a seed; the decode settings of upstream's CRDNN model
+# (asr-crdnn-rnnlm-librispeech: beam 16 as the YAML's test_beam_size, CTC
+# 0.4, RNNLM 0.5, coverage 1.5, max_attn_shift 240, temperatures 1.25).
+CRDNN_CFG = dict(
+    n_mels=40, n_fft=400, cnn_channels=(128, 256),
+    inter_layer_pooling_size=(2, 2), time_pooling_size=4, rnn_layers=4,
+    rnn_neurons=1024, dnn_blocks=2, dnn_neurons=512, emb_size=128,
+    dec_neurons=1024, attn_dim=512, location_channels=10,
+    location_kernel=100, vocab=1000, bos=0, eos=0, blank=0, dropout=0.15,
+    lr=1.0, ctc_weight=0.5, label_smoothing=0.1, batch_size=8,
+    lm_emb_size=128, lm_rnn_neurons=2048, lm_rnn_layers=2,
+    lm_dnn_neurons=512, lm_lr=1e-3, lm_batch_size=80,
+)
+CRDNN_DECODE = dict(
+    beam_size=16, min_decode_ratio=0.0, max_decode_ratio=1.0,
+    eos_threshold=1.5, ctc_weight=0.4, lm_weight=0.5, coverage_penalty=1.5,
+    using_max_attn_shift=True, max_attn_shift=240, temperature=1.25,
+    temperature_lm=1.25,
+)
+CRDNN_REDUCED = {
+    "weights": "trained checkpoints -> random weights from a seed",
+    "train": "15 epochs of LibriSpeech 960 h -> two Adadelta steps of 8 "
+             "utterances of TRAIN's synthetic corpus (8-12 s; its token ids "
+             "folded into 1..999), then its valid split",
+    "lm_train": "20 epochs of the LM corpus -> two AdamW steps of 80 "
+                "sequences of TRAIN's token ids",
+    "serve": "LibriSpeech test-clean -> NORTH's batch, 8 x 10 s of noise",
+    "fp32_comparison": "tokens held equal at decode ratio 0.2 (50 steps), "
+                       "not the recipe's 1.0: over 250 steps a random-"
+                       "weight model's best hypotheses lie within about "
+                       "6e-4 of each other a step, and B3's 2e-7 change of "
+                       "the encoder states flipped one of 8 searches at "
+                       "step 216 (an H100, float32); the full-ratio "
+                       "comparison is read as fp32_full_ratio_read",
+}
+CRDNN_SCORE_ATOL = 1e-3
+# the float32 comparison of B3 against its plain version: encoder states,
+# and the search at NORTH's decode ratio (50 of 250 steps)
+CRDNN_ENC_ATOL = 1e-5
+CRDNN_CMP_RATIO = 0.2
+CRDNN_TRAIN_STEPS = 2
+
+
+def crdnn_modules(cfg, device="cuda", seed=0, rnn_class="lstm",
+                  dropout=None):
+    """The recipe's five modules (``enc``, ``emb``, ``dec``, ``seq_lin``,
+    ``ctc_lin``), random weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    drop = cfg["dropout"] if dropout is None else dropout
+    return {
+        "enc": CRDNNEncoder(
+            input_size=cfg["n_mels"], cnn_channels=cfg["cnn_channels"],
+            inter_layer_pooling_size=cfg["inter_layer_pooling_size"],
+            time_pooling=True, time_pooling_size=cfg["time_pooling_size"],
+            rnn_class=rnn_class, rnn_layers=cfg["rnn_layers"],
+            rnn_neurons=cfg["rnn_neurons"], dnn_blocks=cfg["dnn_blocks"],
+            dnn_neurons=cfg["dnn_neurons"], dropout=drop, **kw),
+        "emb": Embedding(cfg["vocab"], cfg["emb_size"], **kw),
+        "dec": AttentionalRNNDecoder(
+            hidden_size=cfg["dec_neurons"], attn_dim=cfg["attn_dim"],
+            input_size=cfg["emb_size"], enc_dim=cfg["dnn_neurons"],
+            attn_type="location", channels=cfg["location_channels"],
+            kernel_size=cfg["location_kernel"], dropout=drop, **kw),
+        "seq_lin": Linear(cfg["vocab"], cfg["dec_neurons"], **kw),
+        "ctc_lin": Linear(cfg["vocab"], cfg["dnn_neurons"], **kw),
+    }
+
+
+def crdnn_lm(cfg, device="cuda", seed=7):
+    """``RNNLM.yaml``'s language model, random weights from ``seed``."""
+    return RNNLM(cfg["vocab"], cfg["lm_emb_size"],
+                 rnn_neurons=cfg["lm_rnn_neurons"],
+                 rnn_layers=cfg["lm_rnn_layers"],
+                 dnn_neurons=cfg["lm_dnn_neurons"], device=device,
+                 generator=torch.Generator().manual_seed(seed))
+
+
+def crdnn_hparams(cfg, device="cuda", out_dir=None):
+    """The twin recipe's hparams that its Brain reads, built in Python
+    (the card's machine has no YAML loader)."""
+    hparams = {
+        "compute_features": Fbank(n_fft=cfg["n_fft"], n_mels=cfg["n_mels"],
+                                  fused=True, device=device),
+        "normalize": InputNormalization(norm_type="sentence"),
+        "ctc_weight": cfg["ctc_weight"],
+        "label_smoothing": cfg["label_smoothing"],
+        "blank_index": cfg["blank"], "bos_index": cfg["bos"],
+        "eos_index": cfg["eos"], "output_neurons": cfg["vocab"],
+        "min_decode_ratio": 0.0, "max_decode_ratio": 1.0,
+        "eos_threshold": 1.5,
+        "lr_annealing": NewBobScheduler(initial_value=cfg["lr"],
+                                        improvement_threshold=0.0025,
+                                        annealing_factor=0.8, patient=0),
+        "epoch_counter": EpochCounter(1),
+    }
+    if out_dir is not None:
+        hparams["train_logger"] = FileTrainLogger(
+            os.path.join(out_dir, "train_log.txt"))
+    return hparams
+
+
+def crdnn_served_asr(cfg, modules, lm, tokenizer, device="cuda",
+                     decode=CRDNN_DECODE):
+    """An ``EncoderDecoderASR`` built from hparams in Python: the encoder
+    ``LengthsCapableSequential(Fbank(fused=True), InputNormalization,
+    CRDNN)``, the decoder the twin's ``RNNSearchDecoder`` with CTC, RNNLM
+    and coverage fusion."""
+    encoder = LengthsCapableSequential([
+        Fbank(n_fft=cfg["n_fft"], n_mels=cfg["n_mels"], fused=True,
+              device=device),
+        InputNormalization(norm_type="sentence"),
+        modules["enc"],
+    ])
+    decoder = seq2seq_recipe.RNNSearchDecoder(
+        modules["emb"], modules["dec"], modules["seq_lin"],
+        ctc_lin=modules["ctc_lin"], lm=lm, bos_index=cfg["bos"],
+        eos_index=cfg["eos"], blank_index=cfg["blank"],
+        vocab_size=cfg["vocab"], **decode)
+    return TimedEncoderDecoderASR(
+        hparams={"encoder": encoder, "decoder": decoder,
+                 "tokenizer": tokenizer, "sample_rate": SR},
+        run_opts={"device": device})
+
+
+def _crdnn_transcribe(asr, wavs, lens, autocast):
+    """One ``transcribe_batch`` (launch counts from 0, bf16 autocast or
+    float32): its tokens, scores, launches, times and steps."""
+    reset_launch_counts()
+    with torch.autocast(wavs.device.type, dtype=torch.bfloat16,
+                        enabled=autocast):
+        words, hyps = asr.transcribe_batch(wavs, lens)
+    counts = launch_counts()
+    searcher = asr.hparams.decoder.searcher
+    _, _, scores, _ = asr.hparams.decoder.last_result
+    return {"words": words, "hyps": hyps, "scores": np.asarray(scores),
+            "launches": counts, "encode_ms": asr.last_encode_ms,
+            "decode_ms": asr.last_decode_ms, "steps": searcher.last_steps}
+
+
+class TimedCRDNNBrain(seq2seq_recipe.ASR):
+    """The twin's ``ASR`` with forward counts a stage, each micro-batch's
+    loss read on the host and its time by CUDA events, the train stage's
+    audio seconds, and the losses of the valid stage."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.forwards = {Stage.TRAIN: 0, Stage.VALID: 0}
+        self.step_events, self.losses, self.valid_losses = [], [], []
+        self.audio_seconds = 0.0
+
+    def compute_forward(self, batch, stage):
+        self.forwards[stage] = self.forwards.get(stage, 0) + 1
+        return super().compute_forward(batch, stage)
+
+    def on_fit_batch_start(self, batch):
+        sig = batch["sig"]
+        self.audio_seconds += float(sig.lengths.sum()) * sig.data.shape[1] / SR
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.step_events.append([start, None])
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.step_events[-1][1] = end
+        self.losses.append(float(loss))
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        if stage == Stage.VALID:
+            self.valid_losses.append(stage_loss)
+        super().on_stage_end(stage, stage_loss, epoch)
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+def crdnn_brain(cfg, modules, out_dir=None, precision="bf16", seed=2602,
+                device="cuda", brain_cls=TimedCRDNNBrain):
+    """The twin's Brain over ``modules``: Adadelta, NewBob, a stop after
+    ``CRDNN_TRAIN_STEPS`` optimizer steps."""
+    return brain_cls(
+        modules=modules, opt_class=seq2seq_recipe.adadelta(cfg["lr"]),
+        hparams=crdnn_hparams(cfg, device=device, out_dir=out_dir),
+        run_opts={"device": device, "precision": precision,
+                  "noprogressbar": True, "seed": seed,
+                  "optimizer_step_limit": CRDNN_TRAIN_STEPS})
+
+
+def _batch_norms(modules):
+    return {f"{name}.{sub}": m for name, module in modules.items()
+            for sub, m in module.named_modules()
+            if isinstance(m, BatchNorm1d)}
+
+
+def crdnn_step_kernel_vs_plain(cfg, batch, device="cuda"):
+    """One float32 training micro-batch (dropout 0, the same seed-3
+    weights) through B3 and through its plain version: the losses and
+    every BatchNorm's running statistics after the step."""
+    out = {}
+    for arm in ("kernel", "plain"):
+        modules = crdnn_modules(cfg, device=device, seed=3, dropout=0.0)
+        brain = crdnn_brain(cfg, modules, precision="fp32", device=device,
+                            brain_cls=seq2seq_recipe.ASR)
+        brain.init_optimizers()
+        brain.modules.train()
+        ctx = plain_versions("fused_fbank") if arm == "plain" \
+            else contextlib.nullcontext()
+        with ctx:
+            brain.fit_batch(batch)
+            loss = brain._flush_pending_loss()
+        out[arm] = (loss, {n: (bn.running_mean.clone(),
+                               bn.running_var.clone())
+                           for n, bn in _batch_norms(modules).items()})
+        del brain, modules
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, sk), (lp, sp) = out["kernel"], out["plain"]
+    stats_diff = max(
+        max((sk[n][0] - sp[n][0]).abs().max().item(),
+            ((sk[n][1] - sp[n][1]).abs() / sp[n][1]).max().item())
+        for n in sk)
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "running_stats_max_diff": stats_diff, "batch_norms": len(sk)}
+
+
+def lm_token_dataset(manifest, cfg, repeats=5):
+    """Token sequences for the LM twin: TRAIN's ids ``repeats`` times over,
+    folded as ``asr_dataset(fold=True)`` folds them, with BOS and EOS."""
+    with open(manifest) as f:
+        entries = json.load(f)
+    ds = DynamicItemDataset({f"{key}_{r}": {"tokens": e["tokens"]}
+                             for r in range(repeats)
+                             for key, e in entries.items()})
+
+    def tokens_pipeline(text):
+        ids = [1 + int(t) % (cfg["vocab"] - 1) for t in text.split()]
+        yield np.asarray([cfg["bos"]] + ids, np.int32)
+        yield np.asarray(ids + [cfg["eos"]], np.int32)
+
+    ds.add_dynamic_item(tokens_pipeline, takes="tokens",
+                        provides=["tokens_bos", "tokens_eos"])
+    ds.set_output_keys(["id", "tokens_bos", "tokens_eos"])
+    return ds
+
+
+def run_crdnn_lm_train(cfg, manifest, device="cuda"):
+    """Two AdamW steps of the LM twin at ``RNNLM.yaml``'s width, batch 80
+    of TRAIN's token sequences, bf16 autocast."""
+    lm = crdnn_lm(cfg, device=device)
+    brain = lm_recipe.LM(
+        modules={"lm": lm}, opt_class=lm_recipe.adamw(cfg["lm_lr"]),
+        hparams={"lr_annealing": NewBobScheduler(cfg["lm_lr"])},
+        run_opts={"device": device, "precision": "bf16",
+                  "noprogressbar": True,
+                  "optimizer_step_limit": CRDNN_TRAIN_STEPS})
+    losses = []
+    brain.on_fit_batch_end = (lambda batch, outputs, loss, should_step:
+                              losses.append(float(loss)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    brain.fit(EpochCounter(1), lm_token_dataset(manifest, cfg),
+              train_loader_kwargs={"batch_size": cfg["lm_batch_size"]})
+    torch.cuda.synchronize()
+    return {"ok": bool(brain.optimizer_step == CRDNN_TRAIN_STEPS
+                       and len(losses) == CRDNN_TRAIN_STEPS
+                       and all(np.isfinite(losses))),
+            "optimizer_steps": brain.optimizer_step, "losses": losses,
+            "seconds": time.perf_counter() - t0,
+            "parameters": sum(p.numel() for p in lm.parameters())}
+
+
+def run_crdnn_serve(cfg, modules, lm, tokenizer, device="cuda"):
+    """NORTH's batch served through ``EncoderDecoderASR`` at the decode
+    settings: bf16 autocast, then float32 through B3 and through its plain
+    version. Held: the encoder states of the two float32 runs within
+    ``CRDNN_ENC_ATOL``, and their tokens equal with scores within
+    ``CRDNN_SCORE_ATOL`` at decode ratio ``CRDNN_CMP_RATIO``. Over the
+    recipe's 250 steps the two searches are read, not held: a
+    random-weight model's best hypotheses lie within about 6e-4 of each
+    other a step, and a 2e-7 change of the encoder states can flip a
+    choice late in the search (``CRDNN_REDUCED``)."""
+    wavs, lens = make_waveforms(NORTH, device)
+    asr = crdnn_served_asr(cfg, modules, lm, tokenizer, device=device)
+    frozen = not any(p.requires_grad for m in modules.values()
+                     for p in m.parameters())
+    # cuDNN builds its plans for each shape and type on the first call
+    for autocast in (True, False):
+        with torch.autocast(wavs.device.type, dtype=torch.bfloat16,
+                            enabled=autocast):
+            asr.encode_batch(wavs, lens)
+    _crdnn_transcribe(asr, wavs[:2, :SR].contiguous(), lens[:2],
+                      autocast=True)
+    bf16 = _crdnn_transcribe(asr, wavs, lens, autocast=True)
+    fp32 = _crdnn_transcribe(asr, wavs, lens, autocast=False)
+    enc_kernel = asr.encode_batch(wavs, lens)
+    with plain_versions("fused_fbank"):
+        plain = _crdnn_transcribe(asr, wavs, lens, autocast=False)
+        enc_plain = asr.encode_batch(wavs, lens)
+    enc_diff = (enc_kernel - enc_plain).abs().max().item()
+    search = asr.hparams.decoder.search_kwargs
+    full_ratio = search["max_decode_ratio"]
+    search["max_decode_ratio"] = CRDNN_CMP_RATIO
+    try:
+        cmp_kernel = _crdnn_transcribe(asr, wavs, lens, autocast=False)
+        with plain_versions("fused_fbank"):
+            cmp_plain = _crdnn_transcribe(asr, wavs, lens, autocast=False)
+    finally:
+        search["max_decode_ratio"] = full_ratio
+    score_diff = float(np.max(np.abs(cmp_kernel["scores"]
+                                     - cmp_plain["scores"])))
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    audio_s = wavs.shape[0] * wavs.shape[1] / SR
+    runs = {}
+    for name, run in (("bf16", bf16), ("fp32_kernel", fp32),
+                      ("fp32_plain", plain)):
+        runs[name] = {
+            "encode_ms": run["encode_ms"], "decode_ms": run["decode_ms"],
+            "steps": run["steps"],
+            "audio_s_per_s": audio_s * 1e3 / (run["encode_ms"]
+                                              + run["decode_ms"]),
+            "launches": run["launches"],
+            "hyp_lengths": [len(h) for h in run["hyps"]],
+            "scores": run["scores"].tolist(),
+        }
+    runs["fp32_full_ratio_read"] = {
+        "utterances_with_equal_tokens": sum(
+            a == b for a, b in zip(fp32["hyps"], plain["hyps"])),
+        "first_differing_step": [
+            next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(fp32["hyps"], plain["hyps"])],
+        "max_score_diff": float(np.max(np.abs(fp32["scores"]
+                                              - plain["scores"]))),
+    }
+    runs["fp32_compared"] = {
+        "max_decode_ratio": CRDNN_CMP_RATIO, "steps": cmp_kernel["steps"],
+        "max_score_diff": score_diff, "score_atol": CRDNN_SCORE_ATOL,
+        "encoder_states_max_diff": enc_diff,
+        "encoder_states_atol": CRDNN_ENC_ATOL,
+    }
+    checks = {
+        "modules_frozen": frozen,
+        "bf16_b3_once": bf16["launches"] == b3_once,
+        "fp32_b3_once": fp32["launches"] == b3_once,
+        "fp32_encoder_states_close": enc_diff <= CRDNN_ENC_ATOL,
+        "fp32_tokens_equal": cmp_kernel["hyps"] == cmp_plain["hyps"],
+        "fp32_scores_close": score_diff <= CRDNN_SCORE_ATOL,
+        "finite": all(np.isfinite(r["scores"]).all()
+                      for r in (bf16, fp32, plain)),
+        "tokens_in_vocab": all(0 <= t < cfg["vocab"]
+                               for r in (bf16, fp32) for h in r["hyps"]
+                               for t in h),
+        "eight_utterances": len(bf16["words"]) == wavs.shape[0],
+    }
+    return checks, runs, score_diff
+
+
+def run_crdnn_sligru(cfg, tokenizer, device="cuda"):
+    """One float32 ``transcribe_batch`` of ``train_BPE_1000_sligru.yaml``'s
+    model (SLi-GRU encoder), no LM."""
+    modules = crdnn_modules(cfg, device=device, seed=5, rnn_class="sligru")
+    wavs, lens = make_waveforms(NORTH, device)
+    decode = {**CRDNN_DECODE, "lm_weight": 0.0}
+    asr = crdnn_served_asr(cfg, modules, None, tokenizer, device=device,
+                           decode=decode)
+    run = _crdnn_transcribe(asr, wavs, lens, autocast=False)
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    line = {"ok": bool(run["launches"] == b3_once
+                       and np.isfinite(run["scores"]).all()
+                       and len(run["hyps"]) == wavs.shape[0]),
+            "encode_ms": run["encode_ms"], "decode_ms": run["decode_ms"],
+            "steps": run["steps"], "launches": run["launches"],
+            "parameters": sum(p.numel() for m in modules.values()
+                              for p in m.parameters())}
+    del asr, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_crdnn_train(cfg, modules, out_dir, paths, device="cuda"):
+    """Two bf16 Adadelta steps of the twin's ``ASR`` (8 utterances a
+    batch, B3 on every batch), then its valid stage (NewBob, BatchNorm's
+    running statistics); and one float32 step through B3 against its
+    plain version."""
+    train = asr_dataset(paths["train"], cfg, train=True, fold=True)
+    valid = asr_dataset(paths["valid"], cfg, train=False, fold=True)
+    for module in modules.values():
+        module.requires_grad_(True)
+    brain = crdnn_brain(cfg, modules, out_dir=out_dir, device=device)
+    bns = _batch_norms(modules)
+    stats0 = {n: bn.running_var.clone() for n, bn in bns.items()}
+    loader = {"batch_size": cfg["batch_size"],
+              "pad_to_multiple": {"sig": seq2seq_recipe.SIG_PAD_MULTIPLE}}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain.fit(brain.hparams.epoch_counter, train, valid,
+              train_loader_kwargs=loader, valid_loader_kwargs=loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_fwd
+    step_ms = brain.step_ms()
+    stats_moved = all(not torch.equal(stats0[n], bn.running_var)
+                      for n, bn in bns.items())
+    line = {
+        "optimizer_steps": brain.optimizer_step,
+        "forwards": {s.name: c for s, c in brain.forwards.items()},
+        "launches": counts, "expected_launches": expected,
+        "losses": brain.losses, "valid_losses": brain.valid_losses,
+        "lr_after_valid": brain.optimizer.param_groups[0]["lr"],
+        "step_ms": step_ms,
+        "audio_s_per_s": brain.audio_seconds * 1e3 / sum(step_ms),
+        "seconds": seconds,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "running_stats_moved": stats_moved, "batch_norms": len(bns),
+    }
+    ok = (counts == expected and brain.optimizer_step == CRDNN_TRAIN_STEPS
+          and brain.forwards[Stage.TRAIN] == CRDNN_TRAIN_STEPS
+          and all(np.isfinite(brain.losses + brain.valid_losses))
+          and stats_moved)
+    batch = next(iter(make_dataloader(train, **loader)))
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["fp32_kernel_vs_plain"] = crdnn_step_kernel_vs_plain(
+        cfg, batch, device=device)
+    cmp = line["fp32_kernel_vs_plain"]
+    line["ok"] = bool(ok and cmp["loss_rel_diff"] <= 1e-4
+                      and cmp["running_stats_max_diff"] <= 1e-3)
+    return line
+
+
+def run_crdnn_path(out_dir, paths, cfg=CRDNN_CFG, device="cuda"):
+    """The CRDNN recipe at full width: served with CTC, RNNLM and coverage
+    fusion (bf16, float32 through B3 and its plain version), the sligru
+    variant served once, two training steps of the twin ``ASR`` and two
+    of the LM twin. Returns B3's launches in each run."""
+    t0 = time.perf_counter()
+    modules = crdnn_modules(cfg, device=device)
+    lm = crdnn_lm(cfg, device=device)
+    n_params = sum(p.numel() for m in modules.values()
+                   for p in m.parameters())
+    n_lm = sum(p.numel() for p in lm.parameters())
+    write_covering_bpe(out_dir, cfg["vocab"])
+    tokenizer = SentencePiece(out_dir, cfg["vocab"], model_type="bpe")
+    build_seconds = time.perf_counter() - t0
+    serve_checks, serve_runs, score_diff = run_crdnn_serve(
+        cfg, modules, lm, tokenizer, device=device)
+    emit({"phase": "crdnn_serve", "ok": all(serve_checks.values()),
+          "checks": serve_checks, "decode": CRDNN_DECODE,
+          "fp32_max_score_diff": score_diff,
+          "fp32_score_atol": CRDNN_SCORE_ATOL, **serve_runs})
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(serve_checks.values()):
+        raise AssertionError(f"crdnn_path serve: a check failed: "
+                             f"{serve_checks}")
+    sligru = run_crdnn_sligru(cfg, tokenizer, device=device)
+    emit({"phase": "crdnn_sligru", **sligru})
+    if not sligru["ok"]:
+        raise AssertionError("crdnn_path: the sligru transcribe failed")
+    train = run_crdnn_train(cfg, modules, out_dir, paths, device=device)
+    emit({"phase": "crdnn_train", **train})
+    del modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not train["ok"]:
+        raise AssertionError("crdnn_path: training failed")
+    lm_train = run_crdnn_lm_train(cfg, paths["train"], device=device)
+    emit({"phase": "crdnn_lm_train", **lm_train})
+    if not lm_train["ok"]:
+        raise AssertionError("crdnn_path: LM training failed")
+    emit({"phase": "crdnn_path_summary", "reduced": CRDNN_REDUCED,
+          "parameters": n_params, "lm_parameters": n_lm,
+          "sligru_parameters": sligru["parameters"],
+          "build_seconds": build_seconds,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return {"serve_bf16": serve_runs["bf16"]["launches"]["fused_fbank"],
+            "serve_fp32": serve_runs["fp32_kernel"]["launches"][
+                "fused_fbank"],
+            "sligru": sligru["launches"]["fused_fbank"],
+            "train": train["launches"]["fused_fbank"]}
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -3374,6 +3925,9 @@ def main():
             n: c["fused_fbank"] for n, c in family.items()}
         kernels[0]["at_head_dim_18"] = measure_b1_at(
             family_cfg("hyperconformer_8M"), hd18_steps, hd18_max)
+        kernels[1]["launches_by_path"]["crdnn_path"] = run_crdnn_path(
+            os.path.join(out_dir, "crdnn"), paths)
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -3387,6 +3941,9 @@ def main():
                                  for run, counts in served.items()}
     kernels[1]["at_recipe_shape"] = measure_b3_at(
         CONFORMER_LARGE["batch_size"], recipe.SIG_PAD_MULTIPLE)
+    kernels[1]["at_crdnn_shape"] = measure_b3_at(
+        NORTH["batch"], int(SR * NORTH["seconds"]),
+        n_mels=CRDNN_CFG["n_mels"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

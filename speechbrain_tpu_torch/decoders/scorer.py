@@ -1,6 +1,8 @@
 """Pluggable scorers for LM fusion and joint decoding in beam search
-(port of ``BaseScorerInterface``, ``KVTransformerLMScorer``, ``CTCScorer``
-and ``ScorerBuilder`` from ``speechbrain_tpu/decoders/scorer.py``).
+(port of ``BaseScorerInterface``, ``RNNLMScorer``,
+``KVTransformerLMScorer``, ``CTCScorer``, ``CoverageScorer``,
+``LengthScorer`` and ``ScorerBuilder`` from
+``speechbrain_tpu/decoders/scorer.py``).
 
 Scorers run inside the beam-search loop: state in, state out. Full
 scorers contribute over the entire vocab; partial scorers (CTC prefix)
@@ -42,6 +44,31 @@ class BaseScorerInterface:
 
     def is_partial(self):
         return False
+
+
+class RNNLMScorer(BaseScorerInterface):
+    """Shallow fusion with an RNN LM.
+
+    ``lm_fn(tokens (N, 1), state)`` -> ``(logits (N, 1, V), new_state)``;
+    ``lm_init(n)`` -> the initial state, batch-leading (so that the beam
+    permute gathers its axis 0; an LSTM's ``(layers, N, H)`` state is moved
+    at the boundary inside ``lm_fn``).
+    """
+
+    def __init__(self, lm_fn, lm_init, temperature=1.0):
+        self.lm_fn = lm_fn
+        self.lm_init = lm_init
+        self.temperature = temperature
+
+    def reset_mem(self, x, enc_lens):
+        return self.lm_init(x.shape[0])
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        logits, new_state = self.lm_fn(inp_tokens[:, None], memory)
+        log_probs = torch.log_softmax(
+            logits[:, 0].float() / self.temperature, dim=-1
+        )
+        return log_probs, new_state
 
 
 class KVTransformerLMScorer(BaseScorerInterface):
@@ -184,6 +211,59 @@ class CTCScorer(BaseScorerInterface):
         )
         state["is_first"] = torch.zeros_like(found)
         return state
+
+
+class CoverageScorer(BaseScorerInterface):
+    """Penalise looping or over-attended frames through the accumulated
+    attention: ``penalty = sum(max(coverage, threshold)) - T * threshold``,
+    divided by the decode step count, the same for every token of a
+    hypothesis. A 3-D (transformer) attention replaces the running sum by
+    the prefix's attention summed over its queries."""
+
+    def __init__(self, vocab_size, threshold=0.5):
+        self.vocab_size = vocab_size
+        self.threshold = threshold
+
+    def reset_mem(self, x, enc_lens):
+        return {"coverage": x.new_zeros((x.shape[0], x.shape[1]),
+                                        dtype=torch.float32),
+                "step": 0}
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        n = inp_tokens.shape[0]
+        step = memory["step"] + 1
+        if attn is None:
+            return (
+                memory["coverage"].new_zeros((n, self.vocab_size)),
+                {"coverage": memory["coverage"], "step": step},
+            )
+        if attn.ndim > 2:
+            coverage = attn.float().sum(dim=1)
+        else:
+            coverage = memory["coverage"] + attn.float()
+        T = coverage.shape[-1]
+        penalty = (torch.clamp(coverage, min=self.threshold).sum(-1)
+                   - T * self.threshold)
+        scores = (-penalty / step)[:, None].expand(n, self.vocab_size)
+        return scores, {"coverage": coverage, "step": step}
+
+    def permute_mem(self, memory, index):
+        return {"coverage": memory["coverage"].index_select(0, index),
+                "step": memory["step"]}
+
+
+class LengthScorer(BaseScorerInterface):
+    """A constant reward of 1 per step for every token."""
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        return inp_tokens.new_ones((inp_tokens.shape[0], self.vocab_size),
+                                   dtype=torch.float32), None
+
+    def permute_mem(self, memory, index):
+        return None
 
 
 class ScorerBuilder:

@@ -1,6 +1,5 @@
 """Sequence-to-sequence decoding: greedy and batched beam search (port of
-``speechbrain_tpu/decoders/seq2seq.py`` without its RNN and Whisper
-searchers).
+``speechbrain_tpu/decoders/seq2seq.py`` without its Whisper searchers).
 
 The JAX package compiles a search into one ``lax.while_loop``; here it
 is a Python loop over decode steps with the same early exit, and ``step``
@@ -647,3 +646,42 @@ class S2SKVBeamSearcher(_KVDecodeMixin, S2SBeamSearcher):
         self._setup_kv(decode_step_fn, init_cache_fn,
                        shared_cross_kv=shared_cross_kv,
                        ancestry_kv=ancestry_kv)
+
+
+# ---------------------------------------------------------------------------
+# Searchers over an attentional RNN decoder
+# ---------------------------------------------------------------------------
+
+class _StepFnMixin:
+    """``init_fn(n, enc_states, enc_lens)`` builds the decoder state (a
+    dict of batch-leading tensors, such as
+    ``AttentionalRNNDecoder.init_state`` with a uniform ``prev_attn``);
+    ``step_fn(inp_tokens, state, enc_states, enc_lens)`` returns
+    ``(log_probs (N, V), new_state, attn (N, T))``. The state is permuted
+    with the beams by ``index_select`` along axis 0."""
+
+    def reset_mem(self, batch_size, enc_states, enc_lens):
+        return self.init_fn(batch_size, enc_states, enc_lens)
+
+    def forward_step(self, inp_tokens, memory, enc_states, enc_lens, step):
+        return self.step_fn(inp_tokens, memory, enc_states, enc_lens)
+
+
+class S2SRNNGreedySearcher(_StepFnMixin, S2SGreedySearcher):
+    """Greedy search for ``AttentionalRNNDecoder`` models (see
+    ``_StepFnMixin``)."""
+
+    def __init__(self, step_fn, init_fn, **kwargs):
+        super().__init__(**kwargs)
+        self.step_fn = step_fn
+        self.init_fn = init_fn
+
+
+class S2SRNNBeamSearcher(_StepFnMixin, S2SBeamSearcher):
+    """Beam search for ``AttentionalRNNDecoder`` models (see
+    ``_StepFnMixin``)."""
+
+    def __init__(self, step_fn, init_fn, **kwargs):
+        super().__init__(**kwargs)
+        self.step_fn = step_fn
+        self.init_fn = init_fn

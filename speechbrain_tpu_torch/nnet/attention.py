@@ -1,6 +1,7 @@
-"""Attention mechanisms (port of the transformer-family part of
-``speechbrain_tpu/nnet/attention.py``): ``MultiheadAttention`` in its five
-call modes, ``PositionalwiseFeedForward``, ``RelPosEncXL``,
+"""Attention mechanisms (port of ``speechbrain_tpu/nnet/attention.py``):
+the seq2seq decoder's ``ContentBasedAttention``,
+``LocationAwareAttention`` and ``KeyValueAttention``;
+``MultiheadAttention`` in its five call modes, ``PositionalwiseFeedForward``, ``RelPosEncXL``,
 ``RelPosMHAXL`` and rotary position embeddings (``rope_sincos``,
 ``apply_rope``, ``RoPEMHA``).
 
@@ -24,6 +25,142 @@ from speechbrain_tpu_torch.ops.attention import flash_attention
 from speechbrain_tpu_torch.ops.beam_attention import ancestry_attention
 
 NEG_INF = -1e9  # additive mask value; finite to keep softmax NaN-free
+
+
+def length_mask(enc_len, T):
+    """(B, T) bool, True on the ``round(enc_len * T)`` valid frames of each
+    row (relative lengths, rounded half to even as ``jnp.round``)."""
+    n = torch.round(enc_len * T)
+    return torch.arange(T, device=enc_len.device)[None, :] < n[:, None]
+
+
+def uniform_attention(enc_len, T, dtype=torch.float32):
+    """(B, T) weights spread evenly over each row's valid frames: the
+    location-aware attention's ``prev_attn`` before the first step."""
+    mask = length_mask(enc_len, T).to(dtype)
+    return mask / torch.clamp(mask.sum(-1, keepdim=True), min=1.0)
+
+
+def _masked_context(scores, enc_len, values):
+    """Softmax of (B, T) scores over the valid frames, and the weighted
+    sum of ``values`` (B, T, F)."""
+    mask = length_mask(enc_len, scores.shape[1])
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    weights = torch.softmax(scores, dim=-1)
+    context = torch.einsum("bt,btf->bf", weights, values)
+    return context, weights
+
+
+class ContentBasedAttention(nn.Module):
+    """Additive (Bahdanau) attention of one decoder state over the
+    encoder states.
+
+    Call with ``(enc_states (B, T, enc_dim), enc_len (B,) relative,
+    dec_states (B, dec_dim))``; returns ``(context (B, output_dim),
+    weights (B, T))``.
+
+    Example
+    -------
+    >>> attn = ContentBasedAttention(8, 12, attn_dim=8, output_dim=16,
+    ...                              device="cpu")
+    >>> ctx, w = attn(torch.ones(2, 10, 8), torch.ones(2), torch.ones(2, 12))
+    >>> ctx.shape, w.shape
+    (torch.Size([2, 16]), torch.Size([2, 10]))
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim, scaling=1.0,
+                 device="cuda", dtype=torch.float32, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.scaling = scaling
+        self.mlp_enc = Linear(attn_dim, enc_dim, **kw)
+        self.mlp_dec = Linear(attn_dim, dec_dim, **kw)
+        self.mlp_attn = Linear(1, attn_dim, bias=False, **kw)
+        self.mlp_out = Linear(output_dim, enc_dim, **kw)
+
+    def forward(self, enc_states, enc_len, dec_states):
+        keys = self.mlp_enc(enc_states)
+        query = self.mlp_dec(dec_states)[:, None, :]
+        scores = self.mlp_attn(torch.tanh(keys + query))[..., 0]
+        context, weights = _masked_context(
+            scores * self.scaling, enc_len, enc_states
+        )
+        return self.mlp_out(context), weights
+
+
+class LocationAwareAttention(nn.Module):
+    """Additive attention with a convolution over the previous step's
+    weights added to the score: ``conv_channels`` filters of width
+    ``2 * kernel_size + 1``, zero-padded to keep the length, no bias.
+
+    ``prev_attn`` (B, T) is passed in explicitly; None means the first
+    step, whose previous weights are uniform over the valid frames.
+    Returns ``(context (B, output_dim), weights (B, T))``.
+
+    Example
+    -------
+    >>> attn = LocationAwareAttention(8, 12, attn_dim=8, output_dim=16,
+    ...                               kernel_size=3, device="cpu")
+    >>> ctx, w = attn(torch.ones(2, 10, 8), torch.ones(2), torch.ones(2, 12))
+    >>> ctx.shape, w.shape
+    (torch.Size([2, 16]), torch.Size([2, 10]))
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim,
+                 conv_channels=10, kernel_size=100, scaling=1.0,
+                 device="cuda", dtype=torch.float32, generator=None):
+        super().__init__()
+        from speechbrain_tpu_torch.nnet.CNN import Conv1d
+
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.scaling = scaling
+        self.mlp_enc = Linear(attn_dim, enc_dim, **kw)
+        self.mlp_dec = Linear(attn_dim, dec_dim, **kw)
+        self.conv_loc = Conv1d(
+            out_channels=conv_channels, kernel_size=2 * kernel_size + 1,
+            in_channels=1, padding="same", padding_mode="constant",
+            bias=False, **kw,
+        )
+        self.mlp_loc = Linear(attn_dim, conv_channels, **kw)
+        self.mlp_attn = Linear(1, attn_dim, bias=False, **kw)
+        self.mlp_out = Linear(output_dim, enc_dim, **kw)
+
+    def forward(self, enc_states, enc_len, dec_states, prev_attn=None):
+        T = enc_states.shape[1]
+        if prev_attn is None:
+            prev_attn = uniform_attention(enc_len, T, enc_states.dtype)
+        keys = self.mlp_enc(enc_states)
+        query = self.mlp_dec(dec_states)[:, None, :]
+        loc = self.mlp_loc(self.conv_loc(prev_attn[..., None]))
+        scores = self.mlp_attn(torch.tanh(keys + query + loc))[..., 0]
+        context, weights = _masked_context(
+            scores * self.scaling, enc_len, enc_states
+        )
+        return self.mlp_out(context), weights
+
+
+class KeyValueAttention(nn.Module):
+    """Scaled dot-product attention of one decoder state over the
+    encoder states, with separate key, value and query projections.
+    Returns ``(context (B, output_dim), weights (B, T))``."""
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim,
+                 device="cuda", dtype=torch.float32, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.attn_dim = attn_dim
+        self.key_linear = Linear(attn_dim, enc_dim, **kw)
+        self.value_linear = Linear(output_dim, enc_dim, **kw)
+        self.query_linear = Linear(attn_dim, dec_dim, **kw)
+
+    def forward(self, enc_states, enc_len, dec_states):
+        keys = self.key_linear(enc_states)
+        values = self.value_linear(enc_states)
+        query = self.query_linear(dec_states)
+        scores = torch.einsum("bta,ba->bt", keys, query) / math.sqrt(
+            self.attn_dim
+        )
+        return _masked_context(scores, enc_len, values)
 
 
 def scaled_dot_product_attention(q, k, v, mask_bias=None, dropout_rate=0.0,

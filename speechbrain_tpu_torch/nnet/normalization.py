@@ -1,6 +1,9 @@
-"""Normalization layers (port of ``speechbrain_tpu/nnet/normalization.py``).
+"""Normalization layers (port of ``LayerNorm``, ``BatchNorm1d`` and
+``BatchNorm2d`` from ``speechbrain_tpu/nnet/normalization.py``).
 
-Only ``LayerNorm`` is ported so far.
+BatchNorm keeps its running statistics in buffers (``running_mean``,
+``running_var``), which ride in the module's ``state_dict`` and so in every
+checkpoint, and follows the module's ``train()``/``eval()``.
 """
 
 import torch
@@ -44,3 +47,72 @@ class LayerNorm(nn.Module):
         return F.layer_norm(
             x, (self.input_size,), self.weight, self.bias, self.eps
         )
+
+
+class BatchNorm1d(nn.Module):
+    """BatchNorm over the channel (last) axis of ``(batch, time, channel)``
+    or ``(batch, channel)`` inputs, as flax's ``BatchNorm`` computes it.
+
+    In training mode the statistics are taken over every axis but the
+    last, padded frames included, in float32: the mean and the biased
+    variance ``E[x^2] - E[x]^2`` (clipped at 0). The running statistics
+    move as ``r = momentum * r + (1 - momentum) * s`` with the same biased
+    variance (``torch.nn.BatchNorm1d`` would fold in the unbiased one).
+    In evaluation mode the running statistics normalise.
+
+    Example
+    -------
+    >>> bn = BatchNorm1d(input_size=40, device="cpu")
+    >>> bn(torch.ones(8, 120, 40)).shape
+    torch.Size([8, 120, 40])
+    """
+
+    def __init__(self, input_size, eps=1e-5, momentum=0.9, affine=True,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        self.input_size = input_size
+        self.eps = eps
+        self.momentum = momentum
+        if affine:
+            self.weight = nn.Parameter(
+                torch.ones(input_size, device=device, dtype=dtype)
+            )
+            self.bias = nn.Parameter(
+                torch.zeros(input_size, device=device, dtype=dtype)
+            )
+        else:
+            self.weight = None
+            self.bias = None
+        self.register_buffer(
+            "running_mean",
+            torch.zeros(input_size, device=device, dtype=torch.float32),
+        )
+        self.register_buffer(
+            "running_var",
+            torch.ones(input_size, device=device, dtype=torch.float32),
+        )
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.float()
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(BatchNorm1d):
+    """BatchNorm for ``(batch, time, feat, channel)`` inputs (NHWC): the
+    statistics over batch, time and feature, one per channel."""

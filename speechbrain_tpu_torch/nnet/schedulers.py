@@ -1,5 +1,6 @@
-"""Learning-rate schedulers (port of ``NoamScheduler`` and
-``update_learning_rate`` from ``speechbrain_tpu/nnet/schedulers.py``).
+"""Learning-rate schedulers (port of ``NoamScheduler``,
+``NewBobScheduler`` and ``update_learning_rate`` from
+``speechbrain_tpu/nnet/schedulers.py``).
 
 A scheduler is stepped by hand and its learning rate written into a
 ``torch.optim`` optimizer with :func:`update_learning_rate`. Schedulers
@@ -97,3 +98,58 @@ class NoamScheduler:
     @mark_as_loader
     def _load(self, path, end_of_epoch=False):
         _load_attrs(self, path, ["current_lr", "n_steps"])
+
+
+@register_checkpoint_hooks
+class NewBobScheduler:
+    """Anneal the rate by ``annealing_factor`` when the metric's relative
+    improvement over the previous call falls below
+    ``improvement_threshold``, after ``patient`` such calls.
+
+    ``sch(metric)`` returns ``(old_value, new_value)``.
+
+    Example
+    -------
+    >>> sch = NewBobScheduler(initial_value=1.0, annealing_factor=0.5)
+    >>> sch(1.0)
+    (1.0, 1.0)
+    >>> sch(1.1)  # got worse -> anneal
+    (1.0, 0.5)
+    """
+
+    def __init__(self, initial_value, annealing_factor=0.5,
+                 improvement_threshold=0.0025, patient=0):
+        self.hyperparam_value = initial_value
+        self.annealing_factor = annealing_factor
+        self.improvement_threshold = improvement_threshold
+        self.patient = patient
+        self.metric_values = []
+        self.current_patient = self.patient
+
+    def __call__(self, metric_value):
+        old_value = new_value = self.hyperparam_value
+        if len(self.metric_values) > 0:
+            prev_metric = self.metric_values[-1]
+            if prev_metric == 0:
+                improvement = 0
+            else:
+                improvement = (prev_metric - metric_value) / prev_metric
+            if improvement < self.improvement_threshold:
+                if self.current_patient == 0:
+                    new_value = old_value * self.annealing_factor
+                    self.current_patient = self.patient
+                else:
+                    self.current_patient -= 1
+        self.metric_values.append(float(metric_value))
+        self.hyperparam_value = new_value
+        return old_value, new_value
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path,
+                    ["hyperparam_value", "metric_values", "current_patient"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=False):
+        _load_attrs(self, path,
+                    ["hyperparam_value", "metric_values", "current_patient"])

@@ -17,7 +17,19 @@ the way:
   ``hyper/w1_gen``, ``hyper/w2_gen``, ``out_proj``;
 * Branchformer layers: ``norm_attn``, the attention, ``norm_conv``,
   ``cgmlp/up``, ``cgmlp/csgu/norm``, ``cgmlp/csgu/dw_conv``, ``cgmlp/down``,
-  ``merge``; the stack's ``norm_out``.
+  ``merge``; the stack's ``norm_out``;
+* ``BatchNorm1d``/``BatchNorm2d``: ``scale``/``bias`` inside flax's
+  ``BatchNorm_0`` scope, and from the ``batch_stats`` collection its
+  ``mean``/``var`` into the running buffers;
+* recurrent layers: per layer ``i`` and direction ``d`` the input
+  projection ``wx_l{i}_d{d}``, the recurrent matrix ``wh_l{i}_d{d}``
+  (flax's ``(H, gates*H)`` -> ``(gates*H, H)``), the GRU's ``bh_l{i}_d{d}``,
+  the LiGRU's ``norm_l{i}_d{d}``; ``QuasiRNN``'s ``conv_l{i}_d{d}``; the
+  ``AttentionalRNNDecoder``'s ``attn``, ``proj``, ``wx_{l}``, ``wh_{l}``,
+  ``bh_{l}``; ``CRDNN`` and ``RNNLM`` by their flax names.
+
+Variables that hold a ``"batch_stats"`` collection beside ``"params"`` load
+both; given ``"params"`` alone, running statistics keep their values.
 
 A key that a module needs and the tree lacks, or one the tree holds and no
 module takes, raises ``KeyError``.
@@ -33,6 +45,8 @@ from speechbrain_tpu_torch.lobes.models.Branchformer import (
     ConvolutionBranch,
 )
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
+from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN, FeatureChannelNorm
+from speechbrain_tpu_torch.lobes.models.RNNLM import RNNLM
 from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
     ConformerDecoder,
     ConformerEncoder,
@@ -53,6 +67,9 @@ from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
     TransformerLM,
 )
 from speechbrain_tpu_torch.nnet.attention import (
+    ContentBasedAttention,
+    KeyValueAttention,
+    LocationAwareAttention,
     MultiheadAttention,
     PositionalwiseFeedForward,
     RelPosMHAXL,
@@ -62,7 +79,20 @@ from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing, HyperNetwork
 from speechbrain_tpu_torch.nnet.linear import Linear
-from speechbrain_tpu_torch.nnet.normalization import LayerNorm
+from speechbrain_tpu_torch.nnet.normalization import (
+    BatchNorm1d,
+    BatchNorm2d,
+    LayerNorm,
+)
+from speechbrain_tpu_torch.nnet.RNN import (
+    GRU,
+    LSTM,
+    RNN,
+    AttentionalRNNDecoder,
+    LiGRU,
+    QuasiRNN,
+    SLiGRU,
+)
 
 # names flax gives the unnamed attention submodule of a compact layer
 _FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0",
@@ -70,29 +100,44 @@ _FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0",
 
 
 class _Scope:
-    """A flax parameter sub-tree that remembers which keys were taken."""
+    """A flax parameter sub-tree that remembers which keys were taken, with
+    the same sub-tree of the ``batch_stats`` collection beside it (None
+    where the variables hold no such collection)."""
 
-    def __init__(self, tree, path="params"):
+    def __init__(self, tree, path="params", stats=None):
         if not isinstance(tree, dict):
             raise KeyError(f"{path}: expected a dict of parameters")
         self.tree = dict(tree)
         self.path = path
+        self.stats = None if stats is None else dict(stats)
 
     def has(self, key):
-        return key in self.tree
+        return key in self.tree or bool(self.stats and key in self.stats)
 
     def take(self, key):
         if key not in self.tree:
             raise KeyError(f"missing parameter {self.path}/{key}")
         return self.tree.pop(key)
 
+    def take_stat(self, key):
+        if key not in self.stats:
+            raise KeyError(f"missing batch statistic {self.path}/{key}")
+        return self.stats.pop(key)
+
     def sub(self, key):
-        return _Scope(self.take(key), f"{self.path}/{key}")
+        stats = None if self.stats is None else self.stats.pop(key, {})
+        tree = self.tree.pop(key, {}) if stats else self.take(key)
+        return _Scope(tree, f"{self.path}/{key}", stats)
 
     def done(self):
         if self.tree:
             raise KeyError(
                 f"unused parameters under {self.path}: {sorted(self.tree)}"
+            )
+        if self.stats:
+            raise KeyError(
+                f"unused batch statistics under {self.path}: "
+                f"{sorted(self.stats)}"
             )
 
 
@@ -285,6 +330,98 @@ def load_transformer_lm(module, scope):
     scope.done()
 
 
+def load_batchnorm(module, scope):
+    inner = scope.sub("BatchNorm_0") if scope.has("BatchNorm_0") else scope
+    if module.weight is not None:
+        _copy(module.weight, inner.take("scale"), f"{inner.path}/scale")
+        _copy(module.bias, inner.take("bias"), f"{inner.path}/bias")
+    if inner.stats is not None:
+        _copy(module.running_mean, inner.take_stat("mean"),
+              f"{inner.path}/mean")
+        _copy(module.running_var, inner.take_stat("var"),
+              f"{inner.path}/var")
+    inner.done()
+    scope.done()
+
+
+def _load_transposed(param, scope, key):
+    _copy(param, np.transpose(np.asarray(scope.take(key))),
+          f"{scope.path}/{key}")
+
+
+def load_rnn(module, scope):
+    for layer in range(module.num_layers):
+        for d in range(module.dirs):
+            i, tag = module.index(layer, d), f"l{layer}_d{d}"
+            load(module.wx[i], scope.sub(f"wx_{tag}"))
+            _load_transposed(module.wh[i], scope, f"wh_{tag}")
+            if getattr(module, "recurrent_bias", False):
+                _copy(module.bh[i], scope.take(f"bh_{tag}"),
+                      f"{scope.path}/bh_{tag}")
+            if len(getattr(module, "norm", ())):
+                load(module.norm[i], scope.sub(f"norm_{tag}"))
+    scope.done()
+
+
+def load_quasi_rnn(module, scope):
+    for layer in range(module.num_layers):
+        for d in range(module.dirs):
+            load(module.conv[layer * module.dirs + d],
+                 scope.sub(f"conv_l{layer}_d{d}"))
+    scope.done()
+
+
+def load_content_attention(module, scope):
+    _load_children(module, scope,
+                   ("mlp_enc", "mlp_dec", "mlp_attn", "mlp_out"))
+    scope.done()
+
+
+def load_location_attention(module, scope):
+    _load_children(module, scope, ("mlp_enc", "mlp_dec", "conv_loc",
+                                   "mlp_loc", "mlp_attn", "mlp_out"))
+    scope.done()
+
+
+def load_keyvalue_attention(module, scope):
+    _load_children(module, scope,
+                   ("key_linear", "value_linear", "query_linear"))
+    scope.done()
+
+
+def load_attentional_rnn_decoder(module, scope):
+    _load_children(module, scope, ("attn", "proj"))
+    for layer in range(module.num_layers):
+        load(module.wx[layer], scope.sub(f"wx_{layer}"))
+        _load_transposed(module.wh[layer], scope, f"wh_{layer}")
+        _copy(module.bh[layer], scope.take(f"bh_{layer}"),
+              f"{scope.path}/bh_{layer}")
+    scope.done()
+
+
+def load_crdnn(module, scope):
+    for b in range(module.cnn_blocks):
+        for k in range(2):
+            load(module.convs[2 * b + k], scope.sub(f"conv_{b}_{k}"))
+            load(module.cnn_norms[2 * b + k], scope.sub(f"cnn_norm_{b}_{k}"))
+    if module.proj is not None:
+        load(module.proj, scope.sub("proj"))
+    load(module.rnn, scope.sub("rnn"))
+    for b, (lin, norm) in enumerate(zip(module.dnn, module.dnn_norms)):
+        load(lin, scope.sub(f"dnn_{b}"))
+        load(norm, scope.sub(f"dnn_norm_{b}"))
+    scope.done()
+
+
+def load_rnnlm(module, scope):
+    _load_children(module, scope, ("emb", "rnn"))
+    for i, (lin, norm) in enumerate(zip(module.dnn, module.norm)):
+        load(lin, scope.sub(f"dnn_{i}"))
+        load(norm, scope.sub(f"norm_{i}"))
+    load(module.out, scope.sub("out"))
+    scope.done()
+
+
 _LOADERS = {
     Linear: load_linear,
     Conv1d: load_conv1d,
@@ -313,6 +450,21 @@ _LOADERS = {
     ConvolutionFrontEnd: load_convolution_frontend,
     TransformerASR: load_transformer_asr,
     TransformerLM: load_transformer_lm,
+    BatchNorm1d: load_batchnorm,
+    BatchNorm2d: load_batchnorm,
+    FeatureChannelNorm: load_layernorm,
+    LSTM: load_rnn,
+    GRU: load_rnn,
+    RNN: load_rnn,
+    LiGRU: load_rnn,
+    SLiGRU: load_rnn,
+    QuasiRNN: load_quasi_rnn,
+    ContentBasedAttention: load_content_attention,
+    LocationAwareAttention: load_location_attention,
+    KeyValueAttention: load_keyvalue_attention,
+    AttentionalRNNDecoder: load_attentional_rnn_decoder,
+    CRDNN: load_crdnn,
+    RNNLM: load_rnnlm,
 }
 
 
@@ -321,9 +473,10 @@ def load_modules(modules, variables):
     recipes' ``{"frontend": ..., "model": ..., "ctc_head": ...,
     "seq_head": ...}`` — into the same-named entries of ``modules`` (a
     dict or ``nn.ModuleDict``), in place; returns ``modules``. A module
-    the tree lacks, or a key no module takes, raises ``KeyError``."""
-    if set(variables) == {"params"}:
-        variables = variables["params"]
+    the tree lacks, or a key no module takes, raises ``KeyError``. With a
+    ``"batch_stats"`` collection beside ``"params"`` (keyed by module the
+    same way), the running statistics load too."""
+    variables, stats = _split_collections(variables)
     missing = sorted(set(modules.keys()) - set(variables))
     unused = sorted(set(variables) - set(modules.keys()))
     if missing:
@@ -331,8 +484,20 @@ def load_modules(modules, variables):
     if unused:
         raise KeyError(f"unused parameters of modules {unused}")
     for name in modules.keys():
-        load(modules[name], _Scope(variables[name], f"params/{name}"))
+        load(modules[name], _Scope(
+            variables[name], f"params/{name}",
+            None if stats is None else stats.get(name, {}),
+        ))
     return modules
+
+
+def _split_collections(variables):
+    """(params, batch_stats or None) of flax variables given with their
+    collections, or of a bare parameter tree."""
+    if "params" in variables and set(variables) <= {"params",
+                                                    "batch_stats"}:
+        return variables["params"], variables.get("batch_stats")
+    return variables, None
 
 
 def load(module, variables):
@@ -348,8 +513,7 @@ def load(module, variables):
     if isinstance(variables, _Scope):
         scope = variables
     else:
-        if set(variables) == {"params"}:
-            variables = variables["params"]
-        scope = _Scope(variables)
+        params, stats = _split_collections(variables)
+        scope = _Scope(params, "params", stats)
     loader(module, scope)
     return module

@@ -144,6 +144,29 @@ def test_fused_fbank_kernel_matches_plain_and_unfused(card, case):
     assert float((out - unfused).abs().max()) <= 5e-3
 
 
+@pytest.mark.parametrize("case", ["noise_hop10", "chirp", "bursts",
+                                  "frames65", "frames129"])
+def test_fused_fbank_kernel_at_40_mels(card, case):
+    """The CRDNN recipe's front end: n_fft 400 and 40 mel filters, whose
+    widest filter spans about twice the bins of the 80-filter bank's."""
+    kind, batch, samples, hop_ms, n_fft = _FBANK_CASES[case]
+    wav = torch.from_numpy(
+        make_check_signal(kind, batch, samples, seed=hop_ms + 40)
+    ).to(card)
+    fused = Fbank(n_mels=40, hop_length=hop_ms, n_fft=n_fft, fused=True,
+                  device=card)
+    before = mel_frontend.launches
+    out = fused(wav)
+    assert mel_frontend.launches == before + 1
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    unfused = Fbank(n_mels=40, hop_length=hop_ms, n_fft=n_fft,
+                    device=card)(wav)
+    assert out.shape == unfused.shape == plain.shape
+    assert out.shape[-1] == 40
+    assert float((out - plain).abs().max()) <= 5e-3
+    assert float((out - unfused).abs().max()) <= 5e-3
+
+
 @pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])
 def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
     """Through ``fused_fbank`` itself: hops that take the span's 4-byte

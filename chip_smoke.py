@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives nine paths at full width with random weights
+(``grad_guard``), and drives eleven paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -71,7 +71,25 @@ LibriSpeech recipe:
   variant; two bf16 Adadelta steps of the twin ``ASR`` on TRAIN's WAV
   corpus and its valid stage (``fused_fbank`` on every batch), one
   float32 step through the kernel against its plain version; two AdamW
-  steps of the LM twin at batch 80.
+  steps of the LM twin at batch 80;
+- ``transducer_path``: the LibriSpeech Conformer transducer recipe
+  (``conformer_transducer.yaml``: 12 Conformer layers of 512, an LSTM
+  prediction network of 512, an additive joint of 640, 1000 outputs):
+  NORTH's batch through the twin's ``transcribe_batch`` in bf16, greedy,
+  by beam search (beam 4) and by beam search fused with the RNNLM of
+  ``crdnn_path`` at 0.5 (``fused_fbank`` once each); greedy in float32
+  through the kernel and its plain version (encoder states within 1e-5,
+  tokens equal over 50 frames); two bf16 AdamW steps of the twin on
+  TRAIN's WAV corpus and its valid stage (``fused_fbank`` on every batch),
+  the transducer loss's own forward and backward timed, and a float32 step
+  through the kernel against its plain version;
+- ``ctc_path``: the LibriSpeech CTC twin's three hparams files at full
+  width (``conformer_large`` served through ``transcribe_batch`` and
+  trained two steps, ``train`` and ``branchformer_large`` one step each),
+  BayesSpeech two steps with every weight drawn from its posterior and a
+  float32 evaluation forward through the kernel and its plain version,
+  and the Transformer LM two steps (``fused_fbank`` on every batch of the
+  ASR twins).
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -138,11 +156,13 @@ from speechbrain_tpu_torch.nnet.containers import LengthsCapableSequential
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.linear import Linear
 from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d
-from speechbrain_tpu_torch.nnet.RNN import AttentionalRNNDecoder
+from speechbrain_tpu_torch.nnet.RNN import LSTM, AttentionalRNNDecoder
 from speechbrain_tpu_torch.nnet.schedulers import (
     NewBobScheduler,
     NoamScheduler,
 )
+from speechbrain_tpu_torch.nnet.transducer_joint import TransducerJoint
+from speechbrain_tpu_torch.nnet.transducer_loss import transducer_loss
 from speechbrain_tpu_torch.ops import (
     _build,
     attention,
@@ -151,11 +171,20 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.CTC import (
+    train as ctc_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.seq2seq import (
     train as seq2seq_recipe,
 )
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transducer import (
+    train as transducer_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer import (
     train as recipe,
+)
+from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer import (
+    train_bayesspeech as bayes_recipe,
 )
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
     ASR,
@@ -3409,10 +3438,11 @@ def _crdnn_transcribe(asr, wavs, lens, autocast):
             "decode_ms": asr.last_decode_ms, "steps": searcher.last_steps}
 
 
-class TimedCRDNNBrain(seq2seq_recipe.ASR):
-    """The twin's ``ASR`` with forward counts a stage, each micro-batch's
-    loss read on the host and its time by CUDA events, the train stage's
-    audio seconds, and the losses of the valid stage."""
+class TimedSteps:
+    """Readings for a twin recipe's Brain (put before the Brain in the
+    bases): forward passes a stage, each micro-batch's loss read on the
+    host and its time by CUDA events (from its start to its update), the
+    train stage's audio seconds, and the losses of the valid stage."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -3430,8 +3460,10 @@ class TimedCRDNNBrain(seq2seq_recipe.ASR):
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         self.step_events.append([start, None])
+        super().on_fit_batch_start(batch)
 
     def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        super().on_fit_batch_end(batch, outputs, loss, should_step)
         end = torch.cuda.Event(enable_timing=True)
         end.record()
         self.step_events[-1][1] = end
@@ -3445,6 +3477,10 @@ class TimedCRDNNBrain(seq2seq_recipe.ASR):
     def step_ms(self):
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+class TimedCRDNNBrain(TimedSteps, seq2seq_recipe.ASR):
+    """The CRDNN twin's ``ASR`` with :class:`TimedSteps`' readings."""
 
 
 def crdnn_brain(cfg, modules, out_dir=None, precision="bf16", seed=2602,
@@ -3765,6 +3801,713 @@ def run_crdnn_path(out_dir, paths, cfg=CRDNN_CFG, device="cuda"):
             "train": train["launches"]["fused_fbank"]}
 
 
+# -- the transducer: the LibriSpeech conformer transducer recipe -------------
+
+# The LibriSpeech Conformer transducer recipe
+# (recipes/LibriSpeech/ASR/transducer/hparams/conformer_transducer.yaml, twin
+# under speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transducer/) at its full
+# width and depth, random weights from a seed; the search at the JAX
+# searcher's defaults (beam 4, as the YAML's comment names it); the RNNLM of
+# crdnn_path (RNNLM.yaml: 1000 outputs, the same vocabulary) fused at 0.5.
+TRANSDUCER_CFG = dict(
+    n_mels=80, n_fft=400, fe_channels=(64, 32), d_model=512, nhead=8,
+    d_ffn=2048, enc_layers=12, kernel_size=31, dropout=0.1, joint_dim=640,
+    joint="sum", dec_neurons=512, emb_size=128, vocab=1000, blank=0,
+    bos=0, eos=0, lr=8e-4, ctc_weight=0.3, batch_size=8,
+)
+TRANSDUCER_DECODE = dict(beam_size=4, nbest=5, state_beam=2.3,
+                         expand_beam=2.3, max_symbols_per_step=10)
+TRANSDUCER_LM_WEIGHT = 0.5
+TRANSDUCER_REDUCED = {
+    "weights": "trained checkpoints -> random weights from a seed",
+    "train": "50 epochs of LibriSpeech 960 h -> two AdamW steps of 8 "
+             "utterances of TRAIN's synthetic corpus (8-12 s; its token ids "
+             "folded into 1..999 in place of BPE-1000), then its valid split",
+    "serve": "LibriSpeech test-clean -> NORTH's batch, 8 x 10 s of noise",
+    "lm": "the recipe fuses none; RNNLM.yaml's LM (random weights) at 0.5",
+    "fp32_comparison": "greedy tokens held equal over the first 50 encoder "
+                       "frames, and read over all 251: a random-weight "
+                       "search may flip on a near tie (crdnn_path's C32)",
+}
+TRANSDUCER_ENC_ATOL = 1e-5
+TRANSDUCER_CMP_FRAMES = 50
+TRANSDUCER_LOSS_RTOL = 1e-6
+TRANSDUCER_TRAIN_STEPS = 2
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def transducer_modules(cfg, device="cuda", seed=0, dropout=None):
+    """The recipe's nine modules (``frontend``, ``encoder``, ``enc_proj``,
+    ``emb``, ``dec``, ``dec_proj``, ``joint``, ``out``, ``ctc_head``),
+    random weights from ``seed``. The front end's dropout is its default,
+    0.1, as the YAML's, the same value as the encoder's."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    drop = cfg["dropout"] if dropout is None else dropout
+    J = cfg["joint_dim"]
+    n_feat = (cfg["n_mels"] + 3) // 4 * cfg["fe_channels"][-1]
+    return {
+        "frontend": ConvolutionFrontEnd(
+            num_blocks=2, out_channels=cfg["fe_channels"],
+            kernel_sizes=(3, 3), strides=(2, 2), dropout=drop, **kw),
+        "encoder": TransformerASR(
+            tgt_vocab=cfg["vocab"], input_size=n_feat,
+            d_model=cfg["d_model"], nhead=cfg["nhead"],
+            num_encoder_layers=cfg["enc_layers"], num_decoder_layers=0,
+            d_ffn=cfg["d_ffn"], dropout=drop, encoder_module="conformer",
+            kernel_size=cfg["kernel_size"], **kw),
+        "enc_proj": Linear(J, cfg["d_model"], **kw),
+        "emb": Embedding(cfg["vocab"], cfg["emb_size"], **kw),
+        "dec": LSTM(cfg["dec_neurons"], cfg["emb_size"], **kw),
+        "dec_proj": Linear(J, cfg["dec_neurons"], **kw),
+        "joint": TransducerJoint(J, J, J, joint=cfg["joint"], **kw),
+        "out": Linear(cfg["vocab"], J, **kw),
+        "ctc_head": Linear(cfg["vocab"], J, **kw),
+    }
+
+
+def transducer_hparams(cfg, device="cuda", out_dir=None):
+    """The twin recipe's hparams that its Brain reads, built in Python."""
+    hparams = {
+        "compute_features": Fbank(n_fft=cfg["n_fft"], n_mels=cfg["n_mels"],
+                                  fused=True, device=device),
+        "normalize": InputNormalization(norm_type="sentence"),
+        "ctc_weight": cfg["ctc_weight"], "blank_index": cfg["blank"],
+        "lr_annealing": NewBobScheduler(initial_value=cfg["lr"],
+                                        improvement_threshold=0.0025,
+                                        annealing_factor=0.8),
+        "epoch_counter": EpochCounter(1),
+    }
+    if out_dir is not None:
+        hparams["train_logger"] = FileTrainLogger(
+            os.path.join(out_dir, "train_log.txt"))
+    return hparams
+
+
+class TimedTransducerBrain(TimedSteps, transducer_recipe.TransducerASR):
+    """The transducer twin's Brain with :class:`TimedSteps`' readings."""
+
+
+def transducer_brain(cfg, modules, out_dir=None, precision="bf16",
+                     seed=7402, device="cuda", brain_cls=TimedTransducerBrain):
+    """The twin's Brain over ``modules``: AdamW, NewBob, a stop after
+    ``TRANSDUCER_TRAIN_STEPS`` optimizer steps."""
+    return brain_cls(
+        modules=modules, opt_class=recipe.adamw(cfg["lr"]),
+        hparams=transducer_hparams(cfg, device=device, out_dir=out_dir),
+        run_opts={"device": device, "precision": precision,
+                  "noprogressbar": True, "seed": seed,
+                  "optimizer_step_limit": TRANSDUCER_TRAIN_STEPS})
+
+
+class TimedSearch:
+    """A searcher that notes when it is called (the encode before it has
+    ended; the device is synchronized first), when its search ends, and
+    the frames it is handed."""
+
+    def __init__(self, searcher, device):
+        self.searcher, self.device = searcher, device
+        self.frames = self.t_start = self.t_end = None
+
+    def __call__(self, enc):
+        _sync(self.device)
+        self.t_start = time.perf_counter()
+        self.frames = enc.shape[1]
+        out = self.searcher(enc)
+        _sync(self.device)
+        self.t_end = time.perf_counter()
+        return out
+
+
+def _transducer_transcribe(brain, searcher, wavs, lens, autocast):
+    """One ``TransducerASR.transcribe_batch`` (launch counts from 0, bf16
+    autocast or float32): tokens, scores, launches, encode and decode
+    ms, the frames handed to the searcher."""
+    timed = TimedSearch(searcher, wavs.device)
+    reset_launch_counts()
+    _sync(wavs.device)
+    t0 = time.perf_counter()
+    with torch.autocast(wavs.device.type, dtype=torch.bfloat16,
+                        enabled=autocast):
+        hyps, scores, _, _ = brain.transcribe_batch(wavs, lens, timed)
+    return {"hyps": hyps, "scores": scores, "launches": launch_counts(),
+            "encode_ms": (timed.t_start - t0) * 1e3,
+            "decode_ms": (timed.t_end - timed.t_start) * 1e3,
+            "frames": timed.frames}
+
+
+def run_transducer_serve(cfg, brain, lm, device="cuda"):
+    """NORTH's batch through ``transcribe_batch``: bf16 greedy, beam search
+    at the searcher's defaults, and the same fused with ``lm``; then
+    float32 through B3 and through its plain version, held on the encoder
+    states and on the greedy tokens of the first ``TRANSDUCER_CMP_FRAMES``
+    frames, and read over all frames."""
+    wavs, lens = make_waveforms(NORTH, device)
+    greedy = brain.make_searcher(
+        beam_size=1,
+        max_symbols_per_step=TRANSDUCER_DECODE["max_symbols_per_step"])
+    beam = brain.make_searcher(**TRANSDUCER_DECODE)
+    fused = brain.make_searcher(lm=lm, lm_weight=TRANSDUCER_LM_WEIGHT,
+                                **TRANSDUCER_DECODE)
+    # cuDNN's plans and the first calls of every shape and type
+    short = wavs[:2, :SR].contiguous()
+    for autocast in (True, False):
+        _transducer_transcribe(brain, greedy, short, lens[:2], autocast)
+    _transducer_transcribe(brain, fused, short[:, :SR // 4].contiguous(),
+                           lens[:2], True)
+    runs = {"bf16_greedy": _transducer_transcribe(brain, greedy, wavs, lens,
+                                                  True),
+            "bf16_beam": _transducer_transcribe(brain, beam, wavs, lens,
+                                                True),
+            "bf16_beam_lm": _transducer_transcribe(brain, fused, wavs, lens,
+                                                   True),
+            "fp32_greedy_kernel": _transducer_transcribe(brain, greedy, wavs,
+                                                         lens, False)}
+    with plain_versions("fused_fbank"):
+        runs["fp32_greedy_plain"] = _transducer_transcribe(
+            brain, greedy, wavs, lens, False)
+    with torch.no_grad():
+        enc_kernel, enc_lens = brain.encode(wavs, lens)
+        with plain_versions("fused_fbank"):
+            enc_plain, _ = brain.encode(wavs, lens)
+        prefix_kernel = greedy(enc_kernel[:, :TRANSDUCER_CMP_FRAMES])[0]
+        prefix_plain = greedy(enc_plain[:, :TRANSDUCER_CMP_FRAMES])[0]
+    enc_diff = (enc_kernel - enc_plain).abs().max().item()
+    valid_frames = int(round(float(enc_lens.max()) * enc_kernel.shape[1]))
+    kernel, plain = runs["fp32_greedy_kernel"], runs["fp32_greedy_plain"]
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    audio_s = wavs.shape[0] * wavs.shape[1] / SR
+    lines = {}
+    for name, run in runs.items():
+        lines[name] = {
+            "encode_ms": run["encode_ms"], "decode_ms": run["decode_ms"],
+            "audio_s_per_s": audio_s * 1e3 / (run["encode_ms"]
+                                              + run["decode_ms"]),
+            "launches": run["launches"],
+            "emitted_tokens": sum(len(h) for h in run["hyps"]),
+            "hyp_lengths": [len(h) for h in run["hyps"]],
+            "scores": run["scores"],
+        }
+    lines["searcher_input"] = {
+        "frames": runs["bf16_greedy"]["frames"],
+        "encoder_frames_padded": enc_kernel.shape[1],
+        "valid_frames": valid_frames,
+        "padded_to_a_multiple_of_128": runs["bf16_greedy"]["frames"] % 128
+        == 0,
+        "padding_frames_decoded": runs["bf16_greedy"]["frames"]
+        - valid_frames,
+    }
+    lines["fp32_full_read"] = {
+        "utterances_with_equal_tokens": sum(
+            a == b for a, b in zip(kernel["hyps"], plain["hyps"])),
+        "first_differing_token": [
+            next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+            for a, b in zip(kernel["hyps"], plain["hyps"])],
+    }
+    lines["fp32_compared"] = {
+        "frames": TRANSDUCER_CMP_FRAMES,
+        "tokens": sum(len(h) for h in prefix_kernel),
+        "encoder_states_max_diff": enc_diff,
+        "encoder_states_atol": TRANSDUCER_ENC_ATOL,
+    }
+    vocab_ok = all(0 < t < cfg["vocab"] for r in runs.values()
+                   for h in r["hyps"] for t in h)
+    checks = {
+        "b3_once_a_transcribe": all(r["launches"] == b3_once
+                                    for n, r in runs.items()
+                                    if n != "fp32_greedy_plain"),
+        "plain_run_no_kernel": sum(
+            runs["fp32_greedy_plain"]["launches"].values()) == 0,
+        "fp32_encoder_states_close": enc_diff <= TRANSDUCER_ENC_ATOL,
+        "fp32_tokens_equal_over_prefix": prefix_kernel == prefix_plain,
+        "no_padding_frame_decoded": lines["searcher_input"][
+            "padding_frames_decoded"] == 0,
+        "beam_scores_finite": all(
+            np.isfinite(runs[n]["scores"]).all()
+            for n in ("bf16_beam", "bf16_beam_lm")),
+        "lm_fusion_changes_scores": runs["bf16_beam"]["scores"]
+        != runs["bf16_beam_lm"]["scores"],
+        "tokens_in_vocab_not_blank": vocab_ok,
+        "eight_utterances": all(len(r["hyps"]) == wavs.shape[0]
+                                for r in runs.values()),
+        "tokens_emitted": all(sum(len(h) for h in r["hyps"]) > 0
+                              for r in runs.values()),
+    }
+    return checks, lines
+
+
+def time_transducer_loss(brain, batch, iters=5):
+    """The transducer loss alone at a training batch's shape: the bf16
+    forward's float32 log-probabilities (B, T, U+1, V) computed once, then
+    ``iters`` times the loss's forward and its backward, each by CUDA
+    events (the host's launch time included, as in a step)."""
+    blank = brain.hparams.blank_index
+    batch = brain._prepare_batch(batch)
+    brain.modules.eval()
+    with torch.no_grad(), torch.autocast(brain.device.type,
+                                         dtype=torch.bfloat16):
+        logp, enc_lens, *_ = brain.compute_forward(batch, Stage.VALID)
+    tokens, tok_lens = batch["tokens"]
+    fwd, bwd = [], []
+    for _ in range(iters):
+        x = logp.detach().requires_grad_(True)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        loss = transducer_loss(x, tokens, enc_lens, tok_lens, blank)
+        marks[1].record()
+        loss.backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+        fwd.append(marks[0].elapsed_time(marks[1]))
+        bwd.append(marks[1].elapsed_time(marks[2]))
+    return {"log_probs_shape": list(logp.shape),
+            "forward_ms": fwd, "backward_ms": bwd,
+            "forward_ms_median": float(np.median(fwd)),
+            "backward_ms_median": float(np.median(bwd)),
+            "loss": float(loss.detach())}
+
+
+def transducer_step_kernel_vs_plain(cfg, batch, device="cuda"):
+    """One float32 training micro-batch (dropout 0, the same seed-3
+    weights) through B3 and through its plain version: the losses."""
+    out = {}
+    for arm in ("kernel", "plain"):
+        modules = transducer_modules(cfg, device=device, seed=3, dropout=0.0)
+        brain = transducer_brain(cfg, modules, precision="fp32",
+                                 device=device,
+                                 brain_cls=transducer_recipe.TransducerASR)
+        brain.init_optimizers()
+        brain.modules.train()
+        ctx = plain_versions("fused_fbank") if arm == "plain" \
+            else contextlib.nullcontext()
+        with ctx:
+            brain.fit_batch(batch)
+            out[arm] = brain._flush_pending_loss()
+        del brain, modules
+        gc.collect()
+        torch.cuda.empty_cache()
+    lk, lp = out["kernel"], out["plain"]
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "loss_rtol": TRANSDUCER_LOSS_RTOL}
+
+
+def run_transducer_train(cfg, modules, out_dir, paths, device="cuda"):
+    """Two bf16 AdamW steps of the twin's Brain (8 utterances a batch, B3
+    on every batch), then its valid stage (NewBob); the loss alone at the
+    first batch's shape; one float32 step through B3 against its plain
+    version."""
+    train = asr_dataset(paths["train"], cfg, train=True, fold=True)
+    valid = asr_dataset(paths["valid"], cfg, train=False, fold=True)
+    brain = transducer_brain(cfg, modules, out_dir=out_dir, device=device)
+    loader = {"batch_size": cfg["batch_size"],
+              "pad_to_multiple": {"sig": transducer_recipe.SIG_PAD_MULTIPLE}}
+    gc.collect()
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain.fit(brain.hparams.epoch_counter, train, valid,
+              train_loader_kwargs=loader, valid_loader_kwargs=loader)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_fwd
+    step_ms = brain.step_ms()
+    forwards = {s.name: c for s, c in brain.forwards.items()}
+    batch = next(iter(make_dataloader(train, **loader)))
+    loss_alone = time_transducer_loss(brain, batch)
+    loss_alone["share_of_median_step"] = (
+        (loss_alone["forward_ms_median"] + loss_alone["backward_ms_median"])
+        / float(np.median(step_ms)))
+    line = {
+        "optimizer_steps": brain.optimizer_step, "forwards": forwards,
+        "launches": counts, "expected_launches": expected,
+        "losses": brain.losses, "valid_losses": brain.valid_losses,
+        "lr_after_valid": brain.optimizer.param_groups[0]["lr"],
+        "step_ms": step_ms,
+        "audio_s_per_s": brain.audio_seconds * 1e3 / sum(step_ms),
+        "seconds": seconds, "max_memory_allocated_bytes": peak,
+        "batch_shape": list(batch["sig"].data.shape),
+        "transducer_loss_alone": loss_alone,
+    }
+    ok = (counts == expected
+          and brain.optimizer_step == TRANSDUCER_TRAIN_STEPS
+          and brain.forwards[Stage.TRAIN] == TRANSDUCER_TRAIN_STEPS
+          and all(np.isfinite(brain.losses + brain.valid_losses)))
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["fp32_kernel_vs_plain"] = cmp = transducer_step_kernel_vs_plain(
+        cfg, batch, device=device)
+    line["ok"] = bool(ok and cmp["loss_rel_diff"] <= TRANSDUCER_LOSS_RTOL)
+    return line
+
+
+def run_transducer_path(out_dir, paths, cfg=TRANSDUCER_CFG, lm_cfg=CRDNN_CFG,
+                        device="cuda"):
+    """The transducer recipe at full width: served greedy and by beam
+    search with and without the RNNLM (bf16), greedy in float32 through B3
+    and its plain version, two training steps and the valid stage.
+    Returns B3's launches in each run and the first training batch's
+    waveform shape."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    modules = transducer_modules(cfg, device=device)
+    lm = crdnn_lm(lm_cfg, device=device).eval()
+    n_params = sum(p.numel() for m in modules.values()
+                   for p in m.parameters())
+    build_seconds = time.perf_counter() - t0
+    brain = transducer_brain(cfg, modules, device=device)
+    checks, serve = run_transducer_serve(cfg, brain, lm, device=device)
+    emit({"phase": "transducer_serve", "ok": all(checks.values()),
+          "checks": checks, "decode": TRANSDUCER_DECODE,
+          "lm_weight": TRANSDUCER_LM_WEIGHT, **serve})
+    del brain, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"transducer_path serve: a check failed: "
+                             f"{checks}")
+    train = run_transducer_train(cfg, modules, out_dir, paths, device=device)
+    emit({"phase": "transducer_train", **train})
+    del modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not train["ok"]:
+        raise AssertionError("transducer_path: training failed")
+    emit({"phase": "transducer_path_summary", "reduced": TRANSDUCER_REDUCED,
+          "parameters": n_params, "build_seconds": build_seconds,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    launches = {name: serve[name]["launches"]["fused_fbank"]
+                for name in ("bf16_greedy", "bf16_beam", "bf16_beam_lm",
+                             "fp32_greedy_kernel")}
+    launches["train"] = train["launches"]["fused_fbank"]
+    return launches, train["batch_shape"]
+
+
+# -- the LibriSpeech CTC, BayesSpeech and Transformer-LM twins ---------------
+
+# recipes/LibriSpeech/ASR/CTC/hparams/{conformer_large,train,
+# branchformer_large}.yaml at their full width and depth (33 characters,
+# blank 0), random weights from a seed; each with the steps ctc_path takes.
+CTC_CFG = dict(n_mels=80, fe_channels=(64, 32), kernel_size=31, dropout=0.1,
+               vocab=33, blank=0, bos=0, eos=0, lr=5e-4, batch_size=8)
+CTC_FAMILIES = {
+    "conformer_large": dict(d_model=512, nhead=8, enc_layers=18, d_ffn=2048,
+                            encoder_module="conformer", steps=2, serve=True),
+    "train": dict(d_model=256, nhead=4, enc_layers=12, d_ffn=1024,
+                  encoder_module="conformer", steps=1, serve=False),
+    "branchformer_large": dict(d_model=512, nhead=8, enc_layers=18,
+                               d_ffn=2048, encoder_module="branchformer",
+                               steps=1, serve=False),
+}
+# recipes/LibriSpeech/ASR/transformer/hparams/bayesspeech.yaml: a d-144
+# transformer (12 encoder, 4 decoder layers, 5000 outputs) whose every weight
+# is a posterior (mu, rho)
+BAYES_CFG = dict(
+    n_mels=80, fe_channels=(64, 32), d_model=144, nhead=4, enc_layers=12,
+    dec_layers=4, d_ffn=1024, kernel_size=31, dropout=0.1, vocab=5000,
+    encoder_module="transformer", attention_type="regularMHA",
+    ctc_weight=0.3, label_smoothing=0.1, kl_div_weight=1e-6, prior_std=0.1,
+    lr_adam=8e-4, n_warmup_steps=25000, batch_size=16,
+    grad_accumulation_factor=2, max_grad_norm=5.0, epochs=2, bos=1, eos=2,
+    blank=0,
+)
+BAYES_TRAIN_STEPS = 2
+BAYES_LOSS_RTOL = 1e-6
+BAYES_LOGP_ATOL = 1e-4
+# recipes/LibriSpeech/LM/hparams/transformer.yaml
+TLM_CFG = dict(vocab=5000, d_model=768, nhead=12, layers=12, d_ffn=3072,
+               dropout=0.1, lr=1e-4, batch_size=32, bos=0, eos=0)
+TLM_TRAIN_STEPS = 2
+CTC_PATH_REDUCED = {
+    "weights": "random weights from a seed",
+    "ctc": "30 epochs of LibriSpeech 960 h -> two AdamW steps "
+           "(conformer_large) or one (train, branchformer_large) of 8 "
+           "utterances of TRAIN's corpus, its token ids folded into 1..32 "
+           "in place of characters; served on NORTH's batch",
+    "bayesspeech": "120 epochs -> two optimizer steps (4 micro-batches of "
+                   "16, accumulation 2) of TRAIN's corpus and its token ids; "
+                   "Noam's warm-up of 25000 kept",
+    "transformer_lm": "20 epochs of the LM corpus -> two AdamW steps of 32 "
+                      "sequences of TRAIN's token ids folded into 1..4999",
+}
+
+
+class TimedCTCBrain(TimedSteps, ctc_recipe.ASRCTC):
+    """The CTC twin's Brain with :class:`TimedSteps`' readings."""
+
+
+class TimedBayesBrain(TimedSteps, bayes_recipe.BayesASR):
+    """The BayesSpeech twin's Brain with :class:`TimedSteps`' readings and
+    each micro-batch's KL term."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kls = []
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        super().on_fit_batch_end(batch, outputs, loss, should_step)
+        self.kls.append(float(self.last_kl))
+
+
+def ctc_modules(cfg, family, device="cuda", seed=0):
+    """The CTC recipe's three modules at ``family``'s width."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    n_feat = (cfg["n_mels"] + 3) // 4 * cfg["fe_channels"][-1]
+    return {
+        "frontend": ConvolutionFrontEnd(
+            num_blocks=2, out_channels=cfg["fe_channels"],
+            kernel_sizes=(3, 3), strides=(2, 2), **kw),
+        "encoder": TransformerASR(
+            tgt_vocab=cfg["vocab"], input_size=n_feat,
+            d_model=family["d_model"], nhead=family["nhead"],
+            num_encoder_layers=family["enc_layers"], num_decoder_layers=0,
+            d_ffn=family["d_ffn"], dropout=cfg["dropout"],
+            encoder_module=family["encoder_module"],
+            attention_type="RelPosMHAXL", kernel_size=cfg["kernel_size"],
+            **kw),
+        "ctc_head": Linear(cfg["vocab"], family["d_model"], **kw),
+    }
+
+
+def _peak_and_reset(device):
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def run_ctc_family(name, paths, device="cuda"):
+    """One CTC hparams file at full width: (conformer_large) NORTH's batch
+    through ``transcribe_batch`` in bf16, then its bf16 AdamW steps on
+    TRAIN's corpus."""
+    cfg, family = CTC_CFG, CTC_FAMILIES[name]
+    modules = ctc_modules(cfg, family, device=device)
+    n_params = sum(p.numel() for m in modules.values()
+                   for p in m.parameters())
+    hparams = {"compute_features": Fbank(n_mels=cfg["n_mels"], fused=True,
+                                         device=device),
+               "normalize": InputNormalization(norm_type="sentence"),
+               "blank_index": cfg["blank"]}
+    brain = TimedCTCBrain(
+        modules=modules, opt_class=recipe.adamw(cfg["lr"]), hparams=hparams,
+        run_opts={"device": device, "precision": "bf16",
+                  "noprogressbar": True, "seed": 1234,
+                  "optimizer_step_limit": family["steps"]})
+    line = {"parameters": n_params}
+    if family["serve"]:
+        wavs, lens = make_waveforms(NORTH, device)
+        with torch.autocast(wavs.device.type, dtype=torch.bfloat16):
+            brain.transcribe_batch({"sig": (wavs[:2, :SR].contiguous(),
+                                            lens[:2])})
+            reset_launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            hyps = brain.transcribe_batch({"sig": (wavs, lens)})
+            _sync(device)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        line["serve"] = {
+            "ms": serve_ms, "launches": launch_counts(),
+            "audio_s_per_s": wavs.numel() / SR * 1e3 / serve_ms,
+            "hyp_lengths": [len(h) for h in hyps],
+            "ok": bool(launch_counts()["fused_fbank"] == 1
+                       and len(hyps) == wavs.shape[0]
+                       and all(0 < c < cfg["vocab"] for h in hyps
+                               for c in h)),
+        }
+    train = asr_dataset(paths["train"], cfg, train=True, fold=True)
+    loader = {"batch_size": cfg["batch_size"],
+              "pad_to_multiple": {"sig": ctc_recipe.SIG_PAD_MULTIPLE}}
+    _peak_and_reset(device)
+    reset_launch_counts()
+    brain.fit(EpochCounter(1), train, train_loader_kwargs=loader)
+    counts = launch_counts()
+    line.update({
+        "optimizer_steps": brain.optimizer_step, "losses": brain.losses,
+        "step_ms": brain.step_ms(), "launches": counts,
+        "max_memory_allocated_bytes": _peak_and_reset(device),
+    })
+    line["ok"] = bool(
+        brain.optimizer_step == family["steps"]
+        and counts["fused_fbank"] == family["steps"]
+        and sum(counts.values()) == family["steps"]
+        and all(np.isfinite(brain.losses))
+        and line.get("serve", {"ok": True})["ok"])
+    del brain, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_bayes(paths, device="cuda"):
+    """BayesSpeech at full width: two bf16 optimizer steps (accumulation 2)
+    drawing the weights from the posterior, the KL term of each
+    micro-batch; then one float32 evaluation forward on ``mu`` through B3
+    and through its plain version."""
+    cfg = BAYES_CFG
+    modules = make_asr_modules(cfg, device=device)
+    hparams = {**make_asr_hparams(cfg, device=device),
+               "kl_div_weight": cfg["kl_div_weight"],
+               "prior_std": cfg["prior_std"]}
+    brain = TimedBayesBrain(
+        modules=modules, opt_class=recipe.adamw(cfg["lr_adam"]),
+        hparams=hparams,
+        run_opts={"device": device, "precision": "bf16",
+                  "noprogressbar": True, "seed": 74443,
+                  "grad_accumulation_factor":
+                      cfg["grad_accumulation_factor"],
+                  "max_grad_norm": cfg["max_grad_norm"],
+                  "optimizer_step_limit": BAYES_TRAIN_STEPS})
+    rho = brain.modules["rho"]
+    rho0 = {k: v.detach().clone() for k, v in rho.state_dict().items()}
+    mu_params = sum(p.numel() for n, m in brain.modules.items()
+                    if n != "rho" for p in m.parameters())
+    train = asr_dataset(paths["train"], cfg, train=True)
+    loader = {"batch_size": cfg["batch_size"],
+              "pad_to_multiple": {"sig": recipe.SIG_PAD_MULTIPLE}}
+    _peak_and_reset(device)
+    reset_launch_counts()
+    brain.fit(EpochCounter(cfg["epochs"]), train,
+              train_loader_kwargs=loader)
+    counts = launch_counts()
+    in_optimizer = {id(p) for g in brain.optimizer.param_groups
+                    for p in g["params"]}
+    rho_moved = any(not torch.equal(v, rho0[k])
+                    for k, v in rho.state_dict().items())
+    line = {
+        "optimizer_steps": brain.optimizer_step, "losses": brain.losses,
+        "kl_terms": brain.kls,
+        "kl_weighted": [cfg["kl_div_weight"] * k for k in brain.kls],
+        "step_ms": brain.step_ms(), "launches": counts,
+        "max_memory_allocated_bytes": _peak_and_reset(device),
+        "mu_parameters": mu_params,
+        "rho_parameters": sum(p.numel() for p in rho.parameters()),
+        "rho_in_optimizer": all(id(p) in in_optimizer
+                                for p in rho.parameters()),
+        "rho_in_state_dict": any(k.startswith("rho.")
+                                 for k in brain.modules.state_dict()),
+        "rho_moved": rho_moved,
+    }
+    n_micro = BAYES_TRAIN_STEPS * cfg["grad_accumulation_factor"]
+    ok = (brain.optimizer_step == BAYES_TRAIN_STEPS
+          and counts["fused_fbank"] == n_micro
+          and sum(counts.values()) == n_micro
+          and all(np.isfinite(brain.losses + brain.kls))
+          and line["rho_in_optimizer"] and line["rho_in_state_dict"]
+          and rho_moved and line["rho_parameters"] == mu_params)
+    # the evaluation forward, on mu, float32
+    batch = brain._prepare_batch(next(iter(make_dataloader(train,
+                                                           **loader))))
+    brain.modules.eval()
+    out = {}
+    with torch.no_grad():
+        for arm in ("kernel", "plain"):
+            ctx = plain_versions("fused_fbank") if arm == "plain" \
+                else contextlib.nullcontext()
+            reset_launch_counts()
+            with ctx:
+                preds = brain.compute_forward(batch, Stage.VALID)
+                loss = brain.compute_objectives(preds, batch, Stage.VALID)
+            out[arm] = (preds, float(loss), launch_counts()["fused_fbank"])
+    (pk, lk, nk), (pp, lp, npl) = out["kernel"], out["plain"]
+    logp_diff = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    line["fp32_eval_kernel_vs_plain"] = {
+        "loss_kernel": lk, "loss_plain": lp,
+        "loss_rel_diff": abs(lk - lp) / abs(lp), "loss_rtol": BAYES_LOSS_RTOL,
+        "log_probs_max_diff": logp_diff, "log_probs_atol": BAYES_LOGP_ATOL,
+        "b3_launches": [nk, npl],
+    }
+    line["ok"] = bool(ok and abs(lk - lp) / abs(lp) <= BAYES_LOSS_RTOL
+                      and logp_diff <= BAYES_LOGP_ATOL and [nk, npl] == [1, 0])
+    del brain, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_transformer_lm(paths, device="cuda"):
+    """Two bf16 AdamW steps of the LM twin with ``transformer.yaml``'s
+    ``TransformerLM`` at batch 32 of TRAIN's token sequences."""
+    cfg = TLM_CFG
+    lm = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
+                       nhead=cfg["nhead"], num_encoder_layers=cfg["layers"],
+                       d_ffn=cfg["d_ffn"], dropout=cfg["dropout"],
+                       device=device,
+                       generator=torch.Generator().manual_seed(11))
+    brain = lm_recipe.LM(
+        modules={"lm": lm}, opt_class=lm_recipe.adamw(cfg["lr"]),
+        hparams={"lr_annealing": NewBobScheduler(cfg["lr"])},
+        run_opts={"device": device, "precision": "bf16",
+                  "noprogressbar": True,
+                  "optimizer_step_limit": TLM_TRAIN_STEPS})
+    losses = []
+    brain.on_fit_batch_end = (lambda batch, outputs, loss, should_step:
+                              losses.append(float(loss)))
+    _peak_and_reset(device)
+    reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    brain.fit(EpochCounter(1), lm_token_dataset(paths["train"], cfg),
+              train_loader_kwargs={"batch_size": cfg["batch_size"]})
+    _sync(device)
+    line = {"ok": bool(brain.optimizer_step == TLM_TRAIN_STEPS
+                       and len(losses) == TLM_TRAIN_STEPS
+                       and all(np.isfinite(losses))
+                       and sum(launch_counts().values()) == 0),
+            "optimizer_steps": brain.optimizer_step, "losses": losses,
+            "seconds": time.perf_counter() - t0,
+            "max_memory_allocated_bytes": _peak_and_reset(device),
+            "parameters": sum(p.numel() for p in lm.parameters())}
+    del brain, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_ctc_path(paths, device="cuda"):
+    """The LibriSpeech CTC twin's three hparams files, BayesSpeech and the
+    Transformer LM at full width. Returns B3's launches in each run."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name in CTC_FAMILIES:
+        line = run_ctc_family(name, paths, device=device)
+        emit({"phase": f"ctc_path/ctc_{name}", **line})
+        if not line["ok"]:
+            raise AssertionError(f"ctc_path: the CTC twin's {name} failed")
+        if "serve" in line:
+            launches[f"ctc_{name}.yaml_serve"] = line["serve"]["launches"][
+                "fused_fbank"]
+        launches[f"ctc_{name}.yaml_train"] = line["launches"]["fused_fbank"]
+    bayes = run_bayes(paths, device=device)
+    emit({"phase": "ctc_path/bayesspeech", **bayes})
+    if not bayes["ok"]:
+        raise AssertionError("ctc_path: BayesSpeech failed")
+    launches["bayesspeech_train"] = bayes["launches"]["fused_fbank"]
+    launches["bayesspeech_fp32_eval"] = bayes["fp32_eval_kernel_vs_plain"][
+        "b3_launches"][0]
+    tlm = run_transformer_lm(paths, device=device)
+    emit({"phase": "ctc_path/transformer_lm", **tlm})
+    if not tlm["ok"]:
+        raise AssertionError("ctc_path: the Transformer LM failed")
+    emit({"phase": "ctc_path_summary", "reduced": CTC_PATH_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -3928,6 +4671,12 @@ def main():
         kernels[1]["launches_by_path"]["crdnn_path"] = run_crdnn_path(
             os.path.join(out_dir, "crdnn"), paths)
         torch.cuda.empty_cache()
+        (kernels[1]["launches_by_path"]["transducer_path"],
+         rnnt_batch) = run_transducer_path(
+            os.path.join(out_dir, "transducer"), paths)
+        torch.cuda.empty_cache()
+        kernels[1]["launches_by_path"]["ctc_path"] = run_ctc_path(paths)
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -3944,6 +4693,7 @@ def main():
     kernels[1]["at_crdnn_shape"] = measure_b3_at(
         NORTH["batch"], int(SR * NORTH["seconds"]),
         n_mels=CRDNN_CFG["n_mels"])
+    kernels[1]["at_transducer_train_shape"] = measure_b3_at(*rnnt_batch)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,0 +1,1 @@
+"""LibriSpeech Conformer transducer (RNN-T) ASR on the PyTorch port."""

@@ -1,10 +1,13 @@
 #!/usr/bin/env python
-"""LibriSpeech RNN language model on the PyTorch port, the twin of
-``recipes/LibriSpeech/LM/train.py`` with ``hparams/RNNLM.yaml``: BPE
-tokens -> ``RNNLM`` -> NLL of the next token; AdamW (``optax.adamw``'s
-defaults, weight decay 1e-4) annealed by NewBob on the valid loss; a
-checkpoint kept by the lowest valid loss after every valid stage. The
-trained LM fuses into the CRDNN's beam search through ``RNNLMScorer``.
+"""LibriSpeech language model on the PyTorch port, the twin of
+``recipes/LibriSpeech/LM/train.py`` with ``hparams/RNNLM.yaml`` (an
+``RNNLM``) or ``hparams/transformer.yaml`` (a ``TransformerLM``): BPE or
+unigram tokens -> the model -> NLL of the next token; AdamW
+(``optax.adamw``'s defaults, weight decay 1e-4) annealed by NewBob on the
+valid loss; a checkpoint kept by the lowest valid loss after every valid
+stage. A trained RNNLM fuses into the CRDNN's beam search through
+``RNNLMScorer`` and into the transducer's beam search as its
+``lm_module``.
 
 Text: one sentence per line in ``<data_folder>/lm_corpus.txt``, else the
 ``words`` of the train and valid manifests; a tenth of the lines (at least

@@ -26,7 +26,12 @@ the way:
   (flax's ``(H, gates*H)`` -> ``(gates*H, H)``), the GRU's ``bh_l{i}_d{d}``,
   the LiGRU's ``norm_l{i}_d{d}``; ``QuasiRNN``'s ``conv_l{i}_d{d}``; the
   ``AttentionalRNNDecoder``'s ``attn``, ``proj``, ``wx_{l}``, ``wh_{l}``,
-  ``bh_{l}``; ``CRDNN`` and ``RNNLM`` by their flax names.
+  ``bh_{l}``; ``CRDNN`` and ``RNNLM`` by their flax names;
+* ``TransducerJoint``: ``enc_proj``/``dec_proj`` (sum) or ``proj``
+  (concat);
+* a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
+  a tree of the recipe's modules, into the modules and their
+  ``PosteriorRho`` (:func:`load_posterior`).
 
 Variables that hold a ``"batch_stats"`` collection beside ``"params"`` load
 both; given ``"params"`` alone, running statistics keep their values.
@@ -34,6 +39,8 @@ both; given ``"params"`` alone, running statistics keep their values.
 A key that a module needs and the tree lacks, or one the tree holds and no
 module takes, raises ``KeyError``.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -93,6 +100,7 @@ from speechbrain_tpu_torch.nnet.RNN import (
     QuasiRNN,
     SLiGRU,
 )
+from speechbrain_tpu_torch.nnet.transducer_joint import TransducerJoint
 
 # names flax gives the unnamed attention submodule of a compact layer
 _FLAX_ATTENTION_SCOPES = ("MultiheadAttention_0", "RelPosMHAXL_0",
@@ -422,6 +430,12 @@ def load_rnnlm(module, scope):
     scope.done()
 
 
+def load_transducer_joint(module, scope):
+    _load_children(module, scope, ("enc_proj", "dec_proj")
+                   if module.joint == "sum" else ("proj",))
+    scope.done()
+
+
 _LOADERS = {
     Linear: load_linear,
     Conv1d: load_conv1d,
@@ -465,6 +479,7 @@ _LOADERS = {
     AttentionalRNNDecoder: load_attentional_rnn_decoder,
     CRDNN: load_crdnn,
     RNNLM: load_rnnlm,
+    TransducerJoint: load_transducer_joint,
 }
 
 
@@ -488,6 +503,27 @@ def load_modules(modules, variables):
             variables[name], f"params/{name}",
             None if stats is None else stats.get(name, {}),
         ))
+    return modules
+
+
+def load_posterior(modules, variables):
+    """Load a variational posterior's ``{"mu": tree, "rho": tree}`` (each
+    keyed by module, as :func:`load_modules` takes it): ``mu`` into the
+    modules of ``modules`` other than ``"rho"``, ``rho`` into
+    ``modules["rho"]``, an object whose ``get(module, parameter name)``
+    returns the ``rho`` of that parameter. Returns ``modules``."""
+    params, _ = _split_collections(variables)
+    if set(params) != {"mu", "rho"}:
+        raise KeyError(f"expected mu and rho, got {sorted(params)}")
+    means = {name: m for name, m in modules.items() if name != "rho"}
+    load_modules(means, params["mu"])
+    # rho has the means' tree: load it into a copy of them, then carry it
+    shadow = load_modules(copy.deepcopy(means), params["rho"])
+    rho = modules["rho"]
+    for name, module in shadow.items():
+        for pname, value in module.named_parameters():
+            _copy(rho.get(name, pname), value.detach().cpu().numpy(),
+                  f"params/rho/{name}/{pname}")
     return modules
 
 

@@ -122,6 +122,9 @@ _FBANK_CASES = {
     "frames65": ("noise", 2, 64 * 160, 10, 400),
     "frames129": ("noise", 2, 128 * 160 + 7, 10, 400),
     "nfft512": ("bursts", 2, 32000, 10, 512),
+    # the transducer recipe's training batch: 8 utterances of 8-12 s padded
+    # to whole seconds, the longest
+    "transducer_batch": ("noise", 8, 12 * 16000, 10, 400),
 }
 
 

@@ -99,10 +99,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         EncoderDecoderASR,
     )
     from speechbrain_tpu_torch.nnet.linear import Linear
+    from speechbrain_tpu_torch.nnet.transducer_joint import TransducerJoint
 
     for build in (
         lambda: Fbank(),
         lambda: Linear(4, 4),
+        lambda: TransducerJoint(4, 4, 4),
         lambda: TransformerLM(vocab=8, d_model=8, nhead=2,
                               num_encoder_layers=1, d_ffn=8),
         lambda: get_lookahead_mask(4),

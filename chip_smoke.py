@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives eleven paths at full width with random weights
+(``grad_guard``), and drives twelve paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -44,7 +44,8 @@ LibriSpeech recipe:
 - ``host_path``: ``train_path``'s training through the loop's host side:
   ``DynamicBatchSampler`` batches of at most 160 s from four length
   buckets, four read-ahead threads, the native WAV reader and the loss
-  read every four micro-batches (kernel ``fused_fbank`` on every batch);
+  read every four micro-batches, two epochs (kernel ``fused_fbank`` on
+  every batch);
   then float32 checks of the windowed loss reads against the per-step
   ones, of a window of NaN micro-batches (nothing changes, bit for bit),
   of a threaded mid-epoch resume, of averaged checkpoints, and of the
@@ -55,7 +56,7 @@ LibriSpeech recipe:
   ``transcribe`` (ancestry search, CTC at 0.3, no LM: kernel
   ``ancestry_attention`` in every decoder layer at every step, head dims 128,
   64, 32 and 18, and ``fused_fbank`` once), the same in float32 through the
-  kernels and their plain versions, two bf16 training steps of the twin
+  kernels and their plain versions, one bf16 training step of the twin
   ``ASR`` (``fused_fbank`` on every micro-batch), and branchformer_large's
   float32 step with ``encoder_remat`` against without;
 - ``crdnn_path``: recurrent seq2seq ASR, the LibriSpeech CRDNN recipe
@@ -76,8 +77,9 @@ LibriSpeech recipe:
   (``conformer_transducer.yaml``: 12 Conformer layers of 512, an LSTM
   prediction network of 512, an additive joint of 640, 1000 outputs):
   NORTH's batch through the twin's ``transcribe_batch`` in bf16, greedy,
-  by beam search (beam 4) and by beam search fused with the RNNLM of
-  ``crdnn_path`` at 0.5 (``fused_fbank`` once each); greedy in float32
+  and its first two utterances by beam search (beam 4) and by beam search
+  fused with the RNNLM of ``crdnn_path`` at 0.5 (``fused_fbank`` once
+  each); greedy in float32
   through the kernel and its plain version (encoder states within 1e-5,
   tokens equal over 50 frames); two bf16 AdamW steps of the twin on
   TRAIN's WAV corpus and its valid stage (``fused_fbank`` on every batch),
@@ -89,7 +91,22 @@ LibriSpeech recipe:
   BayesSpeech two steps with every weight drawn from its posterior and a
   float32 evaluation forward through the kernel and its plain version,
   and the Transformer LM two steps (``fused_fbank`` on every batch of the
-  ASR twins).
+  ASR twins);
+- ``streaming_path``: the streaming Conformer transducer
+  (``conformer_transducer_streaming.yaml``: ``transducer_path``'s model
+  with dynamic chunk training) served chunk by chunk through
+  ``StreamingASR`` over ``StreamingServe`` (``StreamingFeatureWrapper``
+  over the fused Fbank, the encoder's ``encode_streaming``, streaming
+  greedy) at the YAML's test configuration (chunks of 24 encoder frames,
+  0.96 s, left context 4 chunks): NORTH's batch in bf16 (per-chunk ms,
+  ``fused_fbank`` once a chunk), the same in float32 through the kernel
+  and its plain version (the streamed states against the chunked offline
+  encode, the streaming greedy against greedy over the streamed states),
+  and one WAV through ``transcribe_file_streaming``; two bf16 training
+  steps with the chunk configurations the YAML's sampler draws, one with
+  a chunked configuration forced, the valid stage, a float32 step through
+  the kernel against its plain version; then the TIMIT transducer twin's
+  chain.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -130,8 +147,12 @@ from speechbrain_tpu_torch.decoders.scorer import (
     ScorerBuilder,
 )
 from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
+from speechbrain_tpu_torch.decoders.transducer import (
+    TransducerGreedySearcherStreamingContext,
+)
 from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
-from speechbrain_tpu_torch.lobes.features import Fbank
+from speechbrain_tpu_torch.inference.streaming import StreamingASR
+from speechbrain_tpu_torch.lobes.features import Fbank, StreamingFeatureWrapper
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN as CRDNNEncoder
 from speechbrain_tpu_torch.lobes.models.RNNLM import RNNLM
@@ -193,6 +214,10 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.LM import train as lm_recipe
 from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
     prepare_synthetic,
 )
+from speechbrain_tpu_torch.recipes.TIMIT import timit_prepare
+from speechbrain_tpu_torch.recipes.TIMIT.ASR.transducer import (
+    train as timit_recipe,
+)
 from speechbrain_tpu_torch.tokenizers.SentencePiece import (
     WORD_BOUNDARY,
     SentencePiece,
@@ -203,6 +228,10 @@ from speechbrain_tpu_torch.utils.checkpoints import (
     get_default_hook,
 )
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
+from speechbrain_tpu_torch.utils.dynamic_chunk_training import (
+    DynChunkTrainConfig,
+    DynChunkTrainConfigRandomSampler,
+)
 from speechbrain_tpu_torch.utils.edit_distance import (
     accumulatable_wer_stats,
     count_ops,
@@ -490,6 +519,97 @@ def served_asr(pipe, tokenizer):
                  "decoder": ServedDecoder(pipe),
                  "tokenizer": tokenizer, "sample_rate": SR},
         run_opts={"device": str(pipe.device)})
+
+
+class MarkedFeatureWrapper(StreamingFeatureWrapper):
+    """A ``StreamingFeatureWrapper`` that lets ``on_chunk`` note each
+    chunk's start before its features."""
+
+    def __init__(self, module, on_chunk):
+        super().__init__(module)
+        self.on_chunk = on_chunk
+
+    def __call__(self, chunk, context):
+        self.on_chunk()
+        return super().__call__(chunk, context)
+
+
+class StreamingServe:
+    """The streaming serving assembly over a transducer twin's modules
+    (``brain``, a ``TransducerASR``): ``StreamingASR``'s hparams, built in
+    Python. The JAX package has no such assembly for the recipe, only
+    ``StreamingASR``'s hparams contract, which this fills:
+
+    - ``fea_streaming_extractor``: ``StreamingFeatureWrapper(Fbank(fused=
+      True))`` (kernel B3 once a chunk);
+    - ``make_streaming_context``: the encoder's;
+    - ``encode_chunk``: the recipe's ``encode`` order over one chunk:
+      sentence normalisation (over the chunk's frames), the front end
+      (zero padding at the chunk's edges), ``encode_streaming``,
+      ``enc_proj``;
+    - ``decode_chunk``: the searcher's streaming greedy;
+    - ``frontend_stride`` 4, ``tokenizer``, ``sample_rate``.
+
+    ``keep`` (a list, or None) collects each chunk's features, normalised
+    features, front-end output and states; ``marks`` (a list, or None)
+    collects CUDA events at each chunk's start, after its encode and after
+    its decode; ``tokens`` (a list a row, or None) the emitted tokens."""
+
+    def __init__(self, brain, cfg, device, max_symbols_per_step=10):
+        self.brain = brain
+        self.searcher = brain.make_searcher(
+            beam_size=1, max_symbols_per_step=max_symbols_per_step)
+        self.fea = MarkedFeatureWrapper(
+            Fbank(n_fft=cfg["n_fft"], n_mels=cfg["n_mels"], fused=True,
+                  device=device), self._mark)
+        self.device = device
+        self.keep = self.marks = self.tokens = None
+
+    def _mark(self):
+        if self.marks is not None:
+            self.marks.append([torch.cuda.Event(enable_timing=True)])
+            self.marks[-1][0].record()
+
+    def _mark_end(self):
+        if self.marks is not None:
+            self.marks[-1].append(torch.cuda.Event(enable_timing=True))
+            self.marks[-1][-1].record()
+
+    def encode_chunk(self, feats, context):
+        modules = self.brain.modules
+        normed = self.brain.hparams.normalize(
+            feats, torch.ones(feats.shape[0], device=feats.device))
+        front = modules.frontend(normed)
+        enc, context = modules.encoder.encode_streaming(front, context)
+        enc = modules.enc_proj(enc)
+        if self.keep is not None:
+            self.keep.append((feats, normed, front, enc))
+        self._mark_end()
+        return enc, context
+
+    def decode_chunk(self, enc, context):
+        if context is None:
+            context = TransducerGreedySearcherStreamingContext()
+        hyps = self.searcher.transducer_greedy_decode_streaming(enc, context)
+        if self.tokens is not None:
+            for row, new in zip(self.tokens, hyps):
+                row.extend(new)
+        self._mark_end()
+        return hyps, context
+
+    def asr(self, tokenizer):
+        """The ``StreamingASR`` a user calls, over this assembly (its
+        modules in ``eval()`` without gradients)."""
+        self.brain.modules.eval()
+        return StreamingASR(
+            hparams={"fea_streaming_extractor": self.fea,
+                     "make_streaming_context":
+                     self.brain.modules.encoder.make_streaming_context,
+                     "encode_chunk": self.encode_chunk,
+                     "decode_chunk": self.decode_chunk,
+                     "frontend_stride": STREAMING_FRONTEND_STRIDE,
+                     "tokenizer": tokenizer, "sample_rate": SR},
+            run_opts={"device": str(self.device)})
 
 
 def write_covering_bpe(model_dir, n_pieces):
@@ -2099,10 +2219,12 @@ def run_train_path(cfg, out_dir, datasets, device="cuda"):
 # drawn in a random order (DynamicBatchSampler), read ahead by four
 # threads through the native WAV decoder, and the train loss read by the
 # host once every four micro-batches (loss_sync_interval).
+# two epochs since PR 12 (three before), so that the script stays within its
+# time
 HOST = dict(max_batch_length=160.0, num_buckets=4, num_workers=4,
-            loss_sync_interval=4, epochs=3, fp32_micro_batches=8)
+            loss_sync_interval=4, epochs=2, fp32_micro_batches=8)
 HOST_REDUCED = {
-    "number_of_epochs": "120 -> 3 epochs of TRAIN's 32 utterances",
+    "number_of_epochs": "120 -> 2 epochs of TRAIN's 32 utterances",
     "fp32_read_check": "8 micro-batches a run, dropout 0",
 }
 # the k = 4 window means against the k = 1 per-step means, float32 runs
@@ -3104,10 +3226,11 @@ FAMILY_REDUCED = {
                "is in the repository)",
     "search": "beam 10 and max_decode_ratio 0.2 (the recipe's test "
               "setting: 66 and 1.0), no LM, NORTH's 8 x 10 s of noise",
-    "training": "two optimizer steps (4 micro-batches) on TRAIN's "
-                "synthetic WAV corpus",
+    "training": "one optimizer step (2 micro-batches; two until PR 12) on "
+                "TRAIN's synthetic WAV corpus",
 }
-FAMILY_TRAIN_STEPS = 2
+# one step a family since PR 12, so that the script stays within its time
+FAMILY_TRAIN_STEPS = 1
 # the branchformer with encoder_remat against without: one float32 step at
 # dropout 0 from the same weights; the recomputation replays the same
 # kernels, so only the atomics' order of the backward differs
@@ -3818,12 +3941,16 @@ TRANSDUCER_CFG = dict(
 TRANSDUCER_DECODE = dict(beam_size=4, nbest=5, state_beam=2.3,
                          expand_beam=2.3, max_symbols_per_step=10)
 TRANSDUCER_LM_WEIGHT = 0.5
+# the beam searches (host-bound, one utterance at a time) run on the first
+# two utterances of NORTH's batch, so that the script stays within its time
+TRANSDUCER_BEAM_BATCH = 2
 TRANSDUCER_REDUCED = {
     "weights": "trained checkpoints -> random weights from a seed",
     "train": "50 epochs of LibriSpeech 960 h -> two AdamW steps of 8 "
              "utterances of TRAIN's synthetic corpus (8-12 s; its token ids "
              "folded into 1..999 in place of BPE-1000), then its valid split",
-    "serve": "LibriSpeech test-clean -> NORTH's batch, 8 x 10 s of noise",
+    "serve": "LibriSpeech test-clean -> NORTH's batch, 8 x 10 s of noise; "
+             "the beam searches on its first 2 utterances (8 until PR 12)",
     "lm": "the recipe fuses none; RNNLM.yaml's LM (random weights) at 0.5",
     "fp32_comparison": "greedy tokens held equal over the first 50 encoder "
                        "frames, and read over all 251: a random-weight "
@@ -3893,12 +4020,15 @@ class TimedTransducerBrain(TimedSteps, transducer_recipe.TransducerASR):
 
 
 def transducer_brain(cfg, modules, out_dir=None, precision="bf16",
-                     seed=7402, device="cuda", brain_cls=TimedTransducerBrain):
+                     seed=7402, device="cuda", brain_cls=TimedTransducerBrain,
+                     extra_hparams=None):
     """The twin's Brain over ``modules``: AdamW, NewBob, a stop after
-    ``TRANSDUCER_TRAIN_STEPS`` optimizer steps."""
+    ``TRANSDUCER_TRAIN_STEPS`` optimizer steps; ``extra_hparams`` join
+    ``transducer_hparams``."""
     return brain_cls(
         modules=modules, opt_class=recipe.adamw(cfg["lr"]),
-        hparams=transducer_hparams(cfg, device=device, out_dir=out_dir),
+        hparams={**transducer_hparams(cfg, device=device, out_dir=out_dir),
+                 **(extra_hparams or {})},
         run_opts={"device": device, "precision": precision,
                   "noprogressbar": True, "seed": seed,
                   "optimizer_step_limit": TRANSDUCER_TRAIN_STEPS})
@@ -3959,12 +4089,13 @@ def run_transducer_serve(cfg, brain, lm, device="cuda"):
         _transducer_transcribe(brain, greedy, short, lens[:2], autocast)
     _transducer_transcribe(brain, fused, short[:, :SR // 4].contiguous(),
                            lens[:2], True)
+    few = wavs[:TRANSDUCER_BEAM_BATCH].contiguous()
     runs = {"bf16_greedy": _transducer_transcribe(brain, greedy, wavs, lens,
                                                   True),
-            "bf16_beam": _transducer_transcribe(brain, beam, wavs, lens,
-                                                True),
-            "bf16_beam_lm": _transducer_transcribe(brain, fused, wavs, lens,
-                                                   True),
+            "bf16_beam": _transducer_transcribe(
+                brain, beam, few, lens[:TRANSDUCER_BEAM_BATCH], True),
+            "bf16_beam_lm": _transducer_transcribe(
+                brain, fused, few, lens[:TRANSDUCER_BEAM_BATCH], True),
             "fp32_greedy_kernel": _transducer_transcribe(brain, greedy, wavs,
                                                          lens, False)}
     with plain_versions("fused_fbank"):
@@ -3981,9 +4112,9 @@ def run_transducer_serve(cfg, brain, lm, device="cuda"):
     kernel, plain = runs["fp32_greedy_kernel"], runs["fp32_greedy_plain"]
     b3_once = dict.fromkeys(KERNELS, 0)
     b3_once["fused_fbank"] = 1
-    audio_s = wavs.shape[0] * wavs.shape[1] / SR
     lines = {}
     for name, run in runs.items():
+        audio_s = len(run["hyps"]) * wavs.shape[1] / SR
         lines[name] = {
             "encode_ms": run["encode_ms"], "decode_ms": run["decode_ms"],
             "audio_s_per_s": audio_s * 1e3 / (run["encode_ms"]
@@ -4034,8 +4165,10 @@ def run_transducer_serve(cfg, brain, lm, device="cuda"):
         "lm_fusion_changes_scores": runs["bf16_beam"]["scores"]
         != runs["bf16_beam_lm"]["scores"],
         "tokens_in_vocab_not_blank": vocab_ok,
-        "eight_utterances": all(len(r["hyps"]) == wavs.shape[0]
-                                for r in runs.values()),
+        "every_utterance": all(
+            len(r["hyps"]) == (TRANSDUCER_BEAM_BATCH if "beam" in n
+                               else wavs.shape[0])
+            for n, r in runs.items()),
         "tokens_emitted": all(sum(len(h) for h in r["hyps"]) > 0
                               for r in runs.values()),
     }
@@ -4073,7 +4206,8 @@ def time_transducer_loss(brain, batch, iters=5):
             "loss": float(loss.detach())}
 
 
-def transducer_step_kernel_vs_plain(cfg, batch, device="cuda"):
+def transducer_step_kernel_vs_plain(cfg, batch, device="cuda",
+                                    extra_hparams=None):
     """One float32 training micro-batch (dropout 0, the same seed-3
     weights) through B3 and through its plain version: the losses."""
     out = {}
@@ -4081,7 +4215,8 @@ def transducer_step_kernel_vs_plain(cfg, batch, device="cuda"):
         modules = transducer_modules(cfg, device=device, seed=3, dropout=0.0)
         brain = transducer_brain(cfg, modules, precision="fp32",
                                  device=device,
-                                 brain_cls=transducer_recipe.TransducerASR)
+                                 brain_cls=transducer_recipe.TransducerASR,
+                                 extra_hparams=extra_hparams)
         brain.init_optimizers()
         brain.modules.train()
         ctx = plain_versions("fused_fbank") if arm == "plain" \
@@ -4508,6 +4643,450 @@ def run_ctc_path(paths, device="cuda"):
     return launches
 
 
+# -- streaming: the LibriSpeech streaming Conformer transducer -----------------
+
+# recipes/LibriSpeech/ASR/transducer/hparams/conformer_transducer_streaming.yaml
+# (twin under speechbrain_tpu_torch/recipes/LibriSpeech/ASR/transducer/):
+# conformer_transducer.yaml's model (TRANSDUCER_CFG: full width and depth)
+# trained with dynamic chunks and served chunk by chunk at its test_config.
+STREAMING_SAMPLER = dict(chunkwise_prob=0.6, chunk_size_min=8,
+                         chunk_size_max=32, limited_left_context_prob=0.75,
+                         left_context_chunks_min=2,
+                         left_context_chunks_max=32)
+# the YAML's valid_config and test_config
+STREAMING_CONFIG = dict(chunk_size=24, left_context_size=4)
+# the front end's two stride-2 blocks: four feature frames an encoder frame
+STREAMING_FRONTEND_STRIDE = 4
+# the training step with a chunked configuration forced: the sampler's
+# smallest chunk and smallest limited left context
+STREAMING_FORCED = dict(chunk_size=8, left_context_size=2)
+# float32: the streamed states against the chunked offline encode of the
+# same front-end outputs (the attention's sums in another order and over
+# other lengths), and through B3 against its plain version (C32's 1e-5)
+STREAMING_ENC_ATOL = 1e-4
+STREAMING_B3_ATOL = 1e-5
+STREAMING_CMP_FRAMES = 50
+# the TIMIT twin (its YAML is conformer_transducer.yaml's but for the output
+# folder and the valid manifest): prepare_synthetic's 8 train utterances in
+# two micro-batches
+TIMIT_BATCH = 4
+STREAMING_REDUCED = {
+    "weights": "trained checkpoints -> random weights from a seed",
+    "serve": "LibriSpeech test-clean -> NORTH's batch, 8 x 10 s of noise, "
+             "11 chunks of 0.96 s (the last padded with zeros), and one "
+             "10 s WAV through transcribe_file_streaming",
+    "train": "50 epochs of LibriSpeech 960 h with a chunk configuration "
+             "drawn a batch -> two AdamW steps of 8 utterances of TRAIN's "
+             "synthetic corpus (token ids folded into 1..999), one step "
+             "with chunk 8 and left context 2 forced, the valid stage",
+    "fp32_comparison": "streaming greedy tokens through B3 and its plain "
+                       "version held over the first 50 encoder frames, "
+                       "read over all 264 (C32)",
+    "timit": "TIMIT -> timit_prepare.prepare_synthetic (8 train, 2 valid "
+             "utterances of 0.3 s), batch 8 -> 4, one epoch of two "
+             "micro-batches (--debug)",
+}
+
+
+class RecordedSampler:
+    """A dynamic chunk sampler that notes each draw (``draws``: stage and
+    ``[chunk_size, left_context_size]`` or None); where ``forced`` is set
+    it replaces the training draws."""
+
+    def __init__(self, sampler, forced=None):
+        self.sampler, self.forced, self.draws = sampler, forced, []
+
+    def __call__(self, stage):
+        if self.forced is not None and stage == Stage.TRAIN:
+            config = self.forced
+        else:
+            config = self.sampler(stage)
+        self.draws.append([stage.name, None if config is None else [
+            config.chunk_size, config.left_context_size]])
+        return config
+
+
+def streaming_hparams(forced=None):
+    """The streaming YAML's additions to the twin's hparams: ``streaming``
+    and its sampler (seed 875, recorded)."""
+    valid = DynChunkTrainConfig(**STREAMING_CONFIG)
+    sampler = DynChunkTrainConfigRandomSampler(
+        **STREAMING_SAMPLER, valid_config=valid, test_config=valid)
+    return {"streaming": True,
+            "dynchunktrain_config_sampler": RecordedSampler(sampler, forced)}
+
+
+def _ms_stats(values):
+    return {"median": float(np.median(values)), "worst": float(max(values)),
+            "all": values}
+
+
+def _departure(ours, ref, frames_a_chunk):
+    """Max absolute difference and the relative L2 of ``ours - ref`` (B,
+    T, D), over all frames and chunk by chunk."""
+    diff = (ours - ref).float()
+    B, T, D = diff.shape
+    chunks = diff.reshape(B, T // frames_a_chunk, frames_a_chunk * D)
+    ref_chunks = ref.float().reshape(chunks.shape)
+    return {"max_abs": diff.abs().max().item(),
+            "relative_l2": (diff.norm() / ref.float().norm()).item(),
+            "max_abs_by_chunk": chunks.abs().amax(dim=(0, 2)).tolist(),
+            "relative_l2_by_chunk": (chunks.norm(dim=(0, 2))
+                                     / ref_chunks.norm(dim=(0, 2))).tolist()}
+
+
+class StreamRun:
+    """One pass of a batch of waveforms through ``StreamingASR.
+    transcribe_chunk``, chunk after chunk (launch counts from 0)."""
+
+    def __init__(self, serve, asr, wavs, config, autocast, keep=False,
+                 marks=False, n_chunks=None):
+        chunk = asr.get_chunk_size_frames(config)
+        audio_samples = wavs.shape[1]
+        total = -(-audio_samples // chunk)
+        n_chunks = n_chunks or total
+        wavs = torch.nn.functional.pad(wavs, (0, total * chunk
+                                              - wavs.shape[1]))
+        serve.keep = [] if keep else None
+        serve.marks = [] if marks else None
+        serve.tokens = [[] for _ in range(wavs.shape[0])]
+        context = asr.make_streaming_context(config, batch=wavs.shape[0])
+        self.texts = [""] * wavs.shape[0]
+        reset_launch_counts()
+        _sync(wavs.device)
+        t0 = time.perf_counter()
+        with torch.autocast(wavs.device.type, dtype=torch.bfloat16,
+                            enabled=autocast):
+            for i in range(n_chunks):
+                new = asr.transcribe_chunk(
+                    context, wavs[:, i * chunk:(i + 1) * chunk])
+                self.texts = [a + b for a, b in zip(self.texts, new)]
+        _sync(wavs.device)
+        self.seconds = time.perf_counter() - t0
+        self.launches = launch_counts()
+        self.n_chunks = n_chunks
+        self.audio_seconds = wavs.shape[0] * n_chunks * chunk / SR
+        # the share of the streamed samples that are audio, not tail padding
+        self.audio_fraction = audio_samples / (total * chunk)
+        self.tokens = serve.tokens
+        self.kept = serve.keep
+        self.marks = serve.marks
+        serve.keep = serve.marks = None
+
+    def chunk_ms(self):
+        """Each chunk's encode (features included) and decode ms."""
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for a, b, _ in self.marks],
+                [b.elapsed_time(c) for _, b, c in self.marks])
+
+    def states(self):
+        return torch.cat([k[-1] for k in self.kept], dim=1)
+
+
+def streaming_departures(brain, run, config):
+    """The streamed states, and how far they lie from offline encodes of
+    the same feature frames (float32; the launch counts are left as they
+    are):
+    ``encoder``, the chunked offline encode of the concatenated per-chunk
+    front-end outputs (the encoder's streaming alone); ``frontend_edges``,
+    the front end run over the concatenated per-chunk normalised features
+    (the front end's zero padding at chunk edges); ``normalization``, the
+    features normalised over the stream's audio (its relative length, as
+    an offline caller gives it), then as ``frontend_edges`` (both
+    departures); ``normalization_with_padding``, the same with the
+    statistics over the tail padding too."""
+    modules = brain.modules
+    streamed = run.states()
+    feats = torch.cat([k[0] for k in run.kept], dim=1)
+    normed = torch.cat([k[1] for k in run.kept], dim=1)
+    fronts = torch.cat([k[2] for k in run.kept], dim=1)
+    ones = torch.ones(feats.shape[0], device=feats.device)
+    with torch.no_grad():
+        def encode(front):
+            return modules.enc_proj(modules.encoder.encode(
+                front, dynchunktrain_config=config))
+
+        offline = {
+            "encoder": encode(fronts),
+            "frontend_edges": encode(modules.frontend(normed)),
+            "normalization": encode(modules.frontend(
+                brain.hparams.normalize(feats, ones * run.audio_fraction))),
+            "normalization_with_padding": encode(modules.frontend(
+                brain.hparams.normalize(feats, ones))),
+        }
+    return streamed, {name: _departure(streamed, ref, config.chunk_size)
+                      for name, ref in offline.items()}
+
+
+def run_streaming_serve(cfg, brain, tokenizer, out_dir, device="cuda"):
+    """``StreamingASR`` over ``StreamingServe``: NORTH's batch chunk by
+    chunk in bf16 (per-chunk ms, audio-s/s, tokens, B3 a chunk); in
+    float32 through B3 and through its plain version (the streamed states
+    against the chunked offline encode, the streaming greedy against
+    greedy over the concatenated states, B3 against plain); the
+    departures of the chunked front end and normalisation; and
+    ``transcribe_file_streaming`` of one 10 s WAV."""
+    config = DynChunkTrainConfig(**STREAMING_CONFIG)
+    serve = StreamingServe(brain, cfg, device)
+    asr = serve.asr(tokenizer)
+    wavs, _ = make_waveforms(NORTH, device)
+    # cuDNN's plans and the first calls of every shape and type
+    for autocast in (True, False):
+        StreamRun(serve, asr, wavs, config, autocast, n_chunks=2)
+    bf16 = StreamRun(serve, asr, wavs, config, True, marks=True)
+    encode_ms, decode_ms = bf16.chunk_ms()
+    kernel = StreamRun(serve, asr, wavs, config, False, keep=True)
+    with plain_versions("fused_fbank"):
+        plain = StreamRun(serve, asr, wavs, config, False, keep=True)
+    streamed, departures = streaming_departures(brain, kernel, config)
+    searcher = serve.searcher
+    greedy_whole = searcher(streamed)[0]
+    plain_states = plain.states()
+    b3_diff = (streamed - plain_states).abs().max().item()
+    prefix_kernel = searcher(streamed[:, :STREAMING_CMP_FRAMES])[0]
+    prefix_plain = searcher(plain_states[:, :STREAMING_CMP_FRAMES])[0]
+    wav_path = os.path.join(out_dir, "stream.wav")
+    write_audio(wav_path, wavs[0].cpu().numpy(), SR)
+    reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    pieces = list(asr.transcribe_file_streaming(wav_path, config))
+    _sync(device)
+    file_ms = (time.perf_counter() - t0) * 1e3
+    file_launches = launch_counts()
+    chunk_seconds = asr.get_chunk_size_frames(config) / SR
+    b3_chunks = dict.fromkeys(KERNELS, 0)
+    b3_chunks["fused_fbank"] = bf16.n_chunks
+    lines = {
+        "config": STREAMING_CONFIG,
+        "chunk_samples": asr.get_chunk_size_frames(config),
+        "chunk_seconds": chunk_seconds, "chunks": bf16.n_chunks,
+        "wrapper_context_samples": 2 * serve.fea.get_required_padding(),
+        "wrapper_lag_frames": serve.fea.get_output_count_per_pad_frame(),
+        "encoder_frames_a_chunk": kernel.kept[0][-1].shape[1],
+        "bf16": {
+            "encode_ms": _ms_stats(encode_ms),
+            "decode_ms": _ms_stats(decode_ms),
+            "seconds": bf16.seconds,
+            "audio_s_per_s": bf16.audio_seconds / bf16.seconds,
+            "launches": bf16.launches,
+            "emitted_tokens": sum(len(t) for t in bf16.tokens),
+            "text_chars": [len(t) for t in bf16.texts],
+        },
+        "fp32": {
+            "seconds_kernel": kernel.seconds, "seconds_plain": plain.seconds,
+            "launches_kernel": kernel.launches,
+            "launches_plain": plain.launches,
+            "streamed_vs_offline_chunked_encode": departures["encoder"],
+            "streamed_vs_offline_atol": STREAMING_ENC_ATOL,
+            "departure_frontend_chunk_edges": departures["frontend_edges"],
+            "departure_frontend_edges_and_normalization":
+                departures["normalization"],
+            "departure_frontend_edges_and_normalization_with_padding":
+                departures["normalization_with_padding"],
+            "b3_vs_plain_states_max_diff": b3_diff,
+            "b3_vs_plain_atol": STREAMING_B3_ATOL,
+            "b3_vs_plain_tokens_over_frames": STREAMING_CMP_FRAMES,
+            "b3_vs_plain_full_read_equal_utterances": sum(
+                a == b for a, b in zip(kernel.tokens, plain.tokens)),
+            "streaming_tokens": sum(len(t) for t in kernel.tokens),
+        },
+        "file": {"ms": file_ms, "launches": file_launches,
+                 "chunks": len(pieces),
+                 "text_chars": len("".join(pieces).strip())},
+    }
+    checks = {
+        "b3_once_a_chunk": bf16.launches == b3_chunks
+        and kernel.launches == b3_chunks,
+        "plain_run_no_kernel": sum(plain.launches.values()) == 0,
+        "streamed_equals_offline_chunked_encode":
+            departures["encoder"]["max_abs"] <= STREAMING_ENC_ATOL,
+        "streaming_tokens_equal_greedy_over_streamed_states":
+            kernel.tokens == greedy_whole,
+        "fp32_b3_states_close": b3_diff <= STREAMING_B3_ATOL,
+        "fp32_tokens_equal_over_prefix": prefix_kernel == prefix_plain,
+        "file_b3_once_a_chunk": file_launches["fused_fbank"] == len(pieces)
+        == -(-int(SR * NORTH["seconds"]) // asr.get_chunk_size_frames(
+            config)),
+        "tokens_emitted": sum(len(t) for t in bf16.tokens) > 0
+        and all(np.isfinite(encode_ms + decode_ms)),
+        "tokens_in_vocab_not_blank": all(
+            0 < t < cfg["vocab"] for r in (bf16, kernel, plain)
+            for row in r.tokens for t in row),
+    }
+    return checks, lines
+
+
+def run_streaming_train(cfg, modules, out_dir, paths, device="cuda"):
+    """Two bf16 AdamW steps of the streaming twin (a chunk configuration
+    drawn for each), its valid stage under ``valid_config``, one bf16 step
+    with ``STREAMING_FORCED``, and one float32 step under the test
+    configuration through B3 against its plain version."""
+    train = asr_dataset(paths["train"], cfg, train=True, fold=True)
+    valid = asr_dataset(paths["valid"], cfg, train=False, fold=True)
+    extra = streaming_hparams()
+    sampler = extra["dynchunktrain_config_sampler"]
+    brain = transducer_brain(cfg, modules, out_dir=out_dir, device=device,
+                             extra_hparams=extra)
+    loader = {"batch_size": cfg["batch_size"],
+              "pad_to_multiple": {"sig": transducer_recipe.SIG_PAD_MULTIPLE}}
+    gc.collect()
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain.fit(brain.hparams.epoch_counter, train, valid,
+              train_loader_kwargs=loader, valid_loader_kwargs=loader)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["fused_fbank"] = n_fwd
+    fit_draws = list(sampler.draws)
+    batch = next(iter(make_dataloader(train, **loader)))
+    sampler.forced = DynChunkTrainConfig(**STREAMING_FORCED)
+    brain.modules.train()
+    brain.on_fit_batch_start(batch)
+    brain.fit_batch(batch)
+    forced_loss = brain._flush_pending_loss()
+    step_ms = brain.step_ms()
+    peak = torch.cuda.max_memory_allocated()
+    line = {
+        "optimizer_steps": brain.optimizer_step,
+        "forwards": {s.name: c for s, c in brain.forwards.items()},
+        "sampler_draws": fit_draws,
+        "forced_draw": sampler.draws[len(fit_draws):],
+        "launches": counts, "expected_launches": expected,
+        "losses": brain.losses, "valid_losses": brain.valid_losses,
+        "forced_step_loss": forced_loss,
+        "step_ms": step_ms, "seconds": seconds,
+        "audio_s_per_s": brain.audio_seconds * 1e3 / sum(step_ms),
+        "max_memory_allocated_bytes": peak,
+        "batch_shape": list(batch["sig"].data.shape),
+    }
+    train_draws = [d for d in fit_draws if d[0] == "TRAIN"]
+    ok = (counts == expected
+          and brain.forwards[Stage.TRAIN] == TRANSDUCER_TRAIN_STEPS + 1
+          and len(train_draws) == TRANSDUCER_TRAIN_STEPS
+          and all(d == ["VALID", list(STREAMING_CONFIG.values())]
+                  for d in fit_draws if d[0] == "VALID")
+          and sampler.draws[-1] == ["TRAIN",
+                                    list(STREAMING_FORCED.values())]
+          and all(np.isfinite(brain.losses + brain.valid_losses)))
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["fp32_kernel_vs_plain"] = cmp = transducer_step_kernel_vs_plain(
+        cfg, batch, device=device, extra_hparams=streaming_hparams(
+            forced=DynChunkTrainConfig(**STREAMING_CONFIG)))
+    line["ok"] = bool(ok and cmp["loss_rel_diff"] <= TRANSDUCER_LOSS_RTOL)
+    return line
+
+
+def timit_hparams(cfg, out_dir, device="cuda"):
+    """The TIMIT twin's hparams (its YAML's, built in Python) at full
+    width, batch ``TIMIT_BATCH``."""
+    data = os.path.join(out_dir, "data")
+    save = os.path.join(out_dir, "save")
+    return {
+        **transducer_hparams(cfg, device=device, out_dir=out_dir),
+        "data_folder": data, "save_folder": save,
+        "train_annotation": os.path.join(data, "train.json"),
+        "valid_annotation": os.path.join(data, "valid.json"),
+        "modules": transducer_modules(cfg, device=device, seed=5),
+        "lr": cfg["lr"], "batch_size": TIMIT_BATCH,
+        "checkpointer": Checkpointer(save),
+    }
+
+
+def run_timit_chain(cfg, out_dir, device="cuda"):
+    """The TIMIT transducer twin's ``run`` once (``--debug``: one epoch of
+    two micro-batches): ``prepare_synthetic``, the phone map, two bf16
+    steps, the valid stage; B3 on each batch."""
+    hparams = timit_hparams(cfg, out_dir, device=device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain, _, phone_map = transducer_recipe.run(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True, "debug": True, "debug_batches": 2,
+                  "debug_epochs": 1},
+        brain_cls=TimedTransducerBrain, prepare=timit_recipe.prepare,
+        labels=timit_recipe.phone_labels)
+    _sync(device)
+    counts = launch_counts()
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = {"seconds": time.perf_counter() - t0,
+            "phones": len(phone_map), "forwards": {
+                s.name: c for s, c in brain.forwards.items()},
+            "launches": counts, "losses": brain.losses,
+            "valid_losses": brain.valid_losses,
+            "step_ms": brain.step_ms(),
+            "checkpoints": len(brain.checkpointer.list_checkpoints())}
+    line["ok"] = bool(
+        counts["fused_fbank"] == n_fwd
+        and brain.forwards[Stage.TRAIN] == 2
+        and brain.forwards[Stage.VALID] >= 1
+        # prepare_synthetic's utterances use every phone but silence
+        and len(phone_map) == len(timit_prepare.PHONES) - 1
+        and all(np.isfinite(brain.losses + brain.valid_losses)))
+    return line
+
+
+def run_streaming_path(out_dir, paths, cfg=TRANSDUCER_CFG, device="cuda"):
+    """The streaming transducer at full width: served chunk by chunk
+    through ``StreamingASR`` (bf16, float32 through B3 and its plain
+    version, a WAV file), trained two steps with drawn chunk
+    configurations, one forced, its valid stage and a float32 step
+    against the plain version; then the TIMIT twin's chain. Returns B3's
+    launches in each run and the streamed chunks' waveform shape."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    modules = transducer_modules(cfg, device=device, seed=11)
+    n_params = sum(p.numel() for m in modules.values()
+                   for p in m.parameters())
+    write_covering_bpe(out_dir, cfg["vocab"])
+    tokenizer = SentencePiece(out_dir, cfg["vocab"], model_type="bpe")
+    brain = transducer_brain(cfg, modules, device=device,
+                             extra_hparams=streaming_hparams())
+    checks, serve = run_streaming_serve(cfg, brain, tokenizer, out_dir,
+                                        device=device)
+    emit({"phase": "streaming_serve", "ok": all(checks.values()),
+          "checks": checks, **serve})
+    del brain
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"streaming_path serve: a check failed: "
+                             f"{checks}")
+    train = run_streaming_train(cfg, modules, out_dir, paths, device=device)
+    emit({"phase": "streaming_train", **train})
+    del modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not train["ok"]:
+        raise AssertionError("streaming_path: training failed")
+    timit = run_timit_chain(cfg, os.path.join(out_dir, "timit"),
+                            device=device)
+    emit({"phase": "streaming_path/timit_transducer", **timit})
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not timit["ok"]:
+        raise AssertionError("streaming_path: the TIMIT twin failed")
+    emit({"phase": "streaming_path_summary", "reduced": STREAMING_REDUCED,
+          "parameters": n_params, "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    launches = {"bf16_stream": serve["bf16"]["launches"]["fused_fbank"],
+                "fp32_stream": serve["fp32"]["launches_kernel"][
+                    "fused_fbank"],
+                "file_stream": serve["file"]["launches"]["fused_fbank"],
+                "train": train["launches"]["fused_fbank"],
+                "timit_train_valid": timit["launches"]["fused_fbank"]}
+    # B3 takes a chunk after the wrapper's context of twice its padding
+    width = serve["chunk_samples"] + serve["wrapper_context_samples"]
+    return launches, (NORTH["batch"], width), (1, width)
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -4597,7 +5176,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = gpu_name_power_limit()
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     _build.load_library()
     emit({"phase": "environment", "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu_name_power_limit": smi,
@@ -4677,6 +5256,10 @@ def main():
         torch.cuda.empty_cache()
         kernels[1]["launches_by_path"]["ctc_path"] = run_ctc_path(paths)
         torch.cuda.empty_cache()
+        (kernels[1]["launches_by_path"]["streaming_path"], stream_shape,
+         stream_file_shape) = run_streaming_path(
+            os.path.join(out_dir, "streaming"), paths)
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -4694,6 +5277,10 @@ def main():
         NORTH["batch"], int(SR * NORTH["seconds"]),
         n_mels=CRDNN_CFG["n_mels"])
     kernels[1]["at_transducer_train_shape"] = measure_b3_at(*rnnt_batch)
+    kernels[1]["at_streaming_shape"] = measure_b3_at(*stream_shape)
+    kernels[1]["at_streaming_file_shape"] = measure_b3_at(*stream_file_shape)
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script,
+          "gpu_name_power_limit": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,7 +1,11 @@
 """Composed feature extractors (port of ``speechbrain_tpu/lobes/features.py``:
-``Fbank``). With ``fused=True`` the whole chain runs as one hand-written
-CUDA kernel (``speechbrain_tpu_torch.ops.mel_frontend``).
+``Fbank``, ``upalign_value`` and ``StreamingFeatureWrapper``). With
+``fused=True`` the whole chain runs as one hand-written CUDA kernel
+(``speechbrain_tpu_torch.ops.mel_frontend``).
 """
+
+import torch
+import torch.nn.functional as F
 
 from speechbrain_tpu_torch.ops.mel_frontend import (
     dft_tables,
@@ -72,3 +76,100 @@ class Fbank:
             )
         mag = self.compute_STFT.power(wav)
         return self.compute_fbanks(mag)
+
+    def get_filter_properties(self):
+        return self.compute_STFT.get_filter_properties()
+
+
+def upalign_value(x, to):
+    """``x`` rounded up to a multiple of ``to``."""
+    if x % to == 0:
+        return x
+    return x + to - (x % to)
+
+
+class StreamingFeatureWrapper:
+    """Chunk-by-chunk features from a centred, strided feature extractor
+    (``module``, with ``get_filter_properties()``), each frame equal to
+    the offline extractor's frame over the whole stream.
+
+    The wrapper keeps ``2 * get_required_padding()`` samples of the
+    stream between chunks (``pad``, a whole number of strides: 320
+    samples for ``Fbank``'s defaults) and runs ``module`` once a chunk on
+    those samples and the chunk, a contiguous tensor (with
+    ``Fbank(fused=True)``, one launch of the fused kernel a chunk).
+
+    A chunk of ``n * stride`` samples yields exactly ``n`` frames, and
+    over a stream every frame of the offline extractor comes out once
+    and in order, ``lag = pad // stride`` frames late (2 frames, 20 ms,
+    for ``Fbank``'s defaults): at stream start the first ``lag`` frames
+    are centred before the stream's first sample (over zeros and the
+    first samples), then offline frame ``j`` is the stream's frame
+    ``j + lag``. The offline extractor's last ``lag + 1`` frames, whose
+    windows reach past the stream's end, come out only if more samples
+    follow (``get_recommended_final_chunk_count``). Chunk lengths must be
+    whole numbers of strides.
+
+    A per-utterance step of ``module`` sees one chunk at a time: ``Fbank``'s
+    ``top_db`` floor is the loudest frame of the chunk (and its context)
+    less ``top_db``, not of the whole utterance, so a frame more than
+    ``top_db`` below the utterance's loudest can differ from the offline
+    one.
+
+    Example
+    -------
+    >>> wrapper = StreamingFeatureWrapper(Fbank(device="cpu"))
+    >>> context = wrapper.make_streaming_context()
+    >>> feats, context = wrapper(torch.zeros(2, 1600), context)
+    >>> feats.shape
+    torch.Size([2, 10, 40])
+    """
+
+    def __init__(self, module):
+        self.module = module
+        self.properties = module.get_filter_properties()
+        if self.properties.causal:
+            raise ValueError("Causal filters need no streaming wrapper")
+
+    def get_required_padding(self):
+        """Samples of context on each side of a chunk, rounded up to a
+        whole number of strides."""
+        return upalign_value((self.properties.window_size - 1) // 2,
+                             self.properties.stride)
+
+    def get_output_count_per_pad_frame(self):
+        """The lag, in frames."""
+        return self.get_required_padding() // self.properties.stride
+
+    def get_recommended_final_chunk_count(self, frames_per_chunk):
+        """Frames of zeros to feed after the stream for its last offline
+        frames, rounded up to whole chunks of ``frames_per_chunk``."""
+        return upalign_value(self.get_required_padding(), frames_per_chunk)
+
+    def make_streaming_context(self, batch_size=1):
+        """The state before a stream's first chunk (the batch size is
+        taken from the first chunk)."""
+        return {"left_context": None}
+
+    def __call__(self, chunk, context):
+        """One chunk ``(batch, samples)``; returns ``(features (batch,
+        samples // stride, ...), new context)``."""
+        stride = self.properties.stride
+        if chunk.shape[-1] % stride:
+            raise ValueError(
+                f"a chunk of {chunk.shape[-1]} samples is not a whole number "
+                f"of strides ({stride})"
+            )
+        pad = self.get_required_padding()
+        left = context.get("left_context")
+        if left is None:
+            chunk_in = F.pad(chunk, (2 * pad, 0))
+        else:
+            chunk_in = torch.cat([left, chunk], dim=-1)
+        new_context = {"left_context": chunk_in[:, -2 * pad:]}
+        feats = self.module(chunk_in.contiguous())
+        lag = pad // stride
+        return feats[:, lag:lag + chunk.shape[-1] // stride], new_context
+
+    def get_filter_properties(self):
+        return self.properties

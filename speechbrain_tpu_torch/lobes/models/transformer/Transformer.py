@@ -70,8 +70,13 @@ class PositionalEncoding(nn.Module):
             "pe", torch.from_numpy(pe[None]).to(device), persistent=False
         )
 
-    def forward(self, x):
-        return self.pe[:, : x.shape[1]].to(x.dtype)
+    def forward(self, x, offset=0):
+        """The encodings of positions ``offset`` to ``offset + T``."""
+        end = offset + x.shape[1]
+        if end > self.pe.shape[1]:
+            raise ValueError(f"position {end - 1} is past max_len "
+                             f"{self.pe.shape[1]}")
+        return self.pe[:, offset:end].to(x.dtype)
 
     def at(self, position, dtype):
         """The encoding of one position, (1, 1, D), for a decode step."""

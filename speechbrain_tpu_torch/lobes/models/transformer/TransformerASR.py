@@ -1,14 +1,22 @@
 """Encoder-decoder Transformer/Conformer ASR wrapper and its
 ``EncoderWrapper`` (port of
-``speechbrain_tpu/lobes/models/transformer/TransformerASR.py`` without its
-dynamic-chunk and streaming arms): joins an input projection, a
-Transformer, Conformer or Branchformer encoder and a Transformer decoder,
-building the padding and causal masks from relative lengths.
+``speechbrain_tpu/lobes/models/transformer/TransformerASR.py``): joins an
+input projection, a Transformer, Conformer or Branchformer encoder and a
+Transformer decoder, building the padding, causal and chunked masks from
+relative lengths and a dynamic chunk configuration.
 
 Positions: with ``RelPosMHAXL`` the encoder reads relative position
 embeddings and the source gets no absolute encoding; with any other
 attention (``RoPEMHA`` and ``hypermixing`` included) the absolute sine
 encoding is added to the source, as in the JAX package.
+
+Streaming (Conformer encoders): ``encode_streaming`` encodes one chunk
+with the state ``make_streaming_context`` starts, and equals ``encode``
+with the same ``dynchunktrain_config`` over the concatenated chunks. The
+JAX package's departs from it twice: in the convolution module
+(``Conformer.py``, ROADMAP.md C34) and, for an encoder without
+``RelPosMHAXL``, in the absolute position encoding, which it restarts at
+every chunk (C36).
 """
 
 import torch
@@ -19,6 +27,7 @@ from speechbrain_tpu_torch.lobes.models.Branchformer import (
 )
 from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
     ConformerEncoder,
+    make_chunked_attention_mask,
 )
 from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
     NormalizedEmbedding,
@@ -32,19 +41,31 @@ from speechbrain_tpu_torch.nnet.attention import RelPosEncXL
 from speechbrain_tpu_torch.nnet.linear import Linear
 
 
-def make_transformer_src_tgt_masks(src, tgt=None, wav_len=None, pad_idx=0):
+def make_transformer_src_mask(src, dynchunktrain_config=None):
+    """(T, T) bool attention mask of the encoder, True where masked: None
+    for full context, chunked for a dynamic chunk configuration."""
+    if dynchunktrain_config is None:
+        return None
+    return make_chunked_attention_mask(
+        src.shape[1], dynchunktrain_config.chunk_size,
+        dynchunktrain_config.left_context_size, device=src.device,
+    )
+
+
+def make_transformer_src_tgt_masks(src, tgt=None, wav_len=None, pad_idx=0,
+                                   dynchunktrain_config=None):
     """The masks used by forward: (src_key_padding_mask,
-    tgt_key_padding_mask, src_mask, tgt_mask); ``src_mask`` is None
-    (full context)."""
+    tgt_key_padding_mask, src_mask, tgt_mask)."""
     src_key_padding_mask = None
     if wav_len is not None:
         src_key_padding_mask = get_key_padding_mask(wav_len, src.shape[1])
+    src_mask = make_transformer_src_mask(src, dynchunktrain_config)
     tgt_key_padding_mask = None
     tgt_mask = None
     if tgt is not None:
         tgt_key_padding_mask = tgt == pad_idx
         tgt_mask = get_lookahead_mask(tgt.shape[1], tgt.device)
-    return src_key_padding_mask, tgt_key_padding_mask, None, tgt_mask
+    return src_key_padding_mask, tgt_key_padding_mask, src_mask, tgt_mask
 
 
 class TransformerASR(nn.Module):
@@ -130,7 +151,9 @@ class TransformerASR(nn.Module):
             input_size=d_model, max_len=max_length, device=device
         )
 
-    def _embed_src(self, src):
+    def _embed_src(self, src, offset=0):
+        """The projected source and its relative position embeddings (or
+        None); an absolute encoding is added from position ``offset``."""
         if src.ndim == 4:
             B, T, Fdim, C = src.shape
             src = src.reshape(B, T, Fdim * C)
@@ -139,19 +162,24 @@ class TransformerASR(nn.Module):
         if self.attention_type == "RelPosMHAXL":
             pos_embs = self.pos_enc(src)
         elif self.pos_enc is not None:
-            src = src + self.pos_enc(src)
+            src = src + self.pos_enc(src, offset)
         return src, pos_embs
 
-    def _encode(self, src, src_mask, src_key_padding_mask, pos_embs):
+    def _encode(self, src, src_mask, src_key_padding_mask, pos_embs,
+                dynchunktrain_config=None):
         # a branchformer has no attention mask (full context)
         if self.encoder_module == "branchformer":
             return self.encoder(
                 src, src_key_padding_mask=src_key_padding_mask,
                 pos_embs=pos_embs,
             )
+        # only the Conformer's convolution takes the chunks
+        extra = ({"dynchunktrain_config": dynchunktrain_config}
+                 if self.encoder_module == "conformer" else {})
         return self.encoder(
             src, src_mask=src_mask,
             src_key_padding_mask=src_key_padding_mask, pos_embs=pos_embs,
+            **extra,
         )
 
     def _memory_mask(self, encoder_out, enc_len):
@@ -159,16 +187,42 @@ class TransformerASR(nn.Module):
             return None
         return get_key_padding_mask(enc_len, encoder_out.shape[1])
 
-    def encode(self, src, wav_len=None, pad_idx=0):
-        """Encoder half: (B, T, F) -> (B, T, d_model)."""
+    def encode(self, src, wav_len=None, pad_idx=0, dynchunktrain_config=None):
+        """Encoder half: (B, T, F) -> (B, T, d_model); chunked attention
+        and convolution under a dynamic chunk configuration."""
         src, pos_embs = self._embed_src(src)
         src_key_padding_mask, _, src_mask, _ = make_transformer_src_tgt_masks(
-            src, None, wav_len, pad_idx
+            src, None, wav_len, pad_idx, dynchunktrain_config
         )
         enc_out, _ = self._encode(
-            src, src_mask, src_key_padding_mask, pos_embs
+            src, src_mask, src_key_padding_mask, pos_embs,
+            dynchunktrain_config,
         )
         return enc_out
+
+    def make_streaming_context(self, batch, dynchunktrain_config):
+        """The state before a stream's first chunk, for
+        ``encode_streaming``: a dict of the encoder's
+        ``ConformerEncoderStreamingContext`` (``"encoder"``) and the frames
+        streamed so far (``"frames"``). ``batch`` is the JAX package's
+        argument; the port's state takes its batch from the first
+        chunk."""
+        if self.encoder_module != "conformer":
+            raise ValueError("streaming needs a Conformer encoder")
+        return {"encoder": self.encoder.make_streaming_context(
+            dynchunktrain_config), "frames": 0}
+
+    def encode_streaming(self, src, context):
+        """One chunk of features (B, T, F) -> (its encoder states (B, T,
+        d_model), ``context``, updated in place). An absolute position
+        encoding goes on at the chunk's place in the stream, as the
+        offline encode adds it (a stream then ends at ``max_length``
+        frames); the JAX package restarts it at every chunk (ROADMAP.md
+        C36)."""
+        src, _ = self._embed_src(src, offset=context["frames"])
+        context["frames"] += src.shape[1]
+        enc_out = self.encoder.forward_streaming(src, context["encoder"])
+        return enc_out, context
 
     def decode(self, tgt, encoder_out, enc_len=None):
         """Decoder half for beam search: returns (decoder_out, cross_attn
@@ -219,16 +273,19 @@ class TransformerASR(nn.Module):
         )
         return out[:, 0], cache, cross_attns[-1]
 
-    def forward(self, src, tgt, wav_len=None, pad_idx=0):
+    def forward(self, src, tgt, wav_len=None, pad_idx=0,
+                dynchunktrain_config=None):
         src_proj, pos_embs = self._embed_src(src)
         (
             src_key_padding_mask,
             tgt_key_padding_mask,
             src_mask,
             tgt_mask,
-        ) = make_transformer_src_tgt_masks(src_proj, tgt, wav_len, pad_idx)
+        ) = make_transformer_src_tgt_masks(src_proj, tgt, wav_len, pad_idx,
+                                           dynchunktrain_config)
         enc_out, _ = self._encode(
-            src_proj, src_mask, src_key_padding_mask, pos_embs
+            src_proj, src_mask, src_key_padding_mask, pos_embs,
+            dynchunktrain_config,
         )
         if self.decoder is None or tgt is None:
             return enc_out, None
@@ -260,5 +317,6 @@ class EncoderWrapper(nn.Module):
         super().__init__()
         self.transformer = transformer
 
-    def forward(self, x, lengths=None):
-        return self.transformer.encode(x, wav_len=lengths)
+    def forward(self, x, lengths=None, dynchunktrain_config=None):
+        return self.transformer.encode(
+            x, wav_len=lengths, dynchunktrain_config=dynchunktrain_config)

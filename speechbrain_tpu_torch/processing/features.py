@@ -116,6 +116,18 @@ class STFT:
             ps = ps / self.n_fft
         return ps
 
+    def get_filter_properties(self):
+        """The window (``win_length`` samples) and stride (``hop_length``)
+        of a centred STFT, for ``StreamingFeatureWrapper``."""
+        from speechbrain_tpu_torch.utils.filter_analysis import (
+            FilterProperties,
+        )
+
+        if not self.center:
+            raise ValueError("Filter properties assume a centered STFT")
+        return FilterProperties(window_size=self.win_length,
+                                stride=self.hop_length)
+
 
 def _to_mel(hz):
     return 2595.0 * np.log10(1.0 + np.asarray(hz, dtype=np.float64) / 700.0)

@@ -1,0 +1,1 @@
+"""CommonVoice Conformer transducer (RNN-T) ASR on the PyTorch port."""

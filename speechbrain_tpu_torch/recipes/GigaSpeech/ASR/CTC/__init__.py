@@ -1,0 +1,2 @@
+"""GigaSpeech data preparation on the PyTorch port (the CTC recipe itself is not
+ported)."""

@@ -14,9 +14,14 @@ stage. ``TransducerASR.make_searcher`` and ``transcribe_batch`` serve the
 trained model through ``decoders/transducer.py`` (greedy or beam search,
 optionally fused with an RNN language model).
 
-The streaming configuration (``conformer_transducer_streaming.yaml``,
-dynamic-chunk training) is not ported yet: a hparams dict with
-``streaming`` set raises at construction.
+With ``streaming`` set (``conformer_transducer_streaming.yaml``: dynamic
+chunk training), every batch is encoded under the configuration that
+``dynchunktrain_config_sampler(stage)`` draws, as the JAX recipe does:
+chunked or full context in training, the YAML's ``valid_config`` and
+``test_config`` otherwise.
+
+The TIMIT, CommonVoice, GigaSpeech and VoxPopuli transducer twins run this
+module's Brain and ``run`` with their own data preparation and labels.
 
 Run from the repository's root (a synthetic corpus is made under
 ``--debug`` where the manifest is missing; without ``--device=cpu`` the
@@ -68,16 +73,15 @@ class TransducerASR(Brain):
     line goes to the train log and a checkpoint is kept by the lowest
     valid loss (each where the Brain has a logger and a checkpointer)."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
+    def chunk_config(self, stage):
+        """The stage's dynamic chunk configuration: drawn from
+        ``dynchunktrain_config_sampler`` where ``streaming`` is set (a
+        draw a training batch), else None (full context)."""
         if getattr(self.hparams, "streaming", False):
-            raise NotImplementedError(
-                "conformer_transducer_streaming.yaml needs dynamic-chunk "
-                "training (dynchunktrain_config), which the port does not "
-                "hold yet"
-            )
+            return self.hparams.dynchunktrain_config_sampler(stage)
+        return None
 
-    def encode(self, wavs, wav_lens):
+    def encode(self, wavs, wav_lens, dynchunktrain_config=None):
         """Waveforms -> ``enc_proj`` of the encoder states (B, T', joint)
         and their relative lengths over the padded T'."""
         feats = self.hparams.compute_features(wavs)
@@ -85,7 +89,8 @@ class TransducerASR(Brain):
         feats = self.modules.frontend(feats)
         feats, wav_lens = pad_time_to_multiple(feats, wav_lens,
                                                multiple=ENC_PAD_MULTIPLE)
-        enc = self.modules.encoder.encode(feats, wav_len=wav_lens)
+        enc = self.modules.encoder.encode(
+            feats, wav_len=wav_lens, dynchunktrain_config=dynchunktrain_config)
         return self.modules.enc_proj(enc), wav_lens
 
     def predict(self, tokens, hidden=None):
@@ -97,7 +102,7 @@ class TransducerASR(Brain):
     def compute_forward(self, batch, stage):
         wavs, wav_lens = batch["sig"]
         tokens, _ = batch["tokens"]
-        enc, enc_lens = self.encode(wavs, wav_lens)
+        enc, enc_lens = self.encode(wavs, wav_lens, self.chunk_config(stage))
         blank = self.hparams.blank_index
         pn_in = torch.cat([torch.full_like(tokens[:, :1], blank), tokens],
                           dim=1)
@@ -151,20 +156,22 @@ class TransducerASR(Brain):
 
     @torch.no_grad()
     def transcribe_batch(self, wavs, wav_lens, searcher):
-        """Encode (the modules in ``eval()``) and search: the searcher gets
-        the encoder frames up to the longest row's last valid one, so
-        that no frame of the padding to a multiple of 128 is decoded
-        (the searcher itself takes no lengths). Returns the searcher's
-        result."""
+        """Encode (the modules in ``eval()``; a streaming model under its
+        test configuration) and search: the searcher gets the encoder
+        frames up to the longest row's last valid one, so that no frame of
+        the padding to a multiple of 128 is decoded (the searcher itself
+        takes no lengths). Returns the searcher's result."""
         self.modules.eval()
-        enc, enc_lens = self.encode(wavs, wav_lens)
+        enc, enc_lens = self.encode(wavs, wav_lens,
+                                    self.chunk_config(Stage.TEST))
         n = int(round(float(enc_lens.max()) * enc.shape[1]))
         return searcher(enc[:, :n])
 
 
-def dataio_prepare(hparams, tokenizer):
-    """Manifests -> datasets that read the audio and encode the words into
-    BPE ids (``tokens``). The train split is sorted by length."""
+def dataio_prepare(hparams, encode_labels, takes="words"):
+    """Manifests -> datasets that read the audio and encode each
+    utterance's ``takes`` entry into label ids (``tokens``) through
+    ``encode_labels``. The train split is sorted by length."""
     datasets = {}
     for split, key in (("train", "train_annotation"),
                        ("valid", "valid_annotation")):
@@ -174,28 +181,15 @@ def dataio_prepare(hparams, tokenizer):
         if split == "train":
             ds = ds.filtered_sorted(sort_key="length")
         ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
-        ds.add_dynamic_item(
-            lambda words: np.asarray(tokenizer.sp.encode_as_ids(words),
-                                     np.int32),
-            takes="words", provides="tokens",
-        )
+        ds.add_dynamic_item(encode_labels, takes=takes, provides="tokens")
         ds.set_output_keys(["id", "sig", "tokens"])
         datasets[split] = ds
     return datasets
 
 
-def run(hparams, run_opts, brain_cls=TransducerASR):
-    """The chain after the YAML step: a synthetic corpus under
-    ``run_opts["debug"]`` where the train manifest is missing, the
-    tokenizer, the datasets, ``fit`` with a shuffled train loader.
-    Returns ``(brain, datasets, tokenizer)``."""
-    if not Path(hparams["train_annotation"]).exists() and run_opts.get(
-        "debug"
-    ):
-        prepare_synthetic(
-            hparams["data_folder"],
-            save_folder=Path(hparams["train_annotation"]).parent,
-        )
+def bpe_labels(hparams):
+    """The YAML's SentencePiece model, trained on the train manifest's
+    words: ``(tokenizer, the manifest entry it reads, words -> ids)``."""
     tokenizer = SentencePiece(
         model_dir=hparams["save_folder"],
         vocab_size=hparams["vocab_size"],
@@ -204,7 +198,31 @@ def run(hparams, run_opts, brain_cls=TransducerASR):
         model_type=hparams["token_type"],
         annotation_format="json",
     )
-    datasets = dataio_prepare(hparams, tokenizer)
+    return tokenizer, "words", lambda words: np.asarray(
+        tokenizer.sp.encode_as_ids(words), np.int32)
+
+
+def prepare_librispeech_synthetic(hparams):
+    prepare_synthetic(hparams["data_folder"],
+                      save_folder=Path(hparams["train_annotation"]).parent)
+
+
+def run(hparams, run_opts, brain_cls=TransducerASR,
+        prepare=prepare_librispeech_synthetic, labels=bpe_labels,
+        pad_to_multiple=None):
+    """The chain after the YAML step: a synthetic corpus under
+    ``run_opts["debug"]`` where the train manifest is missing
+    (``prepare(hparams)``), the labels (``labels(hparams)`` -> ``(label
+    encoder, manifest entry, text -> ids)``), the datasets, ``fit`` with a
+    shuffled train loader; batches padded to whole seconds and as
+    ``pad_to_multiple`` (``{key: multiple}``) says. Returns ``(brain,
+    datasets, label encoder)``."""
+    if not Path(hparams["train_annotation"]).exists() and run_opts.get(
+        "debug"
+    ):
+        prepare(hparams)
+    tokenizer, takes, encode_labels = labels(hparams)
+    datasets = dataio_prepare(hparams, encode_labels, takes)
     brain = brain_cls(
         modules=hparams["modules"],
         opt_class=adamw(hparams["lr"]),
@@ -213,7 +231,8 @@ def run(hparams, run_opts, brain_cls=TransducerASR):
         checkpointer=hparams["checkpointer"],
     )
     loader = {"batch_size": hparams["batch_size"],
-              "pad_to_multiple": {"sig": SIG_PAD_MULTIPLE}}
+              "pad_to_multiple": {"sig": SIG_PAD_MULTIPLE,
+                                  **(pad_to_multiple or {})}}
     brain.fit(
         hparams["epoch_counter"],
         datasets["train"],
@@ -224,7 +243,9 @@ def run(hparams, run_opts, brain_cls=TransducerASR):
     return brain, datasets, tokenizer
 
 
-def main(argv=None):
+def main(argv=None, **run_kwargs):
+    """The YAML step (``argv`` as on the command line), then ``run`` with
+    ``run_kwargs``."""
     hparams_file, run_opts, overrides = parse_arguments(argv)
     # the modules the YAML builds go to the Brain's device
     if "device" in run_opts:
@@ -238,7 +259,7 @@ def main(argv=None):
         hyperparams_to_save=hparams_file,
         overrides=overrides,
     )
-    return run(hparams, run_opts)
+    return run(hparams, run_opts, **run_kwargs)
 
 
 if __name__ == "__main__":

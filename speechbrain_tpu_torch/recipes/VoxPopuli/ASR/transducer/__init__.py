@@ -1,0 +1,1 @@
+"""VoxPopuli Conformer transducer (RNN-T) ASR on the PyTorch port."""

@@ -125,6 +125,10 @@ _FBANK_CASES = {
     # the transducer recipe's training batch: 8 utterances of 8-12 s padded
     # to whole seconds, the longest
     "transducer_batch": ("noise", 8, 12 * 16000, 10, 400),
+    # a streamed chunk of 0.96 s after StreamingFeatureWrapper's 640
+    # samples of context: NORTH's batch, and one file
+    "streaming_batch": ("noise", 8, 15360 + 640, 10, 400),
+    "streaming_file": ("bursts", 1, 15360 + 640, 10, 400),
 }
 
 
@@ -145,6 +149,35 @@ def test_fused_fbank_kernel_matches_plain_and_unfused(card, case):
     assert out.shape == unfused.shape
     assert float((out - plain).abs().max()) <= 5e-3
     assert float((out - unfused).abs().max()) <= 5e-3
+
+
+def test_streaming_wrapper_launches_b3_a_chunk(card, monkeypatch):
+    """``StreamingFeatureWrapper(Fbank(fused=True))`` over four chunks of
+    a strided batch view: B3 once a chunk, and the frames within 5e-3 dB
+    of the same wrapper over B3's plain version."""
+    from speechbrain_tpu_torch.lobes.features import StreamingFeatureWrapper
+
+    wav = torch.from_numpy(
+        make_check_signal("noise", 8, 4 * 15360, seed=3)).to(card)
+    fused = Fbank(n_mels=80, fused=True, device=card)
+    streams = {}
+    for arm in ("kernel", "plain"):
+        if arm == "plain":
+            monkeypatch.setattr(
+                mel_frontend, "_fused_fbank_cuda",
+                lambda *args, operands=None:
+                mel_frontend.fused_fbank_reference(*args))
+        wrapper = StreamingFeatureWrapper(fused)
+        ctx = wrapper.make_streaming_context(8)
+        before, out = mel_frontend.launches, []
+        for c in range(4):
+            feats, ctx = wrapper(wav[:, c * 15360:(c + 1) * 15360], ctx)
+            out.append(feats)
+        assert mel_frontend.launches == before + (4 if arm == "kernel"
+                                                  else 0)
+        streams[arm] = torch.cat(out, dim=1)
+    assert streams["kernel"].shape == (8, 4 * 96, 80)
+    assert float((streams["kernel"] - streams["plain"]).abs().max()) <= 5e-3
 
 
 @pytest.mark.parametrize("case", ["noise_hop10", "chirp", "bursts",

@@ -4,7 +4,7 @@ JAX recipe (``recipes/LibriSpeech/ASR/transducer/train.py``, imported as
 it is): the float32 loss of one batch (transducer + 0.3 CTC) at dropout
 0, and the twin's greedy ``transcribe_batch`` against the JAX searcher
 over the same modules; the twin run from its YAML at the debug flags of
-``tests/recipes/recipes.csv``; the streaming configuration refused; and
+``tests/recipes/recipes.csv``; the streaming configuration's step; and
 ``chip_smoke.py``'s ``transducer_path`` configuration against the twin
 YAML's values.
 
@@ -221,10 +221,41 @@ def test_transcribe_batch_matches_the_jax_searcher(setup):
     assert n < enc.shape[1]  # the padding to 128 frames was cut
 
 
-def test_the_streaming_configuration_is_refused():
-    with pytest.raises(NotImplementedError, match="dynamic-chunk"):
-        train.TransducerASR(modules={}, hparams={"streaming": True},
-                            run_opts={"device": "cpu"})
+def test_the_streaming_configuration_takes_a_step(tmp_path):
+    """The streaming YAML's hparams (``streaming`` and its sampler, drawing
+    a chunked configuration) build the Brain, which takes one optimizer
+    step with a finite loss and a chunked encode."""
+    from speechbrain_tpu_torch.utils.dynamic_chunk_training import (
+        DynChunkTrainConfig,
+        DynChunkTrainConfigRandomSampler,
+    )
+
+    torch.manual_seed(0)
+    sampler = DynChunkTrainConfigRandomSampler(
+        chunkwise_prob=1.0, chunk_size_min=4, chunk_size_max=4,
+        valid_config=DynChunkTrainConfig(4, 2))
+    hparams = {**_hparams(Fbank(n_mels=N_MELS, fused=True, device="cpu"),
+                          InputNormalization(norm_type="sentence")),
+               "streaming": True, "dynchunktrain_config_sampler": sampler,
+               "lr_annealing": NewBobScheduler(8e-4)}
+    brain = train.TransducerASR(
+        modules=port_modules(), hparams=hparams,
+        opt_class=chip_smoke.recipe.adamw(8e-4),
+        run_opts={"device": "cpu", "noprogressbar": True})
+    assert brain.chunk_config(Stage.TRAIN).chunk_size == 4
+    assert brain.chunk_config(Stage.VALID) == DynChunkTrainConfig(4, 2)
+    paths = chip_smoke.write_asr_corpus(CFG, str(tmp_path))
+    ds = chip_smoke.asr_dataset(paths["train"], CFG, train=True, fold=True)
+    batch = next(iter(brain.make_dataloader(ds, Stage.TRAIN,
+                                            ckpt_prefix=None, **LOADER)))
+    brain.init_optimizers()
+    before = [p.detach().clone() for p in brain.modules.parameters()]
+    brain.modules.train()
+    brain.fit_batch(batch)
+    loss = brain._flush_pending_loss()
+    assert brain.optimizer_step == 1 and np.isfinite(loss)
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, brain.modules.parameters()))
 
 
 # tests/recipes/recipes.csv, the LibriSpeech transducer row

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives twelve paths at full width with random weights
+(``grad_guard``), and drives thirteen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -107,6 +107,21 @@ LibriSpeech recipe:
   a chunked configuration forced, the valid stage, a float32 step through
   the kernel against its plain version; then the TIMIT transducer twin's
   chain.
+- ``speaker_path``: speaker recognition and classification: B3 against
+  its plain version at 80 mels on (32, 48000) and at 24 mels on (16,
+  16000); the VoxCeleb ECAPA-TDNN twin (channels 1024 x 4 and 3072,
+  192-dim embeddings, 7205 classes) served through
+  ``SpeakerRecognition.verify_batch`` on 32 pairs of 3-8 s and
+  ``EncoderClassifier.classify_batch`` (``fused_fbank`` once an encode),
+  float32 embeddings and scores through the kernel and its plain version;
+  two bf16 steps of each VoxCeleb twin (ECAPA, x-vector, ResNet) from its
+  YAML at batch 32 of 3 s crops, AAM-softmax, Adam, the cyclic rate, the
+  valid stage and a checkpoint (``fused_fbank`` on every batch), a float32
+  loss through the kernel against its plain version; the verification
+  script's cosine (ECAPA) and PLDA (x-vector) scoring to an EER; the
+  speech-commands ECAPA and LEAF twins one epoch each; the speaker_id
+  template one epoch, exported and served through
+  ``EncoderClassifier.from_hparams``.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -126,6 +141,7 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -151,6 +167,8 @@ from speechbrain_tpu_torch.decoders.transducer import (
     TransducerGreedySearcherStreamingContext,
 )
 from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
+from speechbrain_tpu_torch.inference.classifiers import EncoderClassifier
+from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
 from speechbrain_tpu_torch.inference.streaming import StreamingASR
 from speechbrain_tpu_torch.lobes.features import Fbank, StreamingFeatureWrapper
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
@@ -192,6 +210,12 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.Google_speech_commands.command_recognition import (  # noqa: E501
+    prepare as gsc_prepare,
+)
+from speechbrain_tpu_torch.recipes.Google_speech_commands.command_recognition import (  # noqa: E501
+    train as gsc_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.CTC import (
     train as ctc_recipe,
 )
@@ -217,6 +241,18 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
 from speechbrain_tpu_torch.recipes.TIMIT import timit_prepare
 from speechbrain_tpu_torch.recipes.TIMIT.ASR.transducer import (
     train as timit_recipe,
+)
+from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
+    prepare as speaker_prepare,
+)
+from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
+    speaker_verification_cosine as verify_recipe,
+)
+from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
+    train_speaker_embeddings as speaker_recipe,
+)
+from speechbrain_tpu_torch.templates.speaker_id import (
+    train as speaker_id_template,
 )
 from speechbrain_tpu_torch.tokenizers.SentencePiece import (
     WORD_BOUNDARY,
@@ -5087,6 +5123,490 @@ def run_streaming_path(out_dir, paths, cfg=TRANSDUCER_CFG, device="cuda"):
     return launches, (NORTH["batch"], width), (1, width)
 
 
+# -- speaker_path: speaker recognition and classification -------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+VOXCELEB = os.path.join(ROOT, "speechbrain_tpu_torch", "recipes", "VoxCeleb",
+                        "SpeakerRec", "hparams")
+GSC = os.path.join(ROOT, "speechbrain_tpu_torch", "recipes",
+                   "Google_speech_commands", "command_recognition", "hparams")
+SPEAKER_ID = os.path.join(ROOT, "speechbrain_tpu_torch", "templates",
+                          "speaker_id")
+# the three VoxCeleb training YAMLs, trained in turn; ECAPA and the x-vector
+# are then scored by the verification script (cosine, PLDA)
+SPEAKER_TWINS = {"ecapa": "train_ecapa_tdnn.yaml",
+                 "xvector": "train_xvector.yaml",
+                 "resnet": "train_resnet.yaml"}
+SPEAKER_VERIFY = {"ecapa": "verification_ecapa.yaml",
+                  "xvector": "verification_plda_xvector.yaml"}
+# synthetic speakers: a glottal-like tone of its own f0 and harmonics over
+# noise, 3.2-5 s an utterance, so that every 3 s crop is drawn
+SPEAKER_CORPUS = dict(speakers=16, train_per_speaker=4, dev_per_speaker=2,
+                      seconds=(3.2, 5.0))
+# serve: 32 pairs of 3-8 s, padded to 8 s (every relative length below 1)
+SPEAKER_SERVE = dict(pairs=32, seconds=(3.0, 7.9), padded_seconds=8.0,
+                     threshold=0.25, repeats=3)
+SPEAKER_TRAIN_STEPS = 2
+# float32 through B3 against its plain version: embeddings (relative L2),
+# cosine scores (absolute), the training loss (relative)
+SPEAKER_EMB_RTOL = 1e-5
+SPEAKER_SCORE_ATOL = 1e-5
+SPEAKER_LOSS_RTOL = 1e-6
+# B3 at the family's two new configurations: (batch, samples, mels)
+SPEAKER_B3_SHAPES = ((32, 48000, 80), (16, 16000, 24))
+SPEAKER_REDUCED = {
+    "weights": "random, from each YAML's seed (1986)",
+    "voxceleb_epochs": "10 -> 2 optimizer steps and the valid stage",
+    "voxceleb_corpus": "16 synthetic speakers, 4 train and 2 dev "
+                       "utterances each, 3.2-5 s",
+    "speech_commands_epochs": "5 -> 1, the recipe's synthetic command set",
+    "speaker_id_epochs": "15 -> 1, on the synthetic speakers",
+    "speaker_id_classes": "28 -> the corpus's 16 speakers, so that every "
+                          "output decodes to a label",
+}
+# text replacements applied to every YAML this path loads: none on the
+# card (full width); the CPU test shrinks widths with them
+SPEAKER_YAML_EDITS = []
+
+
+def speaker_yaml(path, overrides):
+    """A twin YAML loaded as the twins' scripts load it, after
+    ``SPEAKER_YAML_EDITS``."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for old, new in SPEAKER_YAML_EDITS:
+        text = text.replace(old, new)
+    return load_hyperpyyaml(text, overrides)
+
+
+def write_speaker_corpus(data_folder, seed=0):
+    """``SPEAKER_CORPUS``'s synthetic speakers as 16-bit PCM WAV files in
+    ``data_folder`` and the manifests ``train.json``/``dev.json`` (``wav``,
+    ``spk_id``, ``length``) beside them; returns the manifests' paths."""
+    cfg = SPEAKER_CORPUS
+    os.makedirs(data_folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    manifests = {"train": {}, "dev": {}}
+    for s in range(cfg["speakers"]):
+        f0 = 90.0 + 11.0 * s
+        weights = rng.uniform(0.2, 1.0, 4)
+        for i in range(cfg["train_per_speaker"] + cfg["dev_per_speaker"]):
+            secs = float(rng.uniform(*cfg["seconds"]))
+            t = np.arange(int(SR * secs)) / SR
+            vibrato = 1.0 + 0.02 * np.sin(2 * np.pi * rng.uniform(3, 6) * t)
+            phase = 2 * np.pi * f0 * np.cumsum(vibrato) / SR
+            wav = sum(w * np.sin((k + 1) * phase)
+                      for k, w in enumerate(weights)) * 0.15
+            wav += 0.01 * rng.standard_normal(len(t))
+            name = f"spk{s:02d}_{i}"
+            path = os.path.join(data_folder, name + ".wav")
+            write_audio(path, wav.astype(np.float32), SR)
+            split = "train" if i < cfg["train_per_speaker"] else "dev"
+            manifests[split][name] = {"wav": path, "spk_id": f"spk{s:02d}",
+                                      "length": secs}
+    paths = {}
+    for split, items in manifests.items():
+        paths[split] = os.path.join(data_folder, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def check_b3_speaker_shapes(device="cuda"):
+    """B3 against its plain version at the family's configurations, on
+    white noise and a chirp: the largest difference (dB) of each."""
+    out = {}
+    for B, T, n_mels in SPEAKER_B3_SHAPES:
+        fused = Fbank(n_mels=n_mels, fused=True, device=device)
+        errs = []
+        for kind in ("noise", "chirp"):
+            wav = torch.from_numpy(make_check_signal(kind, B, T, seed=3)).to(
+                device)
+            with torch.no_grad():
+                kernel = fused(wav)
+                with plain_versions("fused_fbank"):
+                    plain = fused(wav)
+            errs.append((kernel - plain).abs().max().item())
+        out[f"{B}x{T}@{n_mels}"] = max(errs)
+    return out
+
+
+class TimedSpeakerBrain(TimedSteps, speaker_recipe.SpeakerBrain):
+    """The VoxCeleb twin's Brain with :class:`TimedSteps`' readings."""
+
+
+class TimedCommandBrain(TimedSteps, gsc_recipe.CommandBrain):
+    """The speech-commands twin's Brain with :class:`TimedSteps`'
+    readings."""
+
+
+class TimedTemplateBrain(TimedSteps, speaker_id_template.SpeakerBrain):
+    """The speaker_id template's Brain with :class:`TimedSteps`'
+    readings."""
+
+
+def speaker_pairs(device, seed=5):
+    """``SPEAKER_SERVE["pairs"]`` pairs of noise-excited tones of 3-8 s,
+    padded to 8 s: (wavs1, lens1, wavs2, lens2, audio seconds)."""
+    cfg = SPEAKER_SERVE
+    rng = np.random.default_rng(seed)
+    T = int(SR * cfg["padded_seconds"])
+    out, seconds = [], 0.0
+    for _ in range(2):
+        wavs = np.zeros((cfg["pairs"], T), np.float32)
+        lens = rng.uniform(*cfg["seconds"], cfg["pairs"])
+        for b, secs in enumerate(lens):
+            n = int(SR * secs)
+            t = np.arange(n) / SR
+            wavs[b, :n] = (0.2 * np.sin(2 * np.pi * rng.uniform(90, 260) * t)
+                           + 0.02 * rng.standard_normal(n))
+        seconds += float(lens.sum())
+        out += [torch.from_numpy(wavs).to(device),
+                torch.from_numpy((lens * SR).astype(np.int64) / T).float()
+                .to(device)]
+    return (*out, seconds)
+
+
+def _elapsed_ms(fn, repeats, device):
+    """Median milliseconds of ``fn()`` by CUDA events, after one warm-up
+    call; returns (median, every reading, the last result)."""
+    result = fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        _sync(device)
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, result
+
+
+def run_speaker_serve(hparams, device="cuda"):
+    """The VoxCeleb ECAPA twin served: ``SpeakerRecognition.verify_batch``
+    of 32 pairs (B3 once an encode), ``encode_batch`` and
+    ``EncoderClassifier.classify_batch``; then float32 through B3 against
+    its plain version: embeddings, scores, decisions."""
+    modules = {"embedding_model": hparams["embedding_model"],
+               "classifier": hparams["classifier"]}
+    served = {"compute_features": hparams["compute_features"]}
+    verifier = SpeakerRecognition(modules=modules, hparams=served,
+                                  run_opts={"device": device})
+    classifier = EncoderClassifier(modules=modules, hparams=served,
+                                   run_opts={"device": device})
+    w1, l1, w2, l2, audio_s = speaker_pairs(device)
+    n_pairs = w1.shape[0]
+    reset_launch_counts()
+    score, decision = verifier.verify_batch(w1, w2, l1, l2,
+                                            SPEAKER_SERVE["threshold"])
+    _sync(device)
+    verify_launches = launch_counts()["fused_fbank"]
+    verify_ms, verify_all, _ = _elapsed_ms(
+        lambda: verifier.verify_batch(w1, w2, l1, l2), SPEAKER_SERVE[
+            "repeats"], device)
+    encode_ms, encode_all, _ = _elapsed_ms(
+        lambda: verifier.encode_batch(w1, l1), SPEAKER_SERVE["repeats"],
+        device)
+    reset_launch_counts()
+    out_prob, best, index, _ = classifier.classify_batch(w1, l1)
+    _sync(device)
+    classify_launches = launch_counts()["fused_fbank"]
+    emb_k = verifier.encode_batch(w1, l1)
+    with plain_versions("fused_fbank"):
+        emb_p = verifier.encode_batch(w1, l1)
+        score_p, decision_p = verifier.verify_batch(
+            w1, w2, l1, l2, SPEAKER_SERVE["threshold"])
+    rel_l2 = ((emb_k - emb_p).norm() / emb_p.norm()).item()
+    score_diff = (score - score_p).abs().max().item()
+    line = {
+        "pairs": n_pairs, "audio_seconds": audio_s,
+        "verify_batch_ms": verify_ms, "verify_batch_ms_all": verify_all,
+        "encode_batch_ms": encode_ms, "encode_batch_ms_all": encode_all,
+        "pairs_per_s": n_pairs / (verify_ms / 1e3),
+        "audio_s_per_s": audio_s / (verify_ms / 1e3),
+        "launches_verify_batch": verify_launches,
+        "launches_classify_batch": classify_launches,
+        "classes": int(out_prob.shape[-1]),
+        "accepted": int(decision.sum()),
+        "fp32_emb_rel_l2": rel_l2, "fp32_score_max_diff": score_diff,
+        "decisions_equal": bool(torch.equal(decision, decision_p)),
+        "score_range": [score.min().item(), score.max().item()],
+    }
+    line["ok"] = bool(
+        verify_launches == 2 and classify_launches == 1
+        and tuple(score.shape) == (n_pairs,)
+        and torch.isfinite(score).all() and torch.isfinite(out_prob).all()
+        and tuple(index.shape) == (n_pairs,)
+        and rel_l2 <= SPEAKER_EMB_RTOL and score_diff <= SPEAKER_SCORE_ATOL
+        and line["decisions_equal"])
+    return line
+
+
+def speaker_loss_kernel_vs_plain(brain, batch):
+    """The float32 loss of one batch through B3 and its plain version, the
+    trained modules in training mode (a copy: the running statistics stay
+    as they were)."""
+    modules = copy.deepcopy(brain.modules).train()
+    hparams = brain.hparams
+    out = {}
+    for arm in ("kernel", "plain"):
+        ctx = plain_versions("fused_fbank") if arm == "plain" \
+            else contextlib.nullcontext()
+        with ctx, torch.no_grad():
+            wavs, lens = batch["sig"]
+            emb = modules.embedding_model(hparams.compute_features(wavs),
+                                          lengths=lens)
+            loss, _ = brain.compute_objectives(modules.classifier(emb),
+                                               batch, Stage.TRAIN)
+            out[arm] = loss.item()
+    del modules
+    lk, lp = out["kernel"], out["plain"]
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "loss_rtol": SPEAKER_LOSS_RTOL}
+
+
+def run_speaker_train(name, manifests, out_dir, device="cuda"):
+    """Two bf16 optimizer steps of the VoxCeleb twin's ``run`` from its
+    YAML (AAM-softmax, Adam, the cyclic rate at the valid stage, batch 32
+    of 3 s crops) and its valid stage with a checkpoint; then the float32
+    loss of the first train batch through B3 and its plain version.
+    Returns the line and the run's output folder."""
+    out = os.path.join(out_dir, name)
+    hparams = speaker_yaml(os.path.join(VOXCELEB, SPEAKER_TWINS[name]), {
+        "data_folder": os.path.dirname(manifests["train"]),
+        "output_folder": out, "train_annotation": manifests["train"],
+        "valid_annotation": manifests["dev"], "number_of_epochs": 1,
+        "device": device})
+    n_params = sum(p.numel() for m in hparams["modules"].values()
+                   for p in m.parameters())
+    if torch.device(device).type == "cuda":
+        _peak_and_reset(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain = speaker_recipe.run(hparams, {
+        "device": device, "precision": "bf16", "noprogressbar": True,
+        "optimizer_step_limit": SPEAKER_TRAIN_STEPS},
+        brain_cls=TimedSpeakerBrain)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = (_peak_and_reset(device) if torch.device(device).type == "cuda"
+            else 0)
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    loader = make_dataloader(
+        speaker_recipe.dataio_prepare(hparams)["train"],
+        batch_size=hparams["batch_size"])
+    batch = next(iter(loader)).to(brain.device)
+    crop = batch["sig"].data.shape
+    check = speaker_loss_kernel_vs_plain(brain, batch)
+    line = {
+        "model": name, "parameters": n_params, "seconds": seconds,
+        "step_ms": brain.step_ms(), "losses": brain.losses,
+        "valid_losses": brain.valid_losses, "peak_bytes": peak,
+        "forwards": {s.name: c for s, c in brain.forwards.items()},
+        "launches": counts, "batch_shape": list(crop),
+        "lr_after_valid": brain.optimizer.param_groups[0]["lr"],
+        "checkpoints": len(brain.checkpointer.list_checkpoints()), **check,
+    }
+    line["ok"] = bool(
+        counts["fused_fbank"] == n_fwd
+        and brain.forwards[Stage.TRAIN] == SPEAKER_TRAIN_STEPS
+        and brain.forwards[Stage.VALID] >= 1
+        and crop[1] == int(SR * hparams["sentence_len"])
+        and crop[0] == hparams["batch_size"]
+        and line["checkpoints"] == 1
+        and all(np.isfinite(brain.losses + brain.valid_losses))
+        and check["loss_rel_diff"] <= SPEAKER_LOSS_RTOL)
+    del brain, hparams
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line, out
+
+
+def run_speaker_verification(name, train_out, manifests, device="cuda"):
+    """The verification script's scoring (cosine for ECAPA, PLDA for the
+    x-vector) of every pair of dev utterances, with the model the training
+    run checkpointed: its EER and minDCF (a chain that computes: the
+    weights took two steps)."""
+    data = os.path.dirname(manifests["train"])
+    trials = speaker_prepare.write_trials(data, [manifests["dev"]])
+    hparams = speaker_yaml(os.path.join(VOXCELEB, SPEAKER_VERIFY[name]), {
+        "output_folder": train_out, "data_folder": data,
+        "plda_train_annotation": manifests["train"], "device": device})
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = verify_recipe.score_trials(hparams, device)
+    _sync(device)
+    counts = launch_counts()
+    n_dev = len(json.load(open(manifests["dev"])))
+    n_train = len(json.load(open(manifests["train"])))
+    expected = n_dev + (n_train if hparams.get("scoring") == "plda" else 0)
+    line = {"model": name, "scoring": hparams.get("scoring", "cosine"),
+            "trials": len(result["scores"]),
+            "targets": int(result["labels"].sum()), "eer": result["eer"],
+            "min_dcf": result["min_dcf"], "threshold": result["threshold"],
+            "seconds": time.perf_counter() - t0, "launches": counts,
+            "trials_file": os.path.basename(str(trials))}
+    line["ok"] = bool(counts["fused_fbank"] == expected
+                      and np.isfinite(result["scores"]).all()
+                      and 0.0 <= result["eer"] <= 1.0)
+    return line
+
+
+def run_gsc_chain(yaml, out_dir, device="cuda"):
+    """A speech-commands twin from its YAML for one bf16 epoch on the
+    recipe's synthetic command set (``prepare_synthetic``): B3 at 24 mels
+    on every batch, none with LEAF."""
+    data = os.path.join(out_dir, "data")
+    gsc_prepare.prepare_synthetic(data)
+    hparams = speaker_yaml(os.path.join(GSC, yaml), {
+        "data_folder": data, "output_folder": os.path.join(out_dir, "out"),
+        "number_of_epochs": 1, "device": device})
+    leaf = "compute_features" in hparams["modules"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    brain = gsc_recipe.run(hparams, {"device": device, "precision": "bf16",
+                                     "noprogressbar": True},
+                           brain_cls=TimedCommandBrain)
+    _sync(device)
+    counts = launch_counts()
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = {"yaml": yaml, "seconds": time.perf_counter() - t0,
+            "forwards": {s.name: c for s, c in brain.forwards.items()},
+            "launches": counts, "losses": brain.losses,
+            "valid_losses": brain.valid_losses, "step_ms": brain.step_ms()}
+    line["ok"] = bool(
+        counts["fused_fbank"] == (0 if leaf else n_fwd)
+        and brain.forwards[Stage.TRAIN] >= 1
+        and brain.forwards[Stage.VALID] >= 1
+        and all(np.isfinite(brain.losses + brain.valid_losses)))
+    return line
+
+
+def run_speaker_id_template(manifests, out_dir, device="cuda"):
+    """The speaker_id template twin from its YAML for one bf16 epoch on
+    the synthetic speakers, its export, and the export served through
+    ``EncoderClassifier.from_hparams``: ``classify_file`` and
+    ``classify_batch`` against the trained modules on the same input."""
+    data = os.path.join(out_dir, "data")
+    os.makedirs(data, exist_ok=True)
+    for split, src in (("train", "train"), ("valid", "dev")):
+        shutil.copy(manifests[src], os.path.join(data, f"{split}.json"))
+    hparams = speaker_yaml(os.path.join(SPEAKER_ID, "train.yaml"), {
+        "data_folder": data, "output_folder": os.path.join(out_dir, "out"),
+        "number_of_epochs": 1, "n_classes": SPEAKER_CORPUS["speakers"],
+        "device": device})
+    reset_launch_counts()
+    brain = speaker_id_template.run(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True}, brain_cls=TimedTemplateBrain)
+    _sync(device)
+    train_counts = launch_counts()
+    served = EncoderClassifier.from_hparams(
+        source=hparams["pretrained_folder"],
+        savedir=os.path.join(out_dir, "served"),
+        run_opts={"device": device})
+    dev = json.load(open(manifests["dev"]))
+    wav_path = next(iter(dev.values()))["wav"]
+    reset_launch_counts()
+    _, _, _, label = served.classify_file(wav_path)
+    wav = torch.from_numpy(read_audio(wav_path))[None].to(device)
+    out_prob, _, index, labels = served.classify_batch(wav)
+    _sync(device)
+    serve_counts = launch_counts()
+    modules = brain.modules.eval()
+    with torch.no_grad():
+        feats = hparams["compute_features"](wav)
+        trained = modules.classifier(modules.embedding_model(feats))
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = {"forwards": {s.name: c for s, c in brain.forwards.items()},
+            "launches_train": train_counts, "launches_serve": serve_counts,
+            "losses": brain.losses, "valid_losses": brain.valid_losses,
+            "label": label, "classes": int(out_prob.shape[-1]),
+            "served_vs_trained_max_diff":
+                (out_prob - trained).abs().max().item(),
+            "exported": sorted(os.listdir(hparams["pretrained_folder"]))}
+    line["ok"] = bool(
+        train_counts["fused_fbank"] == n_fwd
+        and serve_counts["fused_fbank"] == 2
+        and label == labels and label[0] in hparams["label_encoder"].lab2ind
+        and line["served_vs_trained_max_diff"] <= 1e-6
+        and all(np.isfinite(brain.losses + brain.valid_losses)))
+    return line
+
+
+def run_speaker_path(out_dir, device="cuda"):
+    """The speaker family at full width: B3 against its plain version at
+    its two configurations; the VoxCeleb ECAPA twin served (verify_batch,
+    classify_batch, float32 through B3 and its plain version); two bf16
+    steps of each VoxCeleb twin with the valid stage; the verification
+    script's cosine and PLDA scoring to an EER; the speech-commands ECAPA
+    and LEAF twins one epoch each; the speaker_id template trained one
+    epoch, exported and served through ``EncoderClassifier.from_hparams``.
+    Returns B3's launches in each run and its errors at the two
+    configurations."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    b3 = check_b3_speaker_shapes(device)
+    emit({"phase": "speaker_b3_check", "max_abs_err_db": b3,
+          "atol": B3_ATOL, "ok": max(b3.values()) <= B3_ATOL})
+    if max(b3.values()) > B3_ATOL:
+        raise AssertionError(f"speaker_path: B3 against its plain version "
+                             f"{b3}")
+    manifests = write_speaker_corpus(os.path.join(out_dir, "voxceleb"))
+    hparams = speaker_yaml(os.path.join(VOXCELEB, SPEAKER_TWINS["ecapa"]), {
+        "data_folder": out_dir, "output_folder": out_dir, "device": device})
+    serve = run_speaker_serve(hparams, device)
+    emit({"phase": "speaker_serve", **serve})
+    del hparams
+    gc.collect()
+    if not serve["ok"]:
+        raise AssertionError(f"speaker_path: serving failed: {serve}")
+    launches = {"verify_batch": serve["launches_verify_batch"],
+                "classify_batch": serve["launches_classify_batch"]}
+    trained = {}
+    for name in SPEAKER_TWINS:
+        line, trained[name] = run_speaker_train(name, manifests, out_dir,
+                                                device)
+        emit({"phase": f"speaker_train/{name}", **line})
+        launches[f"train_{name}"] = line["launches"]["fused_fbank"]
+        if not line["ok"]:
+            raise AssertionError(f"speaker_path: training {name} failed")
+    for name in SPEAKER_VERIFY:
+        line = run_speaker_verification(name, trained[name], manifests,
+                                        device)
+        emit({"phase": f"speaker_verify/{name}", **line})
+        launches[f"verify_{name}"] = line["launches"]["fused_fbank"]
+        if not line["ok"]:
+            raise AssertionError(f"speaker_path: verification {name} failed")
+    for yaml in ("ecapa.yaml", "xvect_leaf.yaml"):
+        line = run_gsc_chain(yaml, os.path.join(out_dir, "gsc_" + yaml[:-5]),
+                             device)
+        emit({"phase": f"speaker_path/speech_commands/{yaml}", **line})
+        launches[f"speech_commands_{yaml[:-5]}"] = line["launches"][
+            "fused_fbank"]
+        if not line["ok"]:
+            raise AssertionError(f"speaker_path: speech commands {yaml} "
+                                 f"failed")
+    line = run_speaker_id_template(manifests, os.path.join(out_dir,
+                                                           "speaker_id"),
+                                   device)
+    emit({"phase": "speaker_path/speaker_id", **line})
+    launches["speaker_id_train"] = line["launches_train"]["fused_fbank"]
+    launches["speaker_id_serve"] = line["launches_serve"]["fused_fbank"]
+    if not line["ok"]:
+        raise AssertionError("speaker_path: the speaker_id template failed")
+    emit({"phase": "speaker_path_summary", "reduced": SPEAKER_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches, b3
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -5260,6 +5780,9 @@ def main():
          stream_file_shape) = run_streaming_path(
             os.path.join(out_dir, "streaming"), paths)
         torch.cuda.empty_cache()
+        (kernels[1]["launches_by_path"]["speaker_path"],
+         speaker_b3_err) = run_speaker_path(os.path.join(out_dir, "speaker"))
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -5279,6 +5802,11 @@ def main():
     kernels[1]["at_transducer_train_shape"] = measure_b3_at(*rnnt_batch)
     kernels[1]["at_streaming_shape"] = measure_b3_at(*stream_shape)
     kernels[1]["at_streaming_file_shape"] = measure_b3_at(*stream_file_shape)
+    for (B, T, n_mels), key in zip(SPEAKER_B3_SHAPES, (
+            "at_speaker_train_shape", "at_speech_commands_24_mels")):
+        kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
+                           "n_mels": n_mels,
+                           "max_abs_err": speaker_b3_err[f"{B}x{T}@{n_mels}"]}
     emit({"phase": "script", "seconds": time.perf_counter() - t_script,
           "gpu_name_power_limit": smi})
     emit({"kernels": kernels})

@@ -1,6 +1,6 @@
-"""Time-domain processing of waveforms (port of ``Resample`` from
-``speechbrain_tpu/augment/time_domain.py``; the perturbations of that
-file are not ported yet)."""
+"""Time-domain processing of waveforms (port of ``Resample`` and
+``SpeedPerturb`` from ``speechbrain_tpu/augment/time_domain.py``; its
+other perturbations are not ported yet)."""
 
 import math
 
@@ -72,3 +72,40 @@ class Resample:
         # phases interleave: output sample block * new + phase
         out = torch.einsum("bpnk,pk->bnp", windows, taps).reshape(B, -1)
         return out[:, :int(T * self.new / self.orig)]
+
+
+class SpeedPerturb:
+    """Speed perturbation by resampling: one of ``speeds`` (percent) is
+    drawn a call, the batch resampled from ``orig_freq`` to ``orig_freq *
+    speed // 100`` and padded with zeros or cut back to its length.
+
+    The JAX package draws the index with ``jax.random``; here it comes
+    from ``generator`` (a ``torch.Generator`` on the CPU), or is given:
+    ``branch(waveform, index)`` applies one speed.
+
+    Example
+    -------
+    >>> sp = SpeedPerturb(16000, speeds=[90, 100, 110])
+    >>> sp.branch(torch.zeros(2, 1600), 0).shape
+    torch.Size([2, 1600])
+    """
+
+    def __init__(self, orig_freq=16000, speeds=(90, 100, 110)):
+        self.orig_freq = orig_freq
+        self.speeds = list(speeds)
+        self.resamplers = [
+            Resample(orig_freq=orig_freq, new_freq=orig_freq * s // 100)
+            for s in self.speeds
+        ]
+
+    def branch(self, waveform, index):
+        """``waveform`` (B, T) at ``speeds[index]``, back at T samples."""
+        T = waveform.shape[1]
+        out = self.resamplers[index](waveform)
+        if out.shape[1] >= T:
+            return out[:, :T]
+        return F.pad(out, (0, T - out.shape[1]))
+
+    def __call__(self, waveform, lengths=None, generator=None):
+        index = int(torch.randint(len(self.speeds), (), generator=generator))
+        return self.branch(waveform, index)

@@ -1,10 +1,11 @@
 """Composed feature extractors (port of ``speechbrain_tpu/lobes/features.py``:
-``Fbank``, ``upalign_value`` and ``StreamingFeatureWrapper``). With
+``Fbank``, ``upalign_value``, ``Leaf`` and ``StreamingFeatureWrapper``). With
 ``fused=True`` the whole chain runs as one hand-written CUDA kernel
 (``speechbrain_tpu_torch.ops.mel_frontend``).
 """
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from speechbrain_tpu_torch.ops.mel_frontend import (
@@ -12,6 +13,9 @@ from speechbrain_tpu_torch.ops.mel_frontend import (
     fused_fbank,
     kernel_operands,
 )
+from speechbrain_tpu_torch.nnet.CNN import GaborConv1d
+from speechbrain_tpu_torch.nnet.normalization import PCEN
+from speechbrain_tpu_torch.nnet.pooling import GaussianLowpassPooling
 from speechbrain_tpu_torch.processing.features import STFT, Filterbank
 from speechbrain_tpu_torch.utils.autocast import fwd_default_precision
 
@@ -79,6 +83,52 @@ class Fbank:
 
     def get_filter_properties(self):
         return self.compute_STFT.get_filter_properties()
+
+
+class Leaf(nn.Module):
+    """LEAF, the learnable audio front end (Zeghidour et al., ICLR 2021):
+    Gabor filterbank -> squared modulus -> Gaussian lowpass pooling ->
+    floor at 1e-5 -> PCEN. (batch, time[, 1]) waveforms -> (batch,
+    time', out_channels), one frame every ``window_stride`` ms.
+
+    The squared modulus of filter ``c`` is ``real_c ** 2 + imag_c ** 2``
+    (``GaborConv1d`` gives the real responses, then the imaginary ones).
+    The JAX package pairs neighbouring channels of that output instead
+    (``reshape(B, T, C, 2)``), which adds two real or two imaginary
+    responses of neighbouring filters; the port does not copy it
+    (ROADMAP C41).
+
+    Example
+    -------
+    >>> leaf = Leaf(out_channels=8, device="cpu")
+    >>> leaf(torch.ones(2, 8000)).shape
+    torch.Size([2, 50, 8])
+    """
+
+    def __init__(self, out_channels=40, window_len=25.0, window_stride=10.0,
+                 sample_rate=16000, min_freq=60.0, max_freq=None,
+                 use_pcen=True, device="cuda", dtype=torch.float32):
+        super().__init__()
+        self.out_channels = out_channels
+        window_size = int(sample_rate * window_len / 1000) + 1
+        kw = dict(device=device, dtype=dtype)
+        self.complex_conv = GaborConv1d(
+            2 * out_channels, window_size, stride=1,
+            sample_rate=sample_rate, min_freq=min_freq, max_freq=max_freq,
+            **kw)
+        self.pooling = GaussianLowpassPooling(
+            out_channels, kernel_size=window_size,
+            stride=int(sample_rate * window_stride / 1000), **kw)
+        self.compression = PCEN(out_channels, **kw) if use_pcen else None
+
+    def forward(self, x):
+        out = self.complex_conv(x)
+        C = self.out_channels
+        out = out[..., :C] ** 2 + out[..., C:] ** 2
+        out = self.pooling(out).clamp(min=1e-5)
+        if self.compression is not None:
+            out = self.compression(out)
+        return out
 
 
 def upalign_value(x, to):

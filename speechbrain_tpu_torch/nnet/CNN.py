@@ -1,5 +1,6 @@
 """Convolutional layers on (batch, time, [height,] channel) layouts
-(port of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d`` and ``Conv2d``).
+(port of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d``, ``Conv2d`` and
+``GaborConv1d``).
 
 The public surface keeps the JAX package's channels-last layouts (NWC /
 NHWC); inside, tensors are moved to PyTorch's channels-first layout for
@@ -10,6 +11,9 @@ Padding semantics: "same" keeps L_out = ceil(L/stride), "causal"
 left-pads by (K-1)*dilation, "valid" pads nothing.
 """
 
+import math
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -176,3 +180,59 @@ class Conv2d(nn.Module):
             groups=self.groups,
         )
         return y.permute(0, 2, 3, 1)
+
+
+class GaborConv1d(nn.Module):
+    """Learnable Gabor filters over a waveform (the LEAF front end):
+    (batch, time[, 1]) -> (batch, time', out_channels), the first
+    ``out_channels // 2`` channels the filters' real responses, the rest
+    their imaginary ones, in the same order. A filter is a normalised
+    Gaussian window of width ``sigma`` (at least 4 sqrt(2 ln 2) samples)
+    times a complex sinusoid of normalised centre frequency; both start
+    mel-spaced between ``min_freq`` and ``max_freq``. "same" padding is
+    zeros.
+
+    Example
+    -------
+    >>> conv = GaborConv1d(16, kernel_size=101, device="cpu")
+    >>> conv(torch.ones(2, 800)).shape
+    torch.Size([2, 800, 16])
+    """
+
+    def __init__(self, out_channels, kernel_size, stride=1, padding="same",
+                 sample_rate=16000, min_freq=60.0, max_freq=None,
+                 sort_filters=False, device="cuda", dtype=torch.float32):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        n_filters = out_channels // 2
+        max_freq = max_freq or sample_rate / 2
+        mel_lo = 2595 * np.log10(1 + min_freq / 700)
+        mel_hi = 2595 * np.log10(1 + max_freq / 700)
+        hz = 700 * (10 ** (np.linspace(mel_lo, mel_hi, n_filters + 2)
+                           / 2595) - 1)
+        fwhms = (hz[2:] - hz[:-2]) / 2
+        center_norm = hz[1:-1] * 2 * np.pi / sample_rate
+        sigmas = sample_rate / (2 * np.pi * fwhms / np.sqrt(2 * np.log(2)))
+        self.kernel_params = nn.Parameter(torch.tensor(
+            np.stack([center_norm, sigmas], axis=1).astype(np.float32),
+            device=device, dtype=dtype))
+
+    def forward(self, x):
+        if x.ndim == 2:
+            x = x[..., None]
+        K = self.kernel_size
+        centers = self.kernel_params[:, 0:1]
+        sigmas = self.kernel_params[:, 1:2].clamp(
+            min=4 * math.sqrt(2 * math.log(2)))
+        t = torch.arange(-(K // 2), K // 2 + 1.0, device=x.device)[None, :]
+        denom = 1.0 / (math.sqrt(2 * math.pi) * sigmas)
+        gauss = torch.exp(-(t**2) / (2 * sigmas**2))
+        filters = torch.cat([denom * gauss * torch.cos(centers * t),
+                             denom * gauss * torch.sin(centers * t)], dim=0)
+        pads = (_same_pad_1d(x.shape[1], K, self.stride, 1)
+                if self.padding == "same" else (0, 0))
+        y = F.conv1d(F.pad(x.transpose(1, 2), pads),
+                     filters[:, None, :].to(x.dtype), stride=self.stride)
+        return y.transpose(1, 2)

@@ -1,12 +1,16 @@
 """Losses masked by relative lengths (port of the sequence losses of
 ``speechbrain_tpu/nnet/losses.py``: ``compute_length_mask``,
-``compute_masked_loss``, ``nll_loss``, ``kldiv_loss``, ``ctc_loss``).
+``compute_masked_loss``, ``nll_loss``, ``kldiv_loss``, ``ctc_loss``,
+``classification_error``, and the speaker family's margins
+``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``).
 
 Conventions as in the JAX package: predictions (batch, time, ...) with
 *relative* lengths in [0, 1], turned into counts by ``round(len * T)``
 (half to even, as ``jnp.round``); reduction in {"mean", "batchmean",
 "batch", "sum", None}. Every function computes on its inputs' device.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -110,6 +114,108 @@ def kldiv_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
         m = mask.to(loss.dtype)
         return (loss * m).sum() / m.sum().clamp(min=1.0)
     return _reduce(loss, mask, reduction)
+
+
+def classification_error(probabilities, targets, length=None,
+                         allowed_len_diff=3, reduction="mean"):
+    """1 - accuracy of the argmax over the last axis: over (batch, time,
+    classes) with (batch, time) targets masked by ``length``, otherwise
+    over every row.
+
+    Example
+    -------
+    >>> probs = torch.tensor([[0.9, 0.1], [0.2, 0.8]])
+    >>> float(classification_error(probs, torch.tensor([0, 0])))
+    0.5
+    """
+    err = (probabilities.argmax(dim=-1) != targets).to(torch.float32)
+    if probabilities.ndim == 3 and targets.ndim == 2:
+        return _reduce(err, compute_length_mask(err, length), reduction)
+    return _reduce(err, torch.ones_like(err, dtype=torch.bool), reduction)
+
+
+class AngularMargin:
+    """``scale * (outputs - margin * targets)`` over cosine similarities
+    and one-hot targets.
+
+    Example
+    -------
+    >>> am = AngularMargin(margin=0.2, scale=30)
+    >>> am(torch.tensor([[0.9, 0.1]]), torch.tensor([[1.0, 0.0]]))
+    tensor([[21.,  3.]])
+    """
+
+    def __init__(self, margin=0.0, scale=1.0):
+        self.margin = margin
+        self.scale = scale
+
+    def __call__(self, outputs, targets):
+        return self.scale * (outputs - self.margin * targets)
+
+
+class AdditiveAngularMargin(AngularMargin):
+    """ArcFace's additive angular margin (AAM-softmax), the ECAPA
+    speaker loss: the target class's cosine becomes cos(theta + margin),
+    taken as ``cos - mm`` where theta + margin would pass pi (``easy``:
+    where the cosine is not positive). Cosines are clipped to
+    +-(1 - 1e-7) first. Computes in float32 whatever the input's type.
+
+    Example
+    -------
+    >>> aam = AdditiveAngularMargin(margin=0.2, scale=30)
+    >>> aam(torch.tensor([[0.9, 0.1]]), torch.tensor([[1.0, 0.0]])).shape
+    torch.Size([1, 2])
+    """
+
+    def __init__(self, margin=0.0, scale=1.0, easy_margin=False):
+        super().__init__(margin, scale)
+        self.easy_margin = easy_margin
+        self.cos_m = math.cos(margin)
+        self.sin_m = math.sin(margin)
+        self.th = math.cos(math.pi - margin)
+        self.mm = math.sin(math.pi - margin) * margin
+
+    def __call__(self, outputs, targets):
+        cosine = outputs.float().clamp(-1 + 1e-7, 1 - 1e-7)
+        sine = torch.sqrt(1.0 - cosine**2)
+        phi = cosine * self.cos_m - sine * self.sin_m
+        if self.easy_margin:
+            phi = torch.where(cosine > 0, phi, cosine)
+        else:
+            phi = torch.where(cosine > self.th, phi, cosine - self.mm)
+        targets = targets.float()
+        return self.scale * (targets * phi + (1.0 - targets) * cosine)
+
+
+class LogSoftmaxWrapper:
+    """Cross-entropy over ``loss_fn(outputs, one_hot(targets))`` (a
+    margin such as :class:`AdditiveAngularMargin`), averaged over the
+    batch. ``outputs`` are (B, C) or (B, 1, C); a ``loss_fn`` that takes
+    no targets (it raises ``TypeError`` given two arguments) is called
+    with the outputs alone. ``length`` is accepted and unread.
+
+    Example
+    -------
+    >>> loss = LogSoftmaxWrapper(AdditiveAngularMargin(0.2, 30))
+    >>> cos = torch.tensor([[0.9, 0.1], [0.1, 0.9]])
+    >>> float(loss(cos, torch.tensor([0, 1]))) < 1.0
+    True
+    """
+
+    def __init__(self, loss_fn):
+        self.loss_fn = loss_fn
+
+    def __call__(self, outputs, targets, length=None):
+        if outputs.ndim == 3:
+            outputs = outputs[:, 0, :]
+        targets = targets.reshape(-1).long()
+        onehot = F.one_hot(targets, outputs.shape[-1]).to(outputs.dtype)
+        try:
+            predictions = self.loss_fn(outputs, onehot)
+        except TypeError:
+            predictions = self.loss_fn(outputs)
+        logp = torch.log_softmax(predictions.float(), dim=-1)
+        return -(logp * onehot.float()).sum(dim=-1).mean()
 
 
 # optax.ctc_loss's stand-in for log(0) (its ``log_epsilon`` default)

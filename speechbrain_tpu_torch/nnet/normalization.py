@@ -1,5 +1,6 @@
-"""Normalization layers (port of ``LayerNorm``, ``BatchNorm1d`` and
-``BatchNorm2d`` from ``speechbrain_tpu/nnet/normalization.py``).
+"""Normalization layers (port of ``LayerNorm``, ``BatchNorm1d``,
+``BatchNorm2d``, ``ExponentialMovingAverage`` and ``PCEN`` from
+``speechbrain_tpu/nnet/normalization.py``).
 
 BatchNorm keeps its running statistics in buffers (``running_mean``,
 ``running_var``), which ride in the module's ``state_dict`` and so in every
@@ -116,3 +117,75 @@ class BatchNorm1d(nn.Module):
 class BatchNorm2d(BatchNorm1d):
     """BatchNorm for ``(batch, time, feat, channel)`` inputs (NHWC): the
     statistics over batch, time and feature, one per channel."""
+
+
+class ExponentialMovingAverage(nn.Module):
+    """First-order lowpass over time of (batch, time, channel):
+    ``s[t] = w * x[t] + (1 - w) * s[t-1]`` from ``s[-1] = x[0]``, with a
+    learnable coefficient ``w`` (clipped to [0, 1]), one a channel or one
+    for all: the PCEN smoother. The JAX package scans the frames; here a
+    loop over them does the same arithmetic in the same order.
+
+    Example
+    -------
+    >>> ema = ExponentialMovingAverage(8, per_channel=True, device="cpu")
+    >>> ema(torch.ones(2, 5, 8)).shape
+    torch.Size([2, 5, 8])
+    """
+
+    def __init__(self, input_size, coeff_init=0.04, per_channel=False,
+                 trainable=True, device="cuda", dtype=torch.float32):
+        super().__init__()
+        shape = (input_size,) if per_channel else (1,)
+        self.weights = nn.Parameter(
+            torch.full(shape, coeff_init, device=device, dtype=dtype),
+            requires_grad=trainable)
+
+    def forward(self, x):
+        w = self.weights.clamp(0.0, 1.0)
+        s = x[:, 0, :]
+        out = []
+        for t in range(x.shape[1]):
+            s = w * x[:, t, :] + (1.0 - w) * s
+            out.append(s)
+        return torch.stack(out, dim=1)
+
+
+class PCEN(nn.Module):
+    """Trainable per-channel energy normalisation of (batch, time,
+    channel): ``(x / (floor + EMA(x)) ** alpha + delta) ** (1 / root) -
+    delta ** (1 / root)`` with ``alpha`` clipped at 1 and ``root`` at
+    least 1, each a channel.
+
+    Example
+    -------
+    >>> pcen = PCEN(8, device="cpu")
+    >>> pcen(torch.ones(2, 5, 8)).shape
+    torch.Size([2, 5, 8])
+    """
+
+    def __init__(self, input_size, alpha=0.96, smooth_coef=0.04, delta=2.0,
+                 root=2.0, floor=1e-12, trainable=True,
+                 per_channel_smooth_coef=True, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        self.floor = floor
+
+        def const(v):
+            return nn.Parameter(torch.full((input_size,), v, device=device,
+                                           dtype=dtype))
+
+        self.alpha = const(alpha)
+        self.delta = const(delta)
+        self.root = const(root)
+        self.ema = ExponentialMovingAverage(
+            input_size, coeff_init=smooth_coef,
+            per_channel=per_channel_smooth_coef, trainable=trainable,
+            device=device, dtype=dtype)
+
+    def forward(self, x):
+        ema = self.ema(x)
+        alpha = self.alpha.clamp(max=1.0)
+        one_over_root = 1.0 / self.root.clamp(min=1.0)
+        return ((x / (self.floor + ema) ** alpha + self.delta)
+                ** one_over_root - self.delta ** one_over_root)

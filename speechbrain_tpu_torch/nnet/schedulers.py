@@ -1,6 +1,6 @@
 """Learning-rate schedulers (port of ``NoamScheduler``,
-``NewBobScheduler`` and ``update_learning_rate`` from
-``speechbrain_tpu/nnet/schedulers.py``).
+``NewBobScheduler``, ``CyclicLRScheduler`` and ``update_learning_rate``
+from ``speechbrain_tpu/nnet/schedulers.py``).
 
 A scheduler is stepped by hand and its learning rate written into a
 ``torch.optim`` optimizer with :func:`update_learning_rate`. Schedulers
@@ -8,6 +8,7 @@ are checkpointable.
 """
 
 import json
+import math
 
 from speechbrain_tpu_torch.utils.checkpoints import (
     mark_as_loader,
@@ -153,3 +154,60 @@ class NewBobScheduler:
     def _load(self, path, end_of_epoch=False):
         _load_attrs(self, path,
                     ["hyperparam_value", "metric_values", "current_patient"])
+
+
+@register_checkpoint_hooks
+class CyclicLRScheduler:
+    """Cyclic learning rate between ``base_lr`` and ``max_lr`` by steps:
+    a triangle of half-period ``step_size`` (``"triangular"``), its
+    amplitude halved every cycle (``"triangular2"``), or scaled by
+    ``gamma ** step`` (``"exp_range"``).
+
+    ``sch(step)`` with an int returns that step's rate and changes
+    nothing (the speaker recipes call it with the Brain's optimizer step
+    at each valid stage); ``sch()`` advances its own count and returns
+    ``(old_lr, new_lr)``.
+
+    Example
+    -------
+    >>> sch = CyclicLRScheduler(base_lr=0.1, max_lr=0.3, step_size=4)
+    >>> [round(sch(s), 3) for s in (0, 2, 4, 6, 8)]
+    [0.1, 0.2, 0.3, 0.2, 0.1]
+    """
+
+    def __init__(self, base_lr=0.001, max_lr=0.006, step_size=2000,
+                 mode="triangular", gamma=1.0):
+        self.base_lr = base_lr
+        self.max_lr = max_lr
+        self.step_size = step_size
+        self.mode = mode
+        self.gamma = gamma
+        self.clr_iterations = 0
+        self.current_lr = base_lr
+
+    def _clr(self, it):
+        cycle = math.floor(1 + it / (2 * self.step_size))
+        x = abs(it / self.step_size - 2 * cycle + 1)
+        scale = 1.0
+        if self.mode == "triangular2":
+            scale = 1 / (2.0 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            scale = self.gamma**it
+        return (self.base_lr
+                + (self.max_lr - self.base_lr) * max(0, 1 - x) * scale)
+
+    def __call__(self, opt_or_step=None):
+        if isinstance(opt_or_step, int):
+            return self._clr(opt_or_step)
+        self.clr_iterations += 1
+        old = self.current_lr
+        self.current_lr = self._clr(self.clr_iterations)
+        return old, self.current_lr
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["clr_iterations", "current_lr"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=False):
+        _load_attrs(self, path, ["clr_iterations", "current_lr"])

@@ -29,6 +29,15 @@ the way:
   ``bh_{l}``; ``CRDNN`` and ``RNNLM`` by their flax names;
 * ``TransducerJoint``: ``enc_proj``/``dec_proj`` (sum) or ``proj``
   (concat);
+* the speaker family (``ECAPA_TDNN``, ``Xvector``, ``ResNet``, their
+  classifiers, ``Leaf``), whose submodules carry the flax scopes' names
+  and load child by child; of their own parameters the ECAPA
+  ``Classifier``'s ``weight`` stays ``(in, out)`` (it is normalised over
+  axis 0), ``AttentionPooling``'s ``query`` ``(dim, 1)``,
+  ``GaborConv1d``'s ``kernel_params``, ``GaussianLowpassPooling``'s and
+  the EMA's ``weights`` and ``PCEN``'s ``alpha``/``delta``/``root`` go
+  over as they are; ``BatchNorm1d`` on the ResNet's 4-D maps loads as on
+  3-D ones;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -51,6 +60,10 @@ from speechbrain_tpu_torch.lobes.models.Branchformer import (
     ConvolutionalSpatialGatingUnit,
     ConvolutionBranch,
 )
+from speechbrain_tpu_torch.lobes.features import Leaf
+from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN as ecapa
+from speechbrain_tpu_torch.lobes.models import ResNet as resnet
+from speechbrain_tpu_torch.lobes.models import Xvector as xvector
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN, FeatureChannelNorm
 from speechbrain_tpu_torch.lobes.models.RNNLM import RNNLM
@@ -82,14 +95,20 @@ from speechbrain_tpu_torch.nnet.attention import (
     RelPosMHAXL,
     RoPEMHA,
 )
-from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d
+from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d, GaborConv1d
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing, HyperNetwork
 from speechbrain_tpu_torch.nnet.linear import Linear
 from speechbrain_tpu_torch.nnet.normalization import (
+    PCEN,
     BatchNorm1d,
     BatchNorm2d,
+    ExponentialMovingAverage,
     LayerNorm,
+)
+from speechbrain_tpu_torch.nnet.pooling import (
+    AttentionPooling,
+    GaussianLowpassPooling,
 )
 from speechbrain_tpu_torch.nnet.RNN import (
     GRU,
@@ -436,6 +455,23 @@ def load_transducer_joint(module, scope):
     scope.done()
 
 
+def load_named_children(module, scope, own=()):
+    """Each child module that holds parameters or buffers from the scope
+    of its own name, then each parameter named in ``own`` as it is."""
+    for name, child in module.named_children():
+        if any(True for _ in child.parameters()) or any(
+                True for _ in child.buffers()):
+            load(child, scope.sub(name))
+    for name in own:
+        _copy(getattr(module, name), scope.take(name),
+              f"{scope.path}/{name}")
+    scope.done()
+
+
+def _own(*names):
+    return lambda module, scope: load_named_children(module, scope, names)
+
+
 _LOADERS = {
     Linear: load_linear,
     Conv1d: load_conv1d,
@@ -480,6 +516,25 @@ _LOADERS = {
     CRDNN: load_crdnn,
     RNNLM: load_rnnlm,
     TransducerJoint: load_transducer_joint,
+    ecapa.TDNNBlock: load_named_children,
+    ecapa.Res2NetBlock: load_named_children,
+    ecapa.SEBlock: load_named_children,
+    ecapa.AttentiveStatisticsPooling: load_named_children,
+    ecapa.SERes2NetBlock: load_named_children,
+    ecapa.ECAPA_TDNN: load_named_children,
+    ecapa.Classifier: _own("weight"),
+    xvector.Xvector: load_named_children,
+    xvector.Classifier: load_named_children,
+    xvector.Discriminator: load_named_children,
+    resnet.SEBlock2d: load_named_children,
+    resnet.PreActBlock: load_named_children,
+    resnet.ResNet: load_named_children,
+    AttentionPooling: _own("query"),
+    GaussianLowpassPooling: _own("weights"),
+    ExponentialMovingAverage: _own("weights"),
+    PCEN: _own("alpha", "delta", "root"),
+    GaborConv1d: _own("kernel_params"),
+    Leaf: load_named_children,
 }
 
 

@@ -203,6 +203,37 @@ def test_fused_fbank_kernel_at_40_mels(card, case):
     assert float((out - unfused).abs().max()) <= 5e-3
 
 
+# the speaker family's two configurations: speech commands' 24 mels at
+# (16, 16000) and VoxCeleb's 3 s crops at (32, 48000), 80 mels
+_SPEAKER_FBANK_CASES = {
+    "24_mels_noise": ("noise", 16, 16000, 24),
+    "24_mels_chirp": ("chirp", 16, 16000, 24),
+    "24_mels_bursts": ("bursts", 16, 16000, 24),
+    "80_mels_voxceleb_crops": ("noise", 32, 48000, 80),
+}
+
+
+@pytest.mark.parametrize("case", list(_SPEAKER_FBANK_CASES))
+def test_fused_fbank_kernel_at_the_speaker_configurations(card, case):
+    """24 mel filters (the widest filters of the banks in use: each spans
+    about three times the bins of the 80-filter bank's) and the VoxCeleb
+    crops' batch: one launch, within 5e-3 dB of the plain version and of
+    the unfused Fbank."""
+    kind, batch, samples, n_mels = _SPEAKER_FBANK_CASES[case]
+    wav = torch.from_numpy(
+        make_check_signal(kind, batch, samples, seed=n_mels)).to(card)
+    fused = Fbank(n_mels=n_mels, fused=True, device=card)
+    before = mel_frontend.launches
+    out = fused(wav)
+    assert mel_frontend.launches == before + 1
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    unfused = Fbank(n_mels=n_mels, device=card)(wav)
+    assert out.shape == unfused.shape == plain.shape
+    assert out.shape[-1] == n_mels
+    assert float((out - plain).abs().max()) <= 5e-3
+    assert float((out - unfused).abs().max()) <= 5e-3
+
+
 @pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])
 def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
     """Through ``fused_fbank`` itself: hops that take the span's 4-byte

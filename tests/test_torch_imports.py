@@ -121,6 +121,52 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             build()
 
 
+def _speaker_entry_points():
+    from speechbrain_tpu_torch.inference.classifiers import (
+        EncoderClassifier,
+    )
+    from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
+    from speechbrain_tpu_torch.lobes.features import Leaf
+    from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN, ResNet, Xvector
+    from speechbrain_tpu_torch.nnet.CNN import GaborConv1d
+    from speechbrain_tpu_torch.nnet.normalization import PCEN
+    from speechbrain_tpu_torch.nnet.pooling import (
+        AttentionPooling,
+        GaussianLowpassPooling,
+    )
+
+    lin = torch.nn.Linear(2, 2)
+    return {
+        "ECAPA_TDNN": lambda: ECAPA_TDNN.ECAPA_TDNN(8, channels=(8,) * 5),
+        "ECAPA_Classifier": lambda: ECAPA_TDNN.Classifier(4, 3),
+        "Xvector": lambda: Xvector.Xvector(8),
+        "Xvector_Classifier": lambda: Xvector.Classifier(4, 3),
+        "ResNet": lambda: ResNet.ResNet(8, layers=(1, 1, 1, 1)),
+        "Leaf": lambda: Leaf(4),
+        "GaborConv1d": lambda: GaborConv1d(4, 9),
+        "PCEN": lambda: PCEN(4),
+        "GaussianLowpassPooling": lambda: GaussianLowpassPooling(4),
+        "AttentionPooling": lambda: AttentionPooling(4),
+        "EncoderClassifier": lambda: EncoderClassifier(
+            modules={"embedding_model": lin, "classifier": lin}),
+        "SpeakerRecognition": lambda: SpeakerRecognition(
+            modules={"embedding_model": lin}),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "ECAPA_TDNN", "ECAPA_Classifier", "Xvector", "Xvector_Classifier",
+    "ResNet", "Leaf", "GaborConv1d", "PCEN", "GaussianLowpassPooling",
+    "AttentionPooling", "EncoderClassifier", "SpeakerRecognition"])
+def test_speaker_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The speaker family's modules and interfaces are built on the card
+    unless asked otherwise, and raise where there is none."""
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _speaker_entry_points()[name]()
+
+
 def test_searcher_refuses_states_off_its_device():
     from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
 

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives thirteen paths at full width with random weights
+(``grad_guard``), and drives fifteen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -122,6 +122,25 @@ LibriSpeech recipe:
   speech-commands ECAPA and LEAF twins one epoch each; the speaker_id
   template one epoch, exported and served through
   ``EncoderClassifier.from_hparams``.
+- ``classify_path``: the audio classifiers: B3 against its plain version
+  at 80 mels on (8, 80000) and (8, 64000); the ESC50 CNN14 (2048, base
+  64, 50 classes) and ViT (d 256, 6 layers, 8 heads) twins served through
+  ``AudioClassifier.classify_batch`` on 8 clips of 5 s (the encoder with
+  the recipe's pooling; ``fused_fbank`` once a call), float32 through the
+  kernel and its plain version; two bf16 steps of each ESC50 twin (CNN14,
+  ViT, the PIQ encoder, FocalNet) at batch 8 of 5 s with the valid stage
+  and a checkpoint (``fused_fbank`` on every batch), a float32 loss
+  through the kernel against its plain version; one epoch each of the
+  UrbanSound8k (CNN14, ECAPA), CommonLanguage, VoxLingua107 and IEMOCAP
+  (ECAPA, x-vector) twins, VoxLingua107's export served through
+  ``EncoderClassifier.from_hparams``.
+- ``recurrent_twins_path``: the CommonVoice, TIMIT and Switchboard CRDNN
+  seq2seq twins (a 4-layer bi-LSTM of 1024) and the SLURP direct twin
+  (512, 58 BPE tokens), two bf16 steps each with the valid stage
+  (``fused_fbank`` at 40 mels on every batch); SLURP's model served
+  through ``EndToEndSLU.decode_batch`` on 8 utterances, its float32
+  tokens through the kernel and its plain version equal at a short
+  decode.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -138,6 +157,7 @@ import copy
 import ctypes
 import functools
 import gc
+import importlib
 import itertools
 import json
 import os
@@ -167,7 +187,11 @@ from speechbrain_tpu_torch.decoders.transducer import (
     TransducerGreedySearcherStreamingContext,
 )
 from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
-from speechbrain_tpu_torch.inference.classifiers import EncoderClassifier
+from speechbrain_tpu_torch.inference.classifiers import (
+    AudioClassifier,
+    EncoderClassifier,
+)
+from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
 from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
 from speechbrain_tpu_torch.inference.streaming import StreamingASR
 from speechbrain_tpu_torch.lobes.features import Fbank, StreamingFeatureWrapper
@@ -210,6 +234,19 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.CommonLanguage.lang_id import (
+    train as cl_recipe,
+)
+from speechbrain_tpu_torch.recipes.CommonVoice import commonvoice_prepare
+from speechbrain_tpu_torch.recipes.CommonVoice.ASR.seq2seq import (
+    train as cv_seq2seq_recipe,
+)
+from speechbrain_tpu_torch.recipes.ESC50.classification import (
+    prepare as esc50_prepare,
+)
+from speechbrain_tpu_torch.recipes.ESC50.classification import (
+    train as esc50_recipe,
+)
 from speechbrain_tpu_torch.recipes.Google_speech_commands.command_recognition import (  # noqa: E501
     prepare as gsc_prepare,
 )
@@ -234,13 +271,32 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer import (
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
     ASR,
 )
+from speechbrain_tpu_torch.recipes.IEMOCAP.emotion_recognition import (
+    train as iemocap_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.LM import train as lm_recipe
 from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
     prepare_synthetic,
 )
+from speechbrain_tpu_torch.recipes.SLURP.direct import (
+    prepare as slurp_prepare,
+)
+from speechbrain_tpu_torch.recipes.SLURP.direct import train as slurp_recipe
+from speechbrain_tpu_torch.recipes.Switchboard.ASR.CTC import (
+    prepare as swbd_prepare,
+)
+from speechbrain_tpu_torch.recipes.Switchboard.ASR.seq2seq import (
+    train as swbd_seq2seq_recipe,
+)
 from speechbrain_tpu_torch.recipes.TIMIT import timit_prepare
+from speechbrain_tpu_torch.recipes.TIMIT.ASR.seq2seq import (
+    train as timit_seq2seq_recipe,
+)
 from speechbrain_tpu_torch.recipes.TIMIT.ASR.transducer import (
     train as timit_recipe,
+)
+from speechbrain_tpu_torch.recipes.UrbanSound8k.SoundClassification import (
+    train as us8k_recipe,
 )
 from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
     prepare as speaker_prepare,
@@ -250,6 +306,9 @@ from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
 )
 from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
     train_speaker_embeddings as speaker_recipe,
+)
+from speechbrain_tpu_torch.recipes.VoxLingua107.lang_id import (
+    train as vl_recipe,
 )
 from speechbrain_tpu_torch.templates.speaker_id import (
     train as speaker_id_template,
@@ -5214,11 +5273,12 @@ def write_speaker_corpus(data_folder, seed=0):
     return paths
 
 
-def check_b3_speaker_shapes(device="cuda"):
-    """B3 against its plain version at the family's configurations, on
-    white noise and a chirp: the largest difference (dB) of each."""
+def check_b3_at_shapes(shapes, device="cuda"):
+    """B3 against its plain version at each ``(batch, samples, mels)`` of
+    ``shapes``, on white noise and a chirp: the largest difference (dB)
+    at each."""
     out = {}
-    for B, T, n_mels in SPEAKER_B3_SHAPES:
+    for B, T, n_mels in shapes:
         fused = Fbank(n_mels=n_mels, fused=True, device=device)
         errs = []
         for kind in ("noise", "chirp"):
@@ -5552,7 +5612,7 @@ def run_speaker_path(out_dir, device="cuda"):
     configurations."""
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
-    b3 = check_b3_speaker_shapes(device)
+    b3 = check_b3_at_shapes(SPEAKER_B3_SHAPES, device)
     emit({"phase": "speaker_b3_check", "max_abs_err_db": b3,
           "atol": B3_ATOL, "ok": max(b3.values()) <= B3_ATOL})
     if max(b3.values()) > B3_ATOL:
@@ -5605,6 +5665,527 @@ def run_speaker_path(out_dir, device="cuda"):
           "seconds": time.perf_counter() - t0,
           "gpu_name_power_limit": gpu_name_power_limit()})
     return launches, b3
+
+
+# -- classify_path: the audio classifiers -----------------------------------
+
+TWINS_ROOT = os.path.join(ROOT, "speechbrain_tpu_torch", "recipes")
+ESC50 = os.path.join(TWINS_ROOT, "ESC50", "classification", "hparams")
+# the four ESC50 YAMLs, each trained two bf16 steps; the first two served
+ESC50_YAMLS = ("cnn14.yaml", "vit.yaml", "conv2d.yaml", "focalnet.yaml")
+ESC50_SERVED = ("cnn14.yaml", "vit.yaml")
+# the other classification twins, one epoch each on their synthetic
+# corpora: (name, recipe folder, YAML, train module)
+OTHER_CLASSIFIERS = (
+    ("us8k_cnn14", "UrbanSound8k/SoundClassification", "cnn14.yaml",
+     us8k_recipe),
+    ("us8k_ecapa", "UrbanSound8k/SoundClassification",
+     "train_ecapa_tdnn.yaml", us8k_recipe),
+    ("common_language", "CommonLanguage/lang_id", "train_ecapa.yaml",
+     cl_recipe),
+    ("voxlingua107", "VoxLingua107/lang_id", "train_ecapa.yaml", vl_recipe),
+    ("iemocap_ecapa", "IEMOCAP/emotion_recognition", "train_ecapa.yaml",
+     iemocap_recipe),
+    ("iemocap_xvector", "IEMOCAP/emotion_recognition", "train_xvector.yaml",
+     iemocap_recipe),
+)
+# serving: 8 clips of ESC50's 5 s, each shorter than the padded batch
+CLASSIFY_SERVE = dict(clips=8, seconds=5.0, fill=(0.6, 0.98), repeats=3)
+# training: ESC50's four synthetic classes as 5 s clips, 4 train and 2
+# valid a class, so that two steps at the YAML's batch of 8 are drawn
+CLASSIFY_CORPUS = dict(train_per_class=4, valid_per_class=2, seconds=5.0)
+CLASSIFY_TRAIN_STEPS = 2
+# float32 through B3 against its plain version: the served outputs
+# (relative L2) and the training loss (relative)
+CLASSIFY_OUT_RTOL = 1e-5
+CLASSIFY_LOSS_RTOL = 1e-6
+# B3 at the family's new shapes: ESC50's 5 s and UrbanSound8k's 4 s clips
+CLASSIFY_B3_SHAPES = ((8, 80000, 80), (8, 64000, 80))
+CLASSIFY_REDUCED = {
+    "weights": "random, from each YAML's seed",
+    "esc50_epochs": "50 -> 2 optimizer steps and the valid stage",
+    "esc50_corpus": "the recipe's four synthetic classes as 5 s clips, "
+                    "4 train and 2 valid a class",
+    "other_twins_epochs": "30-50 -> 1, on each recipe's synthetic corpus "
+                          "(1 s clips)",
+}
+# text replacements applied to every YAML this path and
+# recurrent_twins_path load: none on the card (full width); the CPU tests
+# shrink widths with them
+TWIN_YAML_EDITS = []
+
+
+def twin_yaml(path, overrides):
+    """A twin YAML's text after ``TWIN_YAML_EDITS`` and the objects it
+    builds with ``overrides``: ``(text, hparams)``."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for old, new in TWIN_YAML_EDITS:
+        text = text.replace(old, new)
+    return text, load_hyperpyyaml(text, overrides)
+
+
+def write_sound_corpus(data_folder, seed=0):
+    """ESC50's synthetic classes (``prepare.py``'s square tones under a
+    decaying envelope) as ``CLASSIFY_CORPUS`` clips, WAV files and the
+    manifests ``train.json``/``valid.json`` (``wav``, ``class_name``,
+    ``length``); returns the manifests' paths."""
+    cfg = CLASSIFY_CORPUS
+    os.makedirs(data_folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SR * cfg["seconds"])) / SR
+    manifests = {"train": {}, "valid": {}}
+    for ci, cls in enumerate(esc50_prepare.CLASSES):
+        for i in range(cfg["train_per_class"] + cfg["valid_per_class"]):
+            f0 = (100 + 200 * ci) * rng.uniform(0.95, 1.05)
+            sig = (np.sign(np.sin(2 * np.pi * f0 * t))
+                   * np.exp(-3 * ((t * (ci + 1)) % 1.0)) * 0.4
+                   + 0.02 * rng.standard_normal(len(t)))
+            name = f"{cls}_{i}"
+            path = os.path.join(data_folder, name + ".wav")
+            write_audio(path, sig.astype(np.float32), SR)
+            split = "train" if i < cfg["train_per_class"] else "valid"
+            manifests[split][name] = {"wav": path, "class_name": cls,
+                                      "length": len(t)}
+    paths = {}
+    for split, items in manifests.items():
+        paths[split] = os.path.join(data_folder, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def tone_clips(device, cfg, seed=7):
+    """``cfg["clips"]`` tones over noise, each filling a share drawn from
+    ``cfg["fill"]`` of the padded ``cfg["seconds"]``: (wavs, relative
+    lengths, audio seconds)."""
+    rng = np.random.default_rng(seed)
+    T = int(SR * cfg["seconds"])
+    wavs = np.zeros((cfg["clips"], T), np.float32)
+    fills = rng.uniform(*cfg["fill"], cfg["clips"])
+    for b, fill in enumerate(fills):
+        n = int(T * fill)
+        t = np.arange(n) / SR
+        wavs[b, :n] = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 900) * t)
+                       + 0.02 * rng.standard_normal(n))
+    lens = np.floor(T * fills) / T
+    return (torch.from_numpy(wavs).to(device),
+            torch.from_numpy(lens.astype(np.float32)).to(device),
+            float(np.floor(T * fills).sum()) / SR)
+
+
+def run_classify_serve(yaml, device="cuda"):
+    """An ESC50 twin (random weights at the YAML's width) served through
+    ``AudioClassifier.classify_batch``: the encoder with the recipe's
+    pooling, the linear head. Encode and classify ms (CUDA events), clips
+    and audio seconds a second, B3 launches a call; float32 through B3
+    against its plain version: the outputs within ``CLASSIFY_OUT_RTOL``
+    relative L2, the same best class."""
+    _, hparams = twin_yaml(os.path.join(ESC50, yaml), {
+        "data_folder": ".", "output_folder": ".", "device": device})
+    served = AudioClassifier(
+        modules={"embedding_model": hparams["pooled_encoder"],
+                 "classifier": hparams["classifier"]},
+        hparams={"compute_features": hparams["compute_features"]},
+        run_opts={"device": device})
+    n_params = sum(p.numel() for m in served.mods.values()
+                   for p in m.parameters())
+    wavs, lens, audio_s = tone_clips(device, CLASSIFY_SERVE)
+    reset_launch_counts()
+    out_prob, _, index, _ = served.classify_batch(wavs, lens)
+    _sync(device)
+    launches = launch_counts()["fused_fbank"]
+    repeats = CLASSIFY_SERVE["repeats"]
+    classify_ms, classify_all, _ = _elapsed_ms(
+        lambda: served.classify_batch(wavs, lens), repeats, device)
+    encode_ms, _, _ = _elapsed_ms(lambda: served.encode_batch(wavs, lens),
+                                  repeats, device)
+    with plain_versions("fused_fbank"):
+        plain_prob, _, plain_index, _ = served.classify_batch(wavs, lens)
+    rel_l2 = ((out_prob - plain_prob).norm() / plain_prob.norm()).item()
+    line = {"yaml": yaml, "parameters": n_params,
+            "clips": int(wavs.shape[0]), "batch_shape": list(wavs.shape),
+            "audio_seconds": audio_s, "encode_batch_ms": encode_ms,
+            "classify_batch_ms": classify_ms,
+            "classify_batch_ms_all": classify_all,
+            "clips_per_s": wavs.shape[0] / (classify_ms / 1e3),
+            "audio_s_per_s": audio_s / (classify_ms / 1e3),
+            "launches_classify_batch": launches,
+            "classes": int(out_prob.shape[-1]),
+            "fp32_out_rel_l2": rel_l2, "out_rtol": CLASSIFY_OUT_RTOL,
+            "argmax_equal": bool(torch.equal(index, plain_index))}
+    line["ok"] = bool(launches == 1 and torch.isfinite(out_prob).all()
+                      and tuple(out_prob.shape[:1]) == (wavs.shape[0],)
+                      and rel_l2 <= CLASSIFY_OUT_RTOL
+                      and line["argmax_equal"])
+    del served, hparams
+    gc.collect()
+    return line
+
+
+class TimedSoundBrain(TimedSteps, esc50_recipe.SoundBrain):
+    """The ESC50 twin's Brain with :class:`TimedSteps`' readings."""
+
+
+class TimedLangIdBrain(TimedSteps, cl_recipe.LangIdBrain):
+    """The lang-id and emotion twins' Brain with :class:`TimedSteps`'
+    readings."""
+
+
+def sound_loss_kernel_vs_plain(brain, batch):
+    """The float32 loss of one batch through B3 and its plain version, a
+    copy of the trained modules in training mode."""
+    modules = copy.deepcopy(brain.modules).train()
+    saved, brain.modules = brain.modules, modules
+    out = {}
+    try:
+        for arm in ("kernel", "plain"):
+            ctx = plain_versions("fused_fbank") if arm == "plain" \
+                else contextlib.nullcontext()
+            with ctx, torch.no_grad():
+                loss, _ = brain.compute_objectives(
+                    brain.compute_forward(batch, Stage.TRAIN), batch,
+                    Stage.TRAIN)
+                out[arm] = loss.item()
+    finally:
+        brain.modules = saved
+    lk, lp = out["kernel"], out["plain"]
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "loss_rtol": CLASSIFY_LOSS_RTOL}
+
+
+def _train_line(brain, counts, seconds, peak, n_params):
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    return {"parameters": n_params, "seconds": seconds,
+            "step_ms": brain.step_ms(), "losses": brain.losses,
+            "valid_losses": brain.valid_losses, "peak_bytes": peak,
+            "forwards": {s.name: c for s, c in brain.forwards.items()},
+            "launches": counts,
+            "checkpoints": len(brain.checkpointer.list_checkpoints()),
+            "b3_equals_batches": counts["fused_fbank"] == n_fwd}
+
+
+def _timed_run(fn, device):
+    """``fn()`` with the launch counts set to 0 before it and read after,
+    its seconds and the device's peak memory over it."""
+    if torch.device(device).type == "cuda":
+        _peak_and_reset(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = (_peak_and_reset(device) if torch.device(device).type == "cuda"
+            else 0)
+    return result, counts, seconds, peak
+
+
+def run_esc50_train(yaml, manifests, out_dir, device="cuda"):
+    """Two bf16 Adam steps of an ESC50 twin's ``run`` from its YAML at
+    batch 8 of 5 s clips, the valid stage and a checkpoint; then the
+    float32 loss of the first train batch through B3 and its plain
+    version."""
+    _, hparams = twin_yaml(os.path.join(ESC50, yaml), {
+        "data_folder": os.path.dirname(manifests["train"]),
+        "output_folder": os.path.join(out_dir, yaml[:-5]),
+        "number_of_epochs": 1, "device": device})
+    n_params = sum(p.numel() for m in hparams["modules"].values()
+                   for p in m.parameters())
+    brain, counts, seconds, peak = _timed_run(lambda: esc50_recipe.run(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True,
+                  "optimizer_step_limit": CLASSIFY_TRAIN_STEPS},
+        brain_cls=TimedSoundBrain), device)
+    line = {"yaml": yaml,
+            **_train_line(brain, counts, seconds, peak, n_params)}
+    forwards = dict(brain.forwards)
+    loader = make_dataloader(esc50_recipe.dataio_prepare(hparams)["train"],
+                             batch_size=hparams["batch_size"])
+    batch = next(iter(loader)).to(brain.device)
+    check = sound_loss_kernel_vs_plain(brain, batch)
+    line.update(batch_shape=list(batch["sig"].data.shape), **check)
+    line["ok"] = bool(
+        line["b3_equals_batches"]
+        and forwards[Stage.TRAIN] == CLASSIFY_TRAIN_STEPS
+        and forwards[Stage.VALID] >= 1 and line["checkpoints"] == 1
+        and all(np.isfinite(brain.losses + brain.valid_losses))
+        and check["loss_rel_diff"] <= CLASSIFY_LOSS_RTOL)
+    del brain, hparams
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_other_classifier(name, recipe_dir, yaml, module, out_dir,
+                         device="cuda"):
+    """One bf16 epoch of a classification twin from its YAML on its
+    recipe's synthetic corpus (``prepare_synthetic``), with the export
+    of its checkpoint; VoxLingua107's export is served through
+    ``EncoderClassifier.from_hparams`` and held against the trained
+    modules."""
+    data = os.path.join(out_dir, name, "data")
+    prepare = importlib.import_module(
+        module.__name__.rsplit(".", 1)[0] + ".prepare")
+    prepare.prepare_synthetic(data)
+    overrides = {"data_folder": data,
+                 "output_folder": os.path.join(out_dir, name, "out"),
+                 "number_of_epochs": 1, "device": device}
+    text, hparams = twin_yaml(
+        os.path.join(TWINS_ROOT, recipe_dir, "hparams", yaml), overrides)
+    n_params = sum(p.numel() for m in hparams["modules"].values()
+                   for p in m.parameters())
+    brain_cls = (TimedSoundBrain if hasattr(module, "SoundBrain")
+                 else TimedLangIdBrain)
+    brain, counts, seconds, peak = _timed_run(lambda: module.run(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True}, brain_cls=brain_cls,
+        export_from=(text, overrides)), device)
+    line = {"yaml": f"{recipe_dir}/{yaml}",
+            **_train_line(brain, counts, seconds, peak, n_params)}
+    ok = (line["b3_equals_batches"] and brain.forwards[Stage.TRAIN] >= 1
+          and brain.forwards[Stage.VALID] >= 1
+          and all(np.isfinite(brain.losses + brain.valid_losses)))
+    if name == "voxlingua107":
+        served = EncoderClassifier.from_hparams(
+            source=hparams["pretrained_folder"],
+            savedir=os.path.join(out_dir, name, "served"),
+            run_opts={"device": device})
+        wavs, lens, _ = tone_clips(device, CLASSIFY_SERVE)
+        reset_launch_counts()
+        out_prob, _, index, labels = served.classify_batch(wavs, lens)
+        _sync(device)
+        line["launches_served"] = launch_counts()["fused_fbank"]
+        modules = brain.modules.eval()
+        with torch.no_grad():
+            trained = modules.classifier(modules.embedding_model(
+                hparams["compute_features"](wavs), lengths=lens))
+        line["served_vs_trained_max_diff"] = \
+            (out_prob - trained).abs().max().item()
+        line["labels"] = labels
+        ok = ok and line["launches_served"] == 1 and \
+            line["served_vs_trained_max_diff"] <= 1e-6 and \
+            all(lab in hparams["label_encoder"].lab2ind for lab in labels)
+    line["ok"] = bool(ok)
+    del brain, hparams
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_classify_path(out_dir, device="cuda"):
+    """The audio classifiers at full width: B3 against its plain version
+    at ESC50's and UrbanSound8k's batches; the ESC50 CNN14 and ViT twins
+    served through ``AudioClassifier.classify_batch``; two bf16 steps of
+    each ESC50 twin with the valid stage; one epoch each of the
+    UrbanSound8k, CommonLanguage, VoxLingua107 and IEMOCAP twins, the
+    VoxLingua107 export served through ``EncoderClassifier.from_hparams``.
+    Returns B3's launches in each run and its errors at the two shapes."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    b3 = check_b3_at_shapes(CLASSIFY_B3_SHAPES, device)
+    emit({"phase": "classify_b3_check", "max_abs_err_db": b3,
+          "atol": B3_ATOL, "ok": max(b3.values()) <= B3_ATOL})
+    if max(b3.values()) > B3_ATOL:
+        raise AssertionError(f"classify_path: B3 against its plain version "
+                             f"{b3}")
+    launches = {}
+    for yaml in ESC50_SERVED:
+        line = run_classify_serve(yaml, device)
+        emit({"phase": f"classify_serve/{yaml[:-5]}", **line})
+        launches[f"serve_{yaml[:-5]}"] = line["launches_classify_batch"]
+        if not line["ok"]:
+            raise AssertionError(f"classify_path: serving {yaml} failed")
+    manifests = write_sound_corpus(os.path.join(out_dir, "esc50_data"))
+    for yaml in ESC50_YAMLS:
+        line = run_esc50_train(yaml, manifests, out_dir, device)
+        emit({"phase": f"classify_train/esc50_{yaml[:-5]}", **line})
+        launches[f"train_esc50_{yaml[:-5]}"] = line["launches"]["fused_fbank"]
+        if not line["ok"]:
+            raise AssertionError(f"classify_path: training {yaml} failed")
+    for name, recipe_dir, yaml, module in OTHER_CLASSIFIERS:
+        line = run_other_classifier(name, recipe_dir, yaml, module, out_dir,
+                                    device)
+        emit({"phase": f"classify_train/{name}", **line})
+        launches[f"train_{name}"] = line["launches"]["fused_fbank"]
+        if "launches_served" in line:
+            launches[f"serve_{name}"] = line["launches_served"]
+        if not line["ok"]:
+            raise AssertionError(f"classify_path: {name} failed")
+    emit({"phase": "classify_path_summary", "reduced": CLASSIFY_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches, b3
+
+
+# -- recurrent_twins_path: CommonVoice, TIMIT, Switchboard, SLURP -----------
+
+# name: (recipe folder, train module, synthetic corpus maker); each corpus
+# holds 16 train utterances, two batches of the YAMLs' 8
+RECURRENT_TWINS = {
+    "commonvoice": ("CommonVoice/ASR/seq2seq", cv_seq2seq_recipe,
+                    lambda d: commonvoice_synthetic(d, n_utts=24)),
+    "timit": ("TIMIT/ASR/seq2seq", timit_seq2seq_recipe,
+              lambda d: timit_prepare.prepare_synthetic(d, n_utt=18)),
+    "switchboard": ("Switchboard/ASR/seq2seq", swbd_seq2seq_recipe,
+                    lambda d: swbd_prepare.prepare_synthetic(d, n_utt=18)),
+    "slurp": ("SLURP/direct", slurp_recipe,
+              lambda d: slurp_prepare.prepare_synthetic(d, n_utts=24)),
+}
+RECURRENT_TRAIN_STEPS = 2
+# SLURP served: 8 utterances of 60-98 % of 3 s, a spoken command's length
+# (the synthetic corpus's are 0.3 s), beam ``SLU_BEAM_SIZE``; float32
+# tokens held over a short decode (C32: a search over random weights is
+# chaotic)
+SLU_SERVE = dict(clips=8, seconds=3.0, fill=(0.6, 0.98),
+                 max_decode_ratio=1.0, held_decode_ratio=0.2)
+RECURRENT_REDUCED = {
+    "weights": "random, from each YAML's seed",
+    "epochs": "15-20 -> 2 optimizer steps and the valid stage",
+    "corpora": "each recipe's synthetic corpus, 16 train utterances of "
+               "0.24-0.48 s (CommonVoice) or 0.3 s (TIMIT, Switchboard, "
+               "SLURP), padded to 1 s (SLURP: 8192 samples)",
+    "slurp_serve": "8 tone clips of 1.8-2.94 s padded to 3 s, not the "
+                   "corpus's utterances",
+    "float32_tokens": "held at decode ratio 0.2 (C32)",
+}
+
+
+def commonvoice_synthetic(data_folder, n_utts):
+    """CommonVoice's synthetic corpus without its test split: outside
+    ``--debug`` the twin's ``run`` would beam-search it."""
+    commonvoice_prepare.prepare_synthetic(data_folder, n_utts=n_utts)
+    os.remove(os.path.join(data_folder, "test.json"))
+
+
+class TimedSeq2SeqBrain(TimedSteps, seq2seq_recipe.ASR):
+    """The LibriSpeech seq2seq twin's ``ASR`` (CommonVoice, Switchboard)
+    with :class:`TimedSteps`' readings."""
+
+
+class TimedTimitBrain(TimedSteps, timit_seq2seq_recipe.ASR):
+    """The TIMIT seq2seq twin's ``ASR`` with :class:`TimedSteps`'
+    readings."""
+
+
+class TimedSLUBrain(TimedSteps, slurp_recipe.SLU):
+    """The SLURP twin's ``SLU`` with :class:`TimedSteps`' readings."""
+
+
+def run_slu_serve(hparams, tokenizer, device="cuda"):
+    """The SLURP twin's trained modules served through
+    ``EndToEndSLU.decode_batch`` on ``SLU_SERVE``'s clips (B3 once a
+    call): bf16 is not asked for (the interface runs float32); the
+    search's steps; the tokens through B3 and through its plain version,
+    equal at a short decode."""
+    wavs, lens, audio_s = tone_clips(device, SLU_SERVE)
+
+    def interface(ratio):
+        return EndToEndSLU(hparams={
+            "tokenizer": tokenizer,
+            "slu_enc": slurp_recipe.slu_encoder(hparams),
+            "beam_searcher": slurp_recipe.slu_searcher(
+                hparams, max_decode_ratio=ratio)},
+            run_opts={"device": device})
+
+    slu = interface(SLU_SERVE["max_decode_ratio"])
+    reset_launch_counts()
+    words, hyps = slu.decode_batch(wavs, lens)
+    _sync(device)
+    launches = launch_counts()["fused_fbank"]
+    searcher = slu.hparams.beam_searcher.searcher
+    steps, enc_frames = searcher.last_steps, slu.encode_batch(
+        wavs, lens).shape[1]
+    decode_ms, decode_all, _ = _elapsed_ms(
+        lambda: slu.decode_batch(wavs, lens), 2, device)
+    encode_ms, _, _ = _elapsed_ms(lambda: slu.encode_batch(wavs, lens), 3,
+                                  device)
+    short = interface(SLU_SERVE["held_decode_ratio"])
+    _, kernel_hyps = short.decode_batch(wavs, lens)
+    with plain_versions("fused_fbank"):
+        _, plain_hyps = short.decode_batch(wavs, lens)
+    equal = [list(map(int, a)) == list(map(int, b))
+             for a, b in zip(kernel_hyps, plain_hyps)]
+    line = {"utterances": int(wavs.shape[0]),
+            "batch_shape": list(wavs.shape), "audio_seconds": audio_s,
+            "encoder_frames": enc_frames, "search_steps": steps,
+            "beam_size": slurp_recipe.SLU_BEAM_SIZE,
+            "decode_batch_ms": decode_ms, "decode_batch_ms_all": decode_all,
+            "audio_s_per_s": audio_s / (decode_ms / 1e3),
+            "encode_batch_ms": encode_ms, "launches_decode_batch": launches,
+            "tokens": [len(h) for h in hyps], "words": words[:2],
+            "fp32_tokens_equal_at_short_decode": all(equal)}
+    line["ok"] = bool(launches == 1 and len(words) == wavs.shape[0]
+                      and all(equal))
+    return line
+
+
+def run_recurrent_twin(name, out_dir, device="cuda"):
+    """Two bf16 optimizer steps of a recurrent twin's ``run`` from its
+    YAML at full width and its valid stage (B3 on every batch); SLURP's
+    trained model is then served through ``EndToEndSLU``."""
+    recipe_dir, module, prepare = RECURRENT_TWINS[name]
+    data = os.path.join(out_dir, name, "data")
+    prepare(data)
+    _, hparams = twin_yaml(
+        os.path.join(TWINS_ROOT, recipe_dir, "hparams", "train.yaml"), {
+            "data_folder": data,
+            "output_folder": os.path.join(out_dir, name, "out"),
+            "number_of_epochs": 1, "device": device})
+    n_params = sum(p.numel() for m in hparams["modules"].values()
+                   for p in m.parameters())
+    brain_cls = {"timit": TimedTimitBrain,
+                 "slurp": TimedSLUBrain}.get(name, TimedSeq2SeqBrain)
+    (brain, _, tokens), counts, seconds, peak = _timed_run(
+        lambda: module.run(hparams, {
+            "device": device, "precision": "bf16", "noprogressbar": True,
+            "optimizer_step_limit": RECURRENT_TRAIN_STEPS},
+            brain_cls=brain_cls), device)
+    line = {"yaml": f"{recipe_dir}/train.yaml",
+            **_train_line(brain, counts, seconds, peak, n_params),
+            "train_audio_seconds": brain.audio_seconds}
+    ok = (line["b3_equals_batches"]
+          and brain.forwards[Stage.TRAIN] == RECURRENT_TRAIN_STEPS
+          and brain.forwards[Stage.VALID] >= 1 and line["checkpoints"] == 1
+          and all(np.isfinite(brain.losses + brain.valid_losses)))
+    if name == "slurp":
+        brain.modules.eval()
+        serve = run_slu_serve(hparams, tokens, device)
+        line["serve"] = serve
+        ok = ok and serve["ok"]
+    line["ok"] = bool(ok)
+    del brain, hparams
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_recurrent_twins_path(out_dir, device="cuda"):
+    """The CommonVoice, TIMIT, Switchboard and SLURP twins at their YAMLs'
+    widths, each two bf16 steps and its valid stage; SLURP served through
+    ``EndToEndSLU.decode_batch``. Returns B3's launches in each run."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name in RECURRENT_TWINS:
+        line = run_recurrent_twin(name, out_dir, device)
+        emit({"phase": f"recurrent_twins/{name}", **line})
+        launches[f"train_{name}"] = line["launches"]["fused_fbank"]
+        if "serve" in line:
+            launches[f"serve_{name}"] = line["serve"][
+                "launches_decode_batch"]
+        if not line["ok"]:
+            raise AssertionError(f"recurrent_twins_path: {name} failed")
+    emit({"phase": "recurrent_twins_path_summary",
+          "reduced": RECURRENT_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches
 
 
 def run_grad_guard():
@@ -5783,6 +6364,13 @@ def main():
         (kernels[1]["launches_by_path"]["speaker_path"],
          speaker_b3_err) = run_speaker_path(os.path.join(out_dir, "speaker"))
         torch.cuda.empty_cache()
+        (kernels[1]["launches_by_path"]["classify_path"],
+         classify_b3_err) = run_classify_path(
+            os.path.join(out_dir, "classify"))
+        torch.cuda.empty_cache()
+        kernels[1]["launches_by_path"]["recurrent_twins_path"] = \
+            run_recurrent_twins_path(os.path.join(out_dir, "recurrent"))
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -5807,6 +6395,11 @@ def main():
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
                            "n_mels": n_mels,
                            "max_abs_err": speaker_b3_err[f"{B}x{T}@{n_mels}"]}
+    for (B, T, n_mels), key in zip(CLASSIFY_B3_SHAPES, (
+            "at_esc50_shape", "at_urbansound8k_shape")):
+        kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
+                           "n_mels": n_mels,
+                           "max_abs_err": classify_b3_err[f"{B}x{T}@{n_mels}"]}
     emit({"phase": "script", "seconds": time.perf_counter() - t_script,
           "gpu_name_power_limit": smi})
     emit({"kernels": kernels})

@@ -4,6 +4,15 @@
 
 Each runs under ``torch.no_grad()`` on the interface's device (the card
 unless ``run_opts`` ask otherwise), with the modules in ``eval()`` mode.
+
+``encode_batch`` hands the relative lengths to the embedding model, as the
+JAX interface does (``classifiers.py:33-35``). There that raises
+``TypeError`` on each encoder of the sound-classification recipes
+(``Cnn14``, ``ViTEncoder``, ``FocalNetEncoder``, ``Conv2dEncoder_v2``),
+which take none (ROADMAP C42). The port's recipes export their encoder
+wrapped with their pooling (``PooledEncoder``, which takes ``lengths`` and
+ignores them, as the recipes pool unmasked), one vector a clip, which
+this interface then serves unchanged.
 """
 
 import torch

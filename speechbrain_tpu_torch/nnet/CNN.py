@@ -8,7 +8,8 @@ NHWC); inside, tensors are moved to PyTorch's channels-first layout for
 and ``(out, in/groups, kh, kw)``.
 
 Padding semantics: "same" keeps L_out = ceil(L/stride), "causal"
-left-pads by (K-1)*dilation, "valid" pads nothing.
+left-pads by (K-1)*dilation, "valid" pads nothing, an integer n pads n
+zeros on every side.
 """
 
 import math
@@ -160,6 +161,9 @@ class Conv2d(nn.Module):
             pads = (((ks[0] - 1) * dl[0], 0), p_same_f)
         elif self.padding == "valid":
             pads = ((0, 0), (0, 0))
+        elif isinstance(self.padding, int):
+            # flax's integer padding: that many zeros on every side
+            pads = ((self.padding,) * 2,) * 2
         else:
             raise ValueError(f"Unsupported padding {self.padding}")
         T, Fdim = x.shape[1], x.shape[2]

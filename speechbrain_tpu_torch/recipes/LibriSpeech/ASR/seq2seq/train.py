@@ -304,16 +304,16 @@ def dataio_prepare(hparams, tokenizer):
     return datasets
 
 
-def run(hparams, run_opts, brain_cls=ASR):
-    """The chain after the YAML step: a synthetic corpus under
-    ``run_opts["debug"]`` where the train manifest is missing, the
+def run(hparams, run_opts, brain_cls=ASR, prepare=prepare_synthetic):
+    """The chain after the YAML step: a synthetic corpus (``prepare``)
+    under ``run_opts["debug"]`` where the train manifest is missing, the
     tokenizer, the datasets, ``fit`` with a shuffled train loader, then
     (outside ``debug``) the test split's beam search and WER. Returns
     ``(brain, datasets, tokenizer)``."""
     if not Path(hparams["train_annotation"]).exists() and run_opts.get(
         "debug"
     ):
-        prepare_synthetic(
+        prepare(
             hparams["data_folder"],
             save_folder=Path(hparams["train_annotation"]).parent,
         )
@@ -351,7 +351,7 @@ def run(hparams, run_opts, brain_cls=ASR):
     return brain, datasets, tokenizer
 
 
-def main(argv=None):
+def main(argv=None, run_fn=run):
     hparams_file, run_opts, overrides = parse_arguments(argv)
     # the modules the YAML builds go to the Brain's device
     if "device" in run_opts:
@@ -365,7 +365,7 @@ def main(argv=None):
         hyperparams_to_save=hparams_file,
         overrides=overrides,
     )
-    return run(hparams, run_opts)
+    return run_fn(hparams, run_opts)
 
 
 if __name__ == "__main__":

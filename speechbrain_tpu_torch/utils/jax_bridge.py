@@ -38,6 +38,15 @@ the way:
   the EMA's ``weights`` and ``PCEN``'s ``alpha``/``delta``/``root`` go
   over as they are; ``BatchNorm1d`` on the ResNet's 4-D maps loads as on
   3-D ones;
+* the audio classifiers (``Cnn14``, the PIQ encoder, ``ViTEncoder``, the
+  focal-modulation stacks), whose submodules carry the flax scopes' names
+  as well (``block_{b}/conv1``, ``conv{i}``/``bn{i}``, PIQ's auto-named
+  ``Conv_0``/``BatchNorm_0``, ``patch_embed``/``encoder``,
+  ``stage_proj_{i}``, ``focal_conv_{level}``, ``f``, ``h``, ``proj``,
+  ``mlp_in``, ``mlp_out``, flax's own ``norm1``/``norm2`` with no
+  ``LayerNorm_0`` scope); ``cls_token``, ``pos_embed``, the layer scales
+  ``gamma1``/``gamma2`` and ``tanh_scale`` go over as they are, and a
+  flax depthwise kernel ``(k, 1, dim)`` becomes ``(dim, 1, k)``;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -61,7 +70,10 @@ from speechbrain_tpu_torch.lobes.models.Branchformer import (
     ConvolutionBranch,
 )
 from speechbrain_tpu_torch.lobes.features import Leaf
+from speechbrain_tpu_torch.lobes.models import Cnn14 as cnn14
 from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN as ecapa
+from speechbrain_tpu_torch.lobes.models import PIQ as piq
+from speechbrain_tpu_torch.lobes.models import focalnet
 from speechbrain_tpu_torch.lobes.models import ResNet as resnet
 from speechbrain_tpu_torch.lobes.models import Xvector as xvector
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
@@ -86,6 +98,7 @@ from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
     TransformerLM,
 )
+from speechbrain_tpu_torch.lobes.models.vit import ViTEncoder
 from speechbrain_tpu_torch.nnet.attention import (
     ContentBasedAttention,
     KeyValueAttention,
@@ -472,6 +485,11 @@ def _own(*names):
     return lambda module, scope: load_named_children(module, scope, names)
 
 
+def load_focal_block(module, scope):
+    load_named_children(module, scope, () if module.gamma1 is None
+                        else ("gamma1", "gamma2"))
+
+
 _LOADERS = {
     Linear: load_linear,
     Conv1d: load_conv1d,
@@ -535,6 +553,18 @@ _LOADERS = {
     PCEN: _own("alpha", "delta", "root"),
     GaborConv1d: _own("kernel_params"),
     Leaf: load_named_children,
+    cnn14.ConvBlock: load_named_children,
+    cnn14.Cnn14: load_named_children,
+    piq.ResBlockAudio: load_named_children,
+    piq.Conv2dEncoder_v2: load_named_children,
+    ViTEncoder: _own("cls_token", "pos_embed"),
+    focalnet.FlaxConv1d: load_conv1d,
+    focalnet.FocalModulation1d: load_named_children,
+    focalnet.FocalBlock1d: load_focal_block,
+    focalnet._FocalStack: load_named_children,
+    focalnet.FocalEncoder: _own("tanh_scale"),
+    focalnet.FocalDecoder: load_named_children,
+    focalnet.FocalNetEncoder: load_named_children,
 }
 
 

@@ -1,6 +1,9 @@
 """Exporting a trained model as a ``Pretrained.from_hparams`` source (port
-of ``speechbrain_tpu/utils/pretrained.py`` ``save_for_pretrained``)."""
+of ``speechbrain_tpu/utils/pretrained.py`` ``save_for_pretrained``; and
+``export_classifier``, the classification twins' export from their own
+training YAML)."""
 
+import re
 import shutil
 from pathlib import Path
 
@@ -37,3 +40,61 @@ def save_for_pretrained(hparams, min_key=None, max_key=None,
         dst.parent.mkdir(parents=True, exist_ok=True)
         if src != dst:
             shutil.copy(src, dst)
+
+
+# top-level keys of a training YAML that serving does not build
+TRAINING_KEYS = ("output_folder", "save_folder", "train_log", "data_folder",
+                 "train_annotation", "valid_annotation", "test_annotation",
+                 "epoch_counter", "train_logger", "checkpointer",
+                 "pretrained_folder", "pretrainer", "lr_annealing",
+                 "compute_cost")
+# the modules a classification export serves
+SERVED_MODULES = ("embedding_model", "classifier")
+
+
+def served_hparams_text(yaml_text, overrides=None):
+    """A training YAML as the ``hyperparams.yaml`` of its export: the
+    run's overrides applied (``resolve_yaml``), the top-level blocks of
+    ``TRAINING_KEYS`` taken out, and a ``pretrainer`` appended whose
+    loadables are the ``SERVED_MODULES`` of the YAML's ``modules`` and its
+    ``label_encoder`` (each read from ``<name>.ckpt`` of the source)."""
+    from speechbrain_tpu_torch.utils.hyperyaml import resolve_yaml
+
+    kept, keep = [], True
+    for line in resolve_yaml(yaml_text, overrides).splitlines():
+        key = re.match(r"^(\w+)\s*:", line)
+        if key:
+            keep = key.group(1) not in TRAINING_KEYS
+        if keep:
+            kept.append(line)
+    kept += ["", "pretrainer: !new:speechbrain_tpu_torch.utils."
+             "parameter_transfer.Pretrainer", "  loadables:"]
+    kept += [f"    {name}: !ref <modules[{name}]>" for name in SERVED_MODULES]
+    kept.append("    label_encoder: !ref <label_encoder>")
+    return "\n".join(kept) + "\n"
+
+
+def export_classifier(hparams, yaml_text, overrides=None):
+    """The best checkpoint (lowest valid ``loss``) of a classification run
+    as a ``from_hparams`` source in ``hparams["pretrained_folder"]``: each
+    of ``SERVED_MODULES`` as ``<name>.ckpt`` (its part of the checkpoint's
+    ``modules.ckpt``), the label encoder's file as ``label_encoder.ckpt``,
+    and :func:`served_hparams_text` of the run's YAML as
+    ``hyperparams.yaml``. Returns the folder."""
+    import torch
+
+    ckpt = hparams["checkpointer"].find_checkpoint(min_key="loss")
+    if ckpt is None:
+        raise RuntimeError("no checkpoint found to export")
+    folder = Path(hparams["pretrained_folder"])
+    folder.mkdir(parents=True, exist_ok=True)
+    state = torch.load(ckpt.paramfiles["modules"], map_location="cpu",
+                       weights_only=True)
+    for name in SERVED_MODULES:
+        prefix = name + "."
+        torch.save({k[len(prefix):]: v for k, v in state.items()
+                    if k.startswith(prefix)}, folder / f"{name}.ckpt")
+    hparams["label_encoder"].save(folder / "label_encoder.ckpt")
+    (folder / "hyperparams.yaml").write_text(
+        served_hparams_text(yaml_text, overrides), encoding="utf-8")
+    return folder

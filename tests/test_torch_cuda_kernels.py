@@ -234,6 +234,35 @@ def test_fused_fbank_kernel_at_the_speaker_configurations(card, case):
     assert float((out - unfused).abs().max()) <= 5e-3
 
 
+# the audio classifiers' batches: ESC50's 5 s clips at (8, 80000) and
+# UrbanSound8k's 4 s at (8, 64000), 80 mels
+_CLASSIFY_FBANK_CASES = {
+    "esc50_noise": ("noise", 8, 80000),
+    "esc50_chirp": ("chirp", 8, 80000),
+    "urbansound8k_noise": ("noise", 8, 64000),
+    "urbansound8k_bursts": ("bursts", 8, 64000),
+}
+
+
+@pytest.mark.parametrize("case", list(_CLASSIFY_FBANK_CASES))
+def test_fused_fbank_kernel_at_the_classifier_batches(card, case):
+    """One launch at each batch, within 5e-3 dB of the plain version and
+    of the unfused Fbank."""
+    kind, batch, samples = _CLASSIFY_FBANK_CASES[case]
+    wav = torch.from_numpy(
+        make_check_signal(kind, batch, samples, seed=5)).to(card)
+    fused = Fbank(n_mels=80, fused=True, device=card)
+    before = mel_frontend.launches
+    out = fused(wav)
+    assert mel_frontend.launches == before + 1
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    unfused = Fbank(n_mels=80, device=card)(wav)
+    assert out.shape == unfused.shape == plain.shape
+    assert out.shape[1] == 1 + samples // fused.compute_STFT.hop_length
+    assert float((out - plain).abs().max()) <= 5e-3
+    assert float((out - unfused).abs().max()) <= 5e-3
+
+
 @pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])
 def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
     """Through ``fused_fbank`` itself: hops that take the span's 4-byte

@@ -202,3 +202,42 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library()
     assert importlib.import_module("speechbrain_tpu_torch.ops._build")
+
+
+def _classifier_entry_points():
+    from speechbrain_tpu_torch.inference.classifiers import AudioClassifier
+    from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
+    from speechbrain_tpu_torch.lobes.models import PIQ, Cnn14, focalnet, vit
+
+    lin = torch.nn.Linear(2, 2)
+    return {
+        "Cnn14": lambda: Cnn14.Cnn14(mel_bins=32, emb_dim=8,
+                                     base_channels=2),
+        "Conv2dEncoder_v2": lambda: PIQ.Conv2dEncoder_v2(dim=4),
+        "ResBlockAudio": lambda: PIQ.ResBlockAudio(4),
+        "ViTEncoder": lambda: vit.ViTEncoder(d_model=8, nhead=2,
+                                             num_layers=1, d_ffn=8,
+                                             max_patches=8),
+        "FocalNetEncoder": lambda: focalnet.FocalNetEncoder(
+            8, hidden_dims=(8,), downscale_factors=(2,)),
+        "FocalEncoder": lambda: focalnet.FocalEncoder(8, 4, (8,), (1,)),
+        "FocalDecoder": lambda: focalnet.FocalDecoder(4, 8, (8,), (1,)),
+        "AudioClassifier": lambda: AudioClassifier(
+            modules={"embedding_model": lin, "classifier": lin}),
+        "EndToEndSLU": lambda: EndToEndSLU(hparams={
+            "tokenizer": None, "slu_enc": lin, "beam_searcher": lin}),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "Cnn14", "Conv2dEncoder_v2", "ResBlockAudio", "ViTEncoder",
+    "FocalNetEncoder", "FocalEncoder", "FocalDecoder", "AudioClassifier",
+    "EndToEndSLU"])
+def test_classifier_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The audio classifiers and the classification and SLU interfaces
+    are built on the card unless asked otherwise, and raise where there
+    is none."""
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _classifier_entry_points()[name]()

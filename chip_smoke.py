@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives fifteen paths at full width with random weights
+(``grad_guard``), and drives sixteen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -141,6 +141,18 @@ LibriSpeech recipe:
   through ``EndToEndSLU.decode_batch`` on 8 utterances, its float32
   tokens through the kernel and its plain version equal at a short
   decode.
+- ``separation_path``: source separation, which runs none of the kernels:
+  the WSJ0Mix SepFormer twin (``sepformer.yaml``: N 256, kernel 16,
+  chunks of 250, 2 dual stages of 8 + 8 Transformer layers, 8 heads,
+  d_ffn 1024) two bf16 steps on 4 s crops at 8 kHz, its valid batch, a
+  checkpoint and its export, served through
+  ``SepformerSeparation.from_hparams`` (the whole wrapper, then the three
+  modules) in float32 on 4 mixtures of 4 s: bit for bit the trained
+  model's output, within ``SEPARATION_CPU_RTOL`` of the port on the CPU,
+  the PIT loss unchanged by swapping the targets; then one bf16 step and
+  one valid batch of each of the 20 other separation twin YAMLs
+  (WSJ0Mix, LibriMix, WHAM!/WHAMR!, Aishell1Mix, BinauralWSJ0Mix) at
+  full width.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -191,6 +203,7 @@ from speechbrain_tpu_torch.inference.classifiers import (
     AudioClassifier,
     EncoderClassifier,
 )
+from speechbrain_tpu_torch.inference.separation import SepformerSeparation
 from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
 from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
 from speechbrain_tpu_torch.inference.streaming import StreamingASR
@@ -218,6 +231,7 @@ from speechbrain_tpu_torch.nnet.attention import (
 from speechbrain_tpu_torch.nnet.containers import LengthsCapableSequential
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.linear import Linear
+from speechbrain_tpu_torch.nnet.losses import get_si_snr_with_pitwrapper
 from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d
 from speechbrain_tpu_torch.nnet.RNN import LSTM, AttentionalRNNDecoder
 from speechbrain_tpu_torch.nnet.schedulers import (
@@ -234,6 +248,9 @@ from speechbrain_tpu_torch.ops import (
     mel_frontend,
 )
 from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.recipes.BinauralWSJ0Mix.separation import (
+    train as binaural_recipe,
+)
 from speechbrain_tpu_torch.recipes.CommonLanguage.lang_id import (
     train as cl_recipe,
 )
@@ -274,6 +291,9 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
 from speechbrain_tpu_torch.recipes.IEMOCAP.emotion_recognition import (
     train as iemocap_recipe,
 )
+from speechbrain_tpu_torch.recipes.LibriMix.separation import (
+    train as librimix_recipe,
+)
 from speechbrain_tpu_torch.recipes.LibriSpeech.LM import train as lm_recipe
 from speechbrain_tpu_torch.recipes.LibriSpeech.librispeech_prepare import (
     prepare_synthetic,
@@ -310,6 +330,9 @@ from speechbrain_tpu_torch.recipes.VoxCeleb.SpeakerRec import (
 from speechbrain_tpu_torch.recipes.VoxLingua107.lang_id import (
     train as vl_recipe,
 )
+from speechbrain_tpu_torch.recipes.WSJ0Mix.separation import (
+    train as wsj0mix_recipe,
+)
 from speechbrain_tpu_torch.templates.speaker_id import (
     train as speaker_id_template,
 )
@@ -334,6 +357,7 @@ from speechbrain_tpu_torch.utils.edit_distance import (
 )
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
 from speechbrain_tpu_torch.utils.parameter_transfer import Pretrainer
+from speechbrain_tpu_torch.utils.pretrained import export_separator
 from speechbrain_tpu_torch.utils.seed import seed_everything
 from speechbrain_tpu_torch.utils.signals import make_check_signal
 from speechbrain_tpu_torch.utils.train_logger import FileTrainLogger
@@ -3672,9 +3696,14 @@ class TimedSteps:
         self.forwards[stage] = self.forwards.get(stage, 0) + 1
         return super().compute_forward(batch, stage)
 
+    # the batch's waveform and its rate (the separation twins': the
+    # mixture at 8 kHz)
+    SIGNAL_KEY, SIGNAL_RATE = "sig", SR
+
     def on_fit_batch_start(self, batch):
-        sig = batch["sig"]
-        self.audio_seconds += float(sig.lengths.sum()) * sig.data.shape[1] / SR
+        sig = batch[self.SIGNAL_KEY]
+        self.audio_seconds += (float(sig.lengths.sum()) * sig.data.shape[1]
+                               / self.SIGNAL_RATE)
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         self.step_events.append([start, None])
@@ -6188,6 +6217,314 @@ def run_recurrent_twins_path(out_dir, device="cuda"):
     return launches
 
 
+# -- separation_path: SepFormer and the other separation twins --------------
+
+# the WSJ0Mix SepFormer twin: trained, checkpointed, exported and served
+SEPARATION_MAIN = ("WSJ0Mix", "sepformer.yaml")
+# every other separation twin YAML, one bf16 step each at its full width
+SEPARATION_TWINS = tuple((corpus, yaml) for corpus, yamls in (
+    ("WSJ0Mix", ("sepformer-conformerintra.yaml",
+                 "sepformer-customdataset.yaml", "dprnn.yaml",
+                 "resepformer.yaml", "skim.yaml", "convtasnet.yaml")),
+    ("LibriMix", ("sepformer-libri2mix.yaml", "sepformer-libri3mix.yaml")),
+    ("WHAMandWHAMR", ("sepformer-wham.yaml", "sepformer-whamr.yaml")),
+    ("Aishell1Mix", ("sepformer-aishell1mix2.yaml",
+                     "sepformer-aishell1mix2-wham.yaml",
+                     "sepformer-aishell1mix3.yaml",
+                     "sepformer-aishell1mix3-wham.yaml")),
+    ("BinauralWSJ0Mix", ("convtasnet-independent.yaml",
+                         "convtasnet-cross.yaml", "convtasnet-parallel.yaml",
+                         "convtasnet-parallel-noise.yaml",
+                         "convtasnet-parallel-reverb.yaml",
+                         "sepformer-binaural.yaml")),
+) for yaml in yamls)
+SEPARATION_SR = 8000
+# the main chain's corpus: 2 train mixtures (two steps at the YAML's batch
+# of 1, each a random 4 s crop) and 1 valid; every other twin's: 1 and 1
+SEPARATION_CORPUS = dict(train=2, valid=1, seconds=4.5)
+SEPARATION_TWIN_CORPUS = dict(train=1, valid=1, seconds=4.0)
+SEPARATION_TRAIN_STEPS = 2
+# served: 4 mixtures of 4 s, float32, through both exports
+SEPARATION_SERVE = dict(batch=4, seconds=4.0, repeats=3)
+# float32 (TF32 off): the card's served output against the same weights
+# run by the port on the CPU, relative L2 over the first mixture (the
+# same arithmetic summed in another order, 32 Transformer layers deep)
+SEPARATION_CPU_RTOL = 1e-4
+SEPARATION_REDUCED = {
+    "weights": "random, from each YAML's seed",
+    "epochs": "200 (WSJ0Mix) or 100 -> 2 optimizer steps (SepFormer) or "
+              "1 (every other twin) and one valid batch",
+    "corpus": "synthetic tone mixtures at 8 kHz: 2 train and 1 valid of "
+              "4.5 s for the SepFormer chain (4 s crops), 1 and 1 of 4 s "
+              "for every other twin (stereo for BinauralWSJ0Mix)",
+}
+# width overrides given to every separation YAML that names the key: none
+# on the card (full width); the CPU tests shrink widths with them
+SEPARATION_WIDTHS = {}
+SEPARATION_RECIPES = {
+    "WSJ0Mix": wsj0mix_recipe, "LibriMix": librimix_recipe,
+    "WHAMandWHAMR": librimix_recipe, "Aishell1Mix": librimix_recipe,
+    "BinauralWSJ0Mix": binaural_recipe,
+}
+
+
+class TimedSeparationSteps(TimedSteps):
+    """:class:`TimedSteps` over the separation twins' mixtures."""
+
+    SIGNAL_KEY, SIGNAL_RATE = "mix_sig", SEPARATION_SR
+
+
+class TimedWSJ0MixBrain(TimedSeparationSteps, wsj0mix_recipe.Separation):
+    """The WSJ0Mix twin's Brain with :class:`TimedSteps`' readings."""
+
+
+class TimedLibriMixBrain(TimedSeparationSteps, librimix_recipe.Separation):
+    """The LibriMix, WHAM! and Aishell1Mix twins' Brain with
+    :class:`TimedSteps`' readings."""
+
+
+class TimedBinauralBrain(TimedSeparationSteps,
+                         binaural_recipe.BinauralSeparation):
+    """The BinauralWSJ0Mix twin's Brain with :class:`TimedSteps`'
+    readings."""
+
+
+SEPARATION_BRAINS = {"WSJ0Mix": TimedWSJ0MixBrain,
+                     "BinauralWSJ0Mix": TimedBinauralBrain}
+
+
+def separation_sources(rng, n, num_spks, stereo=False):
+    """``num_spks`` sources of ``n`` samples at 8 kHz, each a tone with a
+    vibrato in its own band (stereo: louder in one ear), float32."""
+    t = np.arange(n) / SEPARATION_SR
+    srcs = []
+    for k in range(num_spks):
+        f = rng.uniform(150 + 300 * k, 350 + 300 * k)
+        src = 0.3 * np.sin(2 * np.pi * f * t + 3 * np.sin(
+            2 * np.pi * rng.uniform(2, 6) * t))
+        if stereo:
+            gains = (1.0, 0.5) if k % 2 == 0 else (0.5, 1.0)
+            src = np.stack([g * src for g in gains], -1)
+        srcs.append(src.astype(np.float32))
+    return srcs
+
+
+def write_separation_corpus(folder, cfg, num_spks=2, stereo=False, seed=0):
+    """``cfg["train"] + cfg["valid"]`` mixtures of
+    :func:`separation_sources` plus noise 30 dB down, as WAV files and
+    the manifests ``train.json``/``valid.json`` (``mix_wav``,
+    ``s<i>_wav``, ``length``); returns the manifests' paths."""
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(SEPARATION_SR * cfg["seconds"])
+    manifests = {"train": {}, "valid": {}}
+    for i in range(cfg["train"] + cfg["valid"]):
+        srcs = separation_sources(rng, n, num_spks, stereo)
+        mix = sum(srcs) + 0.01 * rng.standard_normal(srcs[0].shape)
+        item = {"length": n}
+        for name, sig in [("mix", mix)] + [
+                (f"s{k + 1}", s) for k, s in enumerate(srcs)]:
+            path = os.path.join(folder, f"u{i}_{name}.wav")
+            write_audio(path, sig.astype(np.float32), SEPARATION_SR)
+            item[f"{name}_wav"] = path
+        split = "train" if i < cfg["train"] else "valid"
+        manifests[split][f"u{i}"] = item
+    paths = {}
+    for split, items in manifests.items():
+        paths[split] = os.path.join(folder, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def separation_yaml(corpus, yaml, data, out, device):
+    """A separation twin's YAML with ``SEPARATION_WIDTHS`` (the keys it
+    names), one epoch, its data and output folders and ``device``:
+    ``(text, overrides, hparams)``."""
+    path = os.path.join(TWINS_ROOT, corpus, "separation", "hparams", yaml)
+    with open(path, encoding="utf-8") as f:
+        names = {line.split(":")[0] for line in f if ":" in line}
+    overrides = {k: v for k, v in SEPARATION_WIDTHS.items() if k in names}
+    overrides.update(
+        data_folder=data, output_folder=out, number_of_epochs=1,
+        device=device, train_annotation=os.path.join(data, "train.json"),
+        valid_annotation=os.path.join(data, "valid.json"))
+    text, hparams = twin_yaml(path, overrides)
+    return text, overrides, hparams
+
+
+def _separation_train(corpus, yaml, out_dir, corpus_cfg, steps, device,
+                      export=False):
+    """``steps`` bf16 optimizer steps of a separation twin's ``run`` from
+    its YAML on a :func:`write_separation_corpus` corpus, its valid stage
+    and checkpoint (and with ``export`` the export of its best
+    checkpoint): ``(brain, hparams, text, overrides, line)``."""
+    folder = os.path.join(out_dir, f"{corpus}_{yaml[:-5]}")
+    data = os.path.join(folder, "data")
+    text, overrides, hparams = separation_yaml(
+        corpus, yaml, data, os.path.join(folder, "out"), device)
+    write_separation_corpus(data, corpus_cfg, num_spks=hparams["num_spks"],
+                            stereo=corpus == "BinauralWSJ0Mix")
+    n_params = sum(p.numel() for m in hparams["modules"].values()
+                   for p in m.parameters())
+    module = SEPARATION_RECIPES[corpus]
+    brain, counts, seconds, peak = _timed_run(lambda: module.run(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True, "optimizer_step_limit": steps},
+        brain_cls=SEPARATION_BRAINS.get(corpus, TimedLibriMixBrain),
+        export_from=(text, overrides) if export else None), device)
+    step_ms = brain.step_ms()
+    line = {"yaml": f"{corpus}/separation/hparams/{yaml}",
+            "parameters": n_params, "seconds": seconds, "step_ms": step_ms,
+            "losses": brain.losses, "valid_losses": brain.valid_losses,
+            "peak_gb": peak / 1e9, "launches": counts,
+            "forwards": {s.name: c for s, c in brain.forwards.items()},
+            "checkpoints": len(brain.checkpointer.list_checkpoints()),
+            "train_audio_seconds": brain.audio_seconds}
+    # the valid stage's mean skips a non-finite loss: the weights say
+    line["parameters_finite"] = all(
+        bool(torch.isfinite(p).all()) for p in brain.modules.parameters())
+    line["ok"] = bool(
+        brain.forwards[Stage.TRAIN] == steps
+        and brain.forwards[Stage.VALID] == corpus_cfg["valid"]
+        and line["checkpoints"] == 1 and len(brain.losses) == steps
+        and all(np.isfinite(brain.losses + brain.valid_losses))
+        and line["parameters_finite"])
+    return brain, hparams, text, overrides, line
+
+
+def separation_mixtures(device, cfg, num_spks=2, seed=9):
+    """``cfg["batch"]`` mixtures of ``cfg["seconds"]`` (B, T) and their
+    sources (B, T, num_spks), on ``device``."""
+    rng = np.random.default_rng(seed)
+    n = int(SEPARATION_SR * cfg["seconds"])
+    srcs = np.stack([np.stack(separation_sources(rng, n, num_spks), -1)
+                     for _ in range(cfg["batch"])])
+    mix = srcs.sum(-1) + 0.01 * rng.standard_normal(srcs.shape[:2])
+    return (torch.from_numpy(mix.astype(np.float32)).to(device),
+            torch.from_numpy(srcs).to(device))
+
+
+def run_separation_main(out_dir, device="cuda"):
+    """The WSJ0Mix SepFormer twin at its YAML's width: two bf16 steps on
+    4 s crops, the valid batch, a checkpoint and its export as a
+    ``SepformerSeparation`` source, the whole wrapper and the three
+    modules; both served in float32 on 4 mixtures of 4 s (median ms by
+    CUDA events, audio seconds a second), held bit for bit against the
+    trained model, the card against the CPU on the first mixture
+    (``SEPARATION_CPU_RTOL``), and the PIT loss against the same with the
+    two targets swapped."""
+    corpus, yaml = SEPARATION_MAIN
+    brain, hparams, text, overrides, line = _separation_train(
+        corpus, yaml, out_dir, SEPARATION_CORPUS, SEPARATION_TRAIN_STEPS,
+        device, export=True)
+    out = hparams["output_folder"]
+    exports = {"full_wrapper": os.path.join(out, "pretrained"),
+               "three_modules": export_separator(
+                   hparams, text, overrides,
+                   folder=os.path.join(out, "pretrained_three"),
+                   three_modules=True, min_key="loss")}
+    mix, sources = separation_mixtures(device, SEPARATION_SERVE)
+    audio_s = mix.numel() / SEPARATION_SR
+    launches = dict(line["launches"])
+    served, serve = {}, {}
+    for name, folder in exports.items():
+        sep = SepformerSeparation.from_hparams(
+            source=folder, savedir=os.path.join(out, f"served_{name}"),
+            run_opts={"device": device})
+        reset_launch_counts()
+        served[name] = sep.separate_batch(mix)
+        _sync(device)
+        for k, v in launch_counts().items():
+            launches[k] += v
+        ms, all_ms, _ = _elapsed_ms(lambda: sep.separate_batch(mix),
+                                    SEPARATION_SERVE["repeats"], device)
+        serve[name] = {"separate_batch_ms": ms, "separate_batch_ms_all":
+                       all_ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                       "modules": sorted(sep.mods.keys())}
+        del sep
+    model = brain.modules.model.eval()
+    with torch.no_grad():
+        trained = model(mix)
+        cpu_out = copy.deepcopy(model).to("cpu")(mix[:1].cpu())
+    card = trained[:1].cpu()
+    rel_l2 = ((card - cpu_out).norm() / cpu_out.norm()).item()
+    pit = get_si_snr_with_pitwrapper(sources, trained)
+    pit_swapped = get_si_snr_with_pitwrapper(sources.flip(-1), trained)
+    checks = {
+        "batch_shape": list(mix.shape), "est_shape": list(trained.shape),
+        "served_equals_trained": {n: bool(torch.equal(e, trained))
+                                  for n, e in served.items()},
+        "fp32_card_vs_cpu_rel_l2": rel_l2, "cpu_rtol": SEPARATION_CPU_RTOL,
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32,
+                 "float32_matmul_precision":
+                     torch.get_float32_matmul_precision()},
+        "pit_loss": pit.tolist(), "pit_loss_swapped": pit_swapped.tolist(),
+        "pit_swap_bitwise": bool(torch.equal(pit, pit_swapped)),
+    }
+    line.update(serve=serve, checks=checks, launches=launches,
+                second_step_ms=line["step_ms"][-1])
+    line["ok"] = bool(
+        line["ok"] and tuple(trained.shape) == (*mix.shape, 2)
+        and bool(torch.isfinite(trained).all())
+        and all(checks["served_equals_trained"].values())
+        and rel_l2 <= SEPARATION_CPU_RTOL
+        and torch.allclose(pit, pit_swapped, rtol=1e-6, atol=0))
+    del brain, hparams, model, served, trained
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_separation_twin(corpus, yaml, out_dir, device="cuda"):
+    """One bf16 optimizer step of a separation twin from its YAML at full
+    width and one valid batch; the twin's folder is removed after."""
+    brain, hparams, _, _, line = _separation_train(
+        corpus, yaml, out_dir, SEPARATION_TWIN_CORPUS, 1, device)
+    del brain, hparams
+    gc.collect()
+    shutil.rmtree(os.path.join(out_dir, f"{corpus}_{yaml[:-5]}"),
+                  ignore_errors=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_separation_path(out_dir, device="cuda"):
+    """The WSJ0Mix SepFormer chain (:func:`run_separation_main`), then
+    every other separation twin YAML one step each. No kernel of the port
+    is on this path: returns each kernel's launches over it (all 0)."""
+    t0 = time.perf_counter()
+    main_line = run_separation_main(out_dir, device)
+    emit({"phase": "separation_path/wsj0mix_sepformer", **main_line})
+    if not main_line["ok"]:
+        raise AssertionError("separation_path: the SepFormer chain failed")
+    launches = dict(main_line["launches"])
+    readings = {"served_audio_s_per_s": {
+        n: s["audio_s_per_s"] for n, s in main_line["serve"].items()},
+        "sepformer_second_step_ms": main_line["second_step_ms"],
+        "sepformer_peak_gb": main_line["peak_gb"], "twins": {}}
+    for key in ("served_audio_s_per_s", "sepformer_second_step_ms",
+                "sepformer_peak_gb"):
+        emit({"phase": "separation_reading", key: readings[key]})
+    for corpus, yaml in SEPARATION_TWINS:
+        line = run_separation_twin(corpus, yaml, out_dir, device)
+        emit({"phase": f"separation_path/{corpus}/{yaml[:-5]}", **line})
+        for k, v in line["launches"].items():
+            launches[k] += v
+        readings["twins"][line["yaml"]] = {"step_ms": line["step_ms"][0],
+                                           "peak_gb": line["peak_gb"]}
+        if not line["ok"]:
+            raise AssertionError(f"separation_path: {corpus}/{yaml} failed")
+    emit({"phase": "separation_path_summary", "readings": readings,
+          "launches": launches, "reduced": SEPARATION_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -6370,6 +6707,12 @@ def main():
         torch.cuda.empty_cache()
         kernels[1]["launches_by_path"]["recurrent_twins_path"] = \
             run_recurrent_twins_path(os.path.join(out_dir, "recurrent"))
+        torch.cuda.empty_cache()
+        separation_launches = run_separation_path(
+            os.path.join(out_dir, "separation"))
+        for kernel in kernels:
+            kernel.setdefault("launches_by_path", {})["separation_path"] = \
+                separation_launches[kernel["name"]]
         torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)

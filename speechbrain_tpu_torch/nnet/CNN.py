@@ -1,11 +1,12 @@
 """Convolutional layers on (batch, time, [height,] channel) layouts
-(port of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d``, ``Conv2d`` and
-``GaborConv1d``).
+(port of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d``, ``Conv2d``,
+``ConvTranspose1d`` and ``GaborConv1d``).
 
 The public surface keeps the JAX package's channels-last layouts (NWC /
 NHWC); inside, tensors are moved to PyTorch's channels-first layout for
 ``F.conv1d`` / ``F.conv2d``. Weights are stored ``(out, in/groups, k)``
-and ``(out, in/groups, kh, kw)``.
+and ``(out, in/groups, kh, kw)``; the transposed convolution's
+``(in, out/groups, k)``, as ``torch.nn.ConvTranspose1d`` stores it.
 
 Padding semantics: "same" keeps L_out = ceil(L/stride), "causal"
 left-pads by (K-1)*dilation, "valid" pads nothing, an integer n pads n
@@ -184,6 +185,56 @@ class Conv2d(nn.Module):
             groups=self.groups,
         )
         return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed 1-D convolution (upsampling) on (batch, time, channel):
+    ``L_out = (L - 1) * stride - 2 * padding + dilation * (K - 1) + 1 +
+    output_padding``, the gradient of the convolution whose weight it
+    holds, as ``torch.nn.ConvTranspose1d`` computes it. The weight is
+    ``(in, out/groups, K)``; the JAX package's kernel ``(K, out,
+    in/groups)`` carries over without a flip (``utils/jax_bridge``), both
+    being the same convolution's gradient.
+
+    Example
+    -------
+    >>> conv = ConvTranspose1d(out_channels=8, kernel_size=16, stride=8,
+    ...                        in_channels=16, padding=4, device="cpu")
+    >>> conv(torch.ones(2, 100, 16)).shape
+    torch.Size([2, 800, 8])
+    """
+
+    def __init__(self, out_channels, kernel_size, in_channels, stride=1,
+                 dilation=1, padding=0, output_padding=0, groups=1,
+                 bias=True, device="cuda", dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.dilation = dilation
+        self.padding = padding
+        self.output_padding = output_padding
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            in_channels, out_channels // groups, kernel_size,
+            device=device, dtype=dtype,
+        ))
+        # flax's lecun_normal on its (K, out, in/groups) kernel: fan-in
+        # out * K
+        lecun_normal_(self.weight, out_channels * kernel_size, generator)
+        self.bias = (
+            nn.Parameter(torch.zeros(out_channels, device=device, dtype=dtype))
+            if bias else None
+        )
+
+    def forward(self, x):
+        y = F.conv_transpose1d(
+            x.transpose(1, 2), self.weight, self.bias, stride=self.stride,
+            padding=self.padding, output_padding=self.output_padding,
+            groups=self.groups, dilation=self.dilation,
+        )
+        return y.transpose(1, 2)
 
 
 class GaborConv1d(nn.Module):

@@ -1,8 +1,10 @@
 """Losses masked by relative lengths (port of the sequence losses of
 ``speechbrain_tpu/nnet/losses.py``: ``compute_length_mask``,
 ``compute_masked_loss``, ``nll_loss``, ``kldiv_loss``, ``ctc_loss``,
-``classification_error``, and the speaker family's margins
-``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``).
+``classification_error``, the speaker family's margins
+``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``,
+and the separation objectives ``cal_si_snr``, ``cal_snr``,
+``PitWrapper`` and ``get_si_snr_with_pitwrapper``).
 
 Conventions as in the JAX package: predictions (batch, time, ...) with
 *relative* lengths in [0, 1], turned into counts by ``round(len * T)``
@@ -10,6 +12,7 @@ Conventions as in the JAX package: predictions (batch, time, ...) with
 "batch", "sum", None}. Every function computes on its inputs' device.
 """
 
+import itertools
 import math
 
 import torch
@@ -132,6 +135,99 @@ def classification_error(probabilities, targets, length=None,
     if probabilities.ndim == 3 and targets.ndim == 2:
         return _reduce(err, compute_length_mask(err, length), reduction)
     return _reduce(err, torch.ones_like(err, dtype=torch.bool), reduction)
+
+
+def cal_si_snr(source, estimate_source, lengths=None, eps=1e-8):
+    """Scale-invariant SNR in dB of each source, (batch, n_src), from
+    (batch, time, n_src) targets and estimates. With relative ``lengths``
+    the samples past ``round(lengths * T)`` (half to even, as
+    ``jnp.round``) are zeroed and the means taken over the rest.
+
+    Example
+    -------
+    >>> s = torch.sin(torch.arange(100.0))[None, :, None]
+    >>> cal_si_snr(s, 2 * s + 0.1 * s.flip(1)).shape
+    torch.Size([1, 1])
+    """
+    if lengths is not None:
+        T = source.shape[1]
+        n = torch.round(lengths * T)
+        mask = (torch.arange(T, device=source.device)[None, :, None]
+                < n[:, None, None]).to(source.dtype)
+        source = source * mask
+        estimate_source = estimate_source * mask
+        denom = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
+    else:
+        denom = source.shape[1]
+    s = source - source.sum(1, keepdim=True) / denom
+    e = estimate_source - estimate_source.sum(1, keepdim=True) / denom
+    if lengths is not None:
+        s = s * mask
+        e = e * mask
+    dot = (e * s).sum(1, keepdim=True)
+    s_energy = (s ** 2).sum(1, keepdim=True) + eps
+    proj = dot * s / s_energy
+    noise = e - proj
+    ratio = (proj ** 2).sum(1) / ((noise ** 2).sum(1) + eps)
+    return 10 * torch.log10(ratio + eps)
+
+
+def cal_snr(source, estimate_source, eps=1e-8):
+    """Plain SNR in dB of each source, (batch, n_src), from (batch, time,
+    n_src) targets and estimates."""
+    noise = estimate_source - source
+    ratio = (source ** 2).sum(1) / ((noise ** 2).sum(1) + eps)
+    return 10 * torch.log10(ratio + eps)
+
+
+class PitWrapper:
+    """Permutation-invariant training: ``base_loss(targets, permuted)``,
+    (batch, n_src) or (batch,), under every permutation of the estimates'
+    sources (the last axis), and for each utterance the least of them.
+    Returns ``(loss (batch,), chosen permutations (batch, n_src))``; of
+    tied permutations the first, in ``itertools.permutations`` order.
+
+    Example
+    -------
+    >>> pit = PitWrapper(lambda t, e: ((t - e) ** 2).mean(1))
+    >>> t = torch.tensor([[[1.0, 0.0], [1.0, 0.0]]])
+    >>> loss, perms = pit(t.flip(-1), t)
+    >>> float(loss[0]), perms.tolist()
+    (0.0, [[1, 0]])
+    """
+
+    def __init__(self, base_loss):
+        self.base_loss = base_loss
+
+    def __call__(self, preds, targets):
+        n_src = targets.shape[-1]
+        perms = torch.tensor(list(itertools.permutations(range(n_src))),
+                             device=preds.device)
+        losses = []
+        for perm in perms:
+            loss = self.base_loss(targets, preds[..., perm])
+            if loss.ndim == 2:
+                loss = loss.mean(-1)
+            losses.append(loss)
+        stacked = torch.stack(losses, dim=1)  # (batch, n_perms)
+        best = stacked.argmin(dim=1)  # the first of tied minima
+        loss = stacked.gather(1, best[:, None])[:, 0]
+        return loss, perms[best]
+
+    def reorder_tensor(self, tensor, p):
+        """``tensor[b, ..., p[b]]`` for each utterance ``b``: its sources
+        in the chosen order."""
+        index = p.reshape(p.shape[0], *([1] * (tensor.ndim - 2)),
+                          p.shape[1]).expand(*tensor.shape[:-1], p.shape[1])
+        return torch.gather(tensor, -1, index)
+
+
+def get_si_snr_with_pitwrapper(source, estimate_source, lengths=None):
+    """The negated PIT SI-SNR of each utterance, (batch,): the SepFormer
+    objective, from (batch, time, n_src) targets and estimates."""
+    pit = PitWrapper(lambda t, e: -cal_si_snr(t, e, lengths=lengths))
+    loss, _ = pit(estimate_source, source)
+    return loss
 
 
 class AngularMargin:

@@ -1,6 +1,6 @@
 """Normalization layers (port of ``LayerNorm``, ``BatchNorm1d``,
-``BatchNorm2d``, ``ExponentialMovingAverage`` and ``PCEN`` from
-``speechbrain_tpu/nnet/normalization.py``).
+``BatchNorm2d``, ``GroupNorm``, ``ExponentialMovingAverage`` and ``PCEN``
+from ``speechbrain_tpu/nnet/normalization.py``).
 
 BatchNorm keeps its running statistics in buffers (``running_mean``,
 ``running_var``), which ride in the module's ``state_dict`` and so in every
@@ -117,6 +117,56 @@ class BatchNorm1d(nn.Module):
 class BatchNorm2d(BatchNorm1d):
     """BatchNorm for ``(batch, time, feat, channel)`` inputs (NHWC): the
     statistics over batch, time and feature, one per channel."""
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the channel (last) axis of ``(batch, ..., channel)``
+    inputs, as flax's ``GroupNorm`` computes it: the channels fall into
+    ``num_groups`` groups, and each (sample, group) is normalised over
+    every non-batch axis and the group's channels together, with the mean
+    and the biased variance ``E[x^2] - E[x]^2`` (clipped at 0) in float32;
+    then one scale and bias a channel. ``num_groups=1`` is the global
+    layer norm of the separation models, over (time, channel) or (chunk,
+    chunks, channel).
+
+    Example
+    -------
+    >>> gn = GroupNorm(input_size=8, num_groups=1, eps=1e-8, device="cpu")
+    >>> gn(torch.ones(2, 5, 3, 8)).shape
+    torch.Size([2, 5, 3, 8])
+    """
+
+    def __init__(self, input_size, num_groups=32, eps=1e-05, affine=True,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        if input_size % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{input_size} channels")
+        self.input_size = input_size
+        self.num_groups = num_groups
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(
+                torch.ones(input_size, device=device, dtype=dtype)
+            )
+            self.bias = nn.Parameter(
+                torch.zeros(input_size, device=device, dtype=dtype)
+            )
+        else:
+            self.weight = None
+            self.bias = None
+
+    def forward(self, x):
+        G = self.num_groups
+        xf = x.float().reshape(*x.shape[:-1], G, x.shape[-1] // G)
+        dims = tuple(range(1, xf.ndim - 2)) + (xf.ndim - 1,)
+        mean = xf.mean(dims, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        if self.weight is not None:
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
 
 
 class ExponentialMovingAverage(nn.Module):

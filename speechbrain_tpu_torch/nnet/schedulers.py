@@ -1,5 +1,6 @@
 """Learning-rate schedulers (port of ``NoamScheduler``,
-``NewBobScheduler``, ``CyclicLRScheduler`` and ``update_learning_rate``
+``NewBobScheduler``, ``CyclicLRScheduler``, ``ReduceLROnPlateau`` and
+``update_learning_rate``
 from ``speechbrain_tpu/nnet/schedulers.py``).
 
 A scheduler is stepped by hand and its learning rate written into a
@@ -154,6 +155,65 @@ class NewBobScheduler:
     def _load(self, path, end_of_epoch=False):
         _load_attrs(self, path,
                     ["hyperparam_value", "metric_values", "current_patient"])
+
+
+@register_checkpoint_hooks
+class ReduceLROnPlateau:
+    """Multiply the rate by ``factor`` (not below ``lr_min``) once the
+    loss has stayed above its anchor, the last loss that did not, for
+    more than ``patience`` calls; up to epoch ``dont_halve_until_epoch``
+    the rate stays and every loss becomes the anchor. A halving resets
+    the patience and keeps the anchor.
+
+    ``sch(current_lr, epoch, current_loss)`` returns ``(current_lr,
+    next_lr)``; the separation recipes call it at the end of each valid
+    stage. Its losses, anchor and patience count are checkpointed.
+
+    Example
+    -------
+    >>> sch = ReduceLROnPlateau(patience=1, dont_halve_until_epoch=1)
+    >>> lr = 1.0
+    >>> for epoch, loss in enumerate([5.0, 4.0, 4.5, 4.6, 4.7], start=1):
+    ...     _, lr = sch(lr, epoch, loss)
+    >>> lr
+    0.5
+    """
+
+    def __init__(self, lr_min=1e-8, factor=0.5, patience=2,
+                 dont_halve_until_epoch=65):
+        self.lr_min = lr_min
+        self.factor = factor
+        self.patience = patience
+        self.patience_counter = 0
+        self.losses = []
+        self.dont_halve_until_epoch = dont_halve_until_epoch
+        self.anchor = 99999.0
+
+    def __call__(self, current_lr, epoch, current_loss):
+        if epoch <= self.dont_halve_until_epoch:
+            next_lr = current_lr
+            self.anchor = current_loss
+        elif current_loss <= self.anchor:
+            self.patience_counter = 0
+            next_lr = current_lr
+            self.anchor = current_loss
+        elif self.patience_counter < self.patience:
+            self.patience_counter += 1
+            next_lr = current_lr
+        else:
+            next_lr = current_lr * self.factor
+            self.patience_counter = 0
+        next_lr = max(self.lr_min, next_lr)
+        self.losses.append(float(current_loss))
+        return current_lr, next_lr
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["losses", "anchor", "patience_counter"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=False):
+        _load_attrs(self, path, ["losses", "anchor", "patience_counter"])
 
 
 @register_checkpoint_hooks

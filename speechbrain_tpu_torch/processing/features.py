@@ -2,7 +2,8 @@
 ``speechbrain_tpu/processing/features.py`` that ``Fbank`` and training
 need): windows, framing, ``STFT`` with its real power spectrogram, the
 mel filter matrix, ``Filterbank`` with dB compression and the
-per-sequence ``top_db`` clamp, ``InputNormalization`` and ``GlobalNorm``.
+per-sequence ``top_db`` clamp, ``spectral_magnitude``,
+``InputNormalization`` and ``GlobalNorm``.
 Constants are
 built in numpy, exactly as the JAX package builds them, and moved to the
 device once.
@@ -127,6 +128,29 @@ class STFT:
             raise ValueError("Filter properties assume a centered STFT")
         return FilterProperties(window_size=self.win_length,
                                 stride=self.hop_length)
+
+
+def spectral_magnitude(stft, power=1, log=False, eps=1e-14):
+    """The magnitude of a complex spectrogram, or of one whose last axis
+    holds [real, imaginary]: ``power=1`` gives the power spectrogram
+    ``|X|^2``, ``power=0.5`` the magnitude (``eps`` is added to ``|X|^2``
+    first where ``power < 1``); ``log`` gives ``log(. + eps)``.
+
+    Example
+    -------
+    >>> spectral_magnitude(torch.tensor([[3.0 + 4.0j]]), power=0.5)
+    tensor([[5.]])
+    """
+    if torch.is_complex(stft):
+        spectr = stft.real ** 2 + stft.imag ** 2
+    else:
+        spectr = (stft ** 2).sum(-1)
+    if power < 1:
+        spectr = spectr + eps
+    spectr = spectr ** power
+    if log:
+        return torch.log(spectr + eps)
+    return spectr
 
 
 def _to_mel(hz):

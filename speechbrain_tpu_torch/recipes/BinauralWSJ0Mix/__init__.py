@@ -1,0 +1,1 @@
+"""Binaural WSJ0-2mix source separation on the PyTorch port."""

@@ -47,6 +47,17 @@ the way:
   ``LayerNorm_0`` scope); ``cls_token``, ``pos_embed``, the layer scales
   ``gamma1``/``gamma2`` and ``tanh_scale`` go over as they are, and a
   flax depthwise kernel ``(k, 1, dim)`` becomes ``(dim, 1, k)``;
+* ``GroupNorm``: ``scale``/``bias`` inside flax's ``GroupNorm_0`` scope;
+  ``ConvTranspose1d``: kernel ``(K, out, in/groups)`` -> weight ``(in,
+  out/groups, K)``, group by group, with no flip (both hold the same
+  convolution's gradient);
+* the separation models (``dual_path``, ``resepformer``, ``conv_tasnet``),
+  whose submodules carry the flax scopes' names (``encoder/conv``,
+  ``decoder/deconv``, ``masknet/dual_{i}/intra_mdl/enc``, ``seg_{i}``,
+  ``mem_{i}``, ``tcn_{r}_{b}``, ``basis_signals``, ``ild_proj``); the
+  PReLU slopes (``prelu1``, ``prelu``, ``prelu2``, ``prelu_out``), the
+  segment norms' ``scale``/``bias`` and gLN's ``gamma``/``beta`` go over
+  as they are;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -71,10 +82,13 @@ from speechbrain_tpu_torch.lobes.models.Branchformer import (
 )
 from speechbrain_tpu_torch.lobes.features import Leaf
 from speechbrain_tpu_torch.lobes.models import Cnn14 as cnn14
+from speechbrain_tpu_torch.lobes.models import conv_tasnet
+from speechbrain_tpu_torch.lobes.models import dual_path
 from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN as ecapa
 from speechbrain_tpu_torch.lobes.models import PIQ as piq
 from speechbrain_tpu_torch.lobes.models import focalnet
 from speechbrain_tpu_torch.lobes.models import ResNet as resnet
+from speechbrain_tpu_torch.lobes.models import resepformer
 from speechbrain_tpu_torch.lobes.models import Xvector as xvector
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN, FeatureChannelNorm
@@ -108,7 +122,12 @@ from speechbrain_tpu_torch.nnet.attention import (
     RelPosMHAXL,
     RoPEMHA,
 )
-from speechbrain_tpu_torch.nnet.CNN import Conv1d, Conv2d, GaborConv1d
+from speechbrain_tpu_torch.nnet.CNN import (
+    Conv1d,
+    Conv2d,
+    ConvTranspose1d,
+    GaborConv1d,
+)
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing, HyperNetwork
 from speechbrain_tpu_torch.nnet.linear import Linear
@@ -117,6 +136,7 @@ from speechbrain_tpu_torch.nnet.normalization import (
     BatchNorm1d,
     BatchNorm2d,
     ExponentialMovingAverage,
+    GroupNorm,
     LayerNorm,
 )
 from speechbrain_tpu_torch.nnet.pooling import (
@@ -214,11 +234,32 @@ def load_conv2d(module, scope):
     _load_kernel_bias(module, scope, (3, 2, 0, 1))
 
 
-def load_layernorm(module, scope):
-    inner = scope.sub("LayerNorm_0") if scope.has("LayerNorm_0") else scope
-    _copy(module.weight, inner.take("scale"), f"{inner.path}/scale")
-    _copy(module.bias, inner.take("bias"), f"{inner.path}/bias")
+def _load_scale_bias(module, scope, flax_scope):
+    inner = scope.sub(flax_scope) if scope.has(flax_scope) else scope
+    if module.weight is not None:
+        _copy(module.weight, inner.take("scale"), f"{inner.path}/scale")
+        _copy(module.bias, inner.take("bias"), f"{inner.path}/bias")
     inner.done()
+    scope.done()
+
+
+def load_layernorm(module, scope):
+    _load_scale_bias(module, scope, "LayerNorm_0")
+
+
+def load_groupnorm(module, scope):
+    _load_scale_bias(module, scope, "GroupNorm_0")
+
+
+def load_conv_transpose1d(module, scope):
+    kernel = np.asarray(scope.take("kernel"))
+    K, out, in_g = kernel.shape
+    G = module.groups
+    weight = kernel.reshape(K, G, out // G, in_g).transpose(1, 3, 2, 0)
+    _copy(module.weight, weight.reshape(G * in_g, out // G, K),
+          f"{scope.path}/kernel")
+    if module.bias is not None:
+        _copy(module.bias, scope.take("bias"), f"{scope.path}/bias")
     scope.done()
 
 
@@ -469,11 +510,12 @@ def load_transducer_joint(module, scope):
 
 
 def load_named_children(module, scope, own=()):
-    """Each child module that holds parameters or buffers from the scope
-    of its own name, then each parameter named in ``own`` as it is."""
+    """Each child module that holds parameters or saved buffers from the
+    scope of its own name, then each parameter named in ``own`` as it is.
+    A child whose state dict is empty (a positional encoding's constant
+    table) has no scope."""
     for name, child in module.named_children():
-        if any(True for _ in child.parameters()) or any(
-                True for _ in child.buffers()):
+        if child.state_dict():
             load(child, scope.sub(name))
     for name in own:
         _copy(getattr(module, name), scope.take(name),
@@ -495,6 +537,8 @@ _LOADERS = {
     Conv1d: load_conv1d,
     Conv2d: load_conv2d,
     LayerNorm: load_layernorm,
+    GroupNorm: load_groupnorm,
+    ConvTranspose1d: load_conv_transpose1d,
     Embedding: load_embedding,
     NormalizedEmbedding: load_normalized_embedding,
     MultiheadAttention: load_mha,
@@ -565,6 +609,29 @@ _LOADERS = {
     focalnet.FocalEncoder: _own("tanh_scale"),
     focalnet.FocalDecoder: load_named_children,
     focalnet.FocalNetEncoder: load_named_children,
+    dual_path.Encoder: load_named_children,
+    dual_path.Decoder: load_named_children,
+    dual_path.SBTransformerBlock: load_named_children,
+    dual_path.SBConformerEncoderBlock: load_named_children,
+    dual_path.SBRNNBlock: load_named_children,
+    dual_path.DualComputationBlock: load_named_children,
+    dual_path.DualPathModel: _own("prelu1"),
+    dual_path.SepformerWrapper: load_named_children,
+    resepformer._SepNorm: _own("scale", "bias"),
+    resepformer.SBTransformerBlockWNormAndSkip: load_named_children,
+    resepformer.SegLSTM: load_named_children,
+    resepformer.MemLSTM: load_named_children,
+    resepformer.ResourceEfficientSeparationPipeline: load_named_children,
+    resepformer.ResourceEfficientSeparator: load_named_children,
+    resepformer.RESepformerWrapper: load_named_children,
+    conv_tasnet.ChannelwiseLayerNorm: load_named_children,
+    conv_tasnet.GlobalLayerNorm: _own("gamma", "beta"),
+    conv_tasnet.TemporalBlock: _own("prelu", "prelu2"),
+    conv_tasnet.MaskNet: _own("prelu_out"),
+    conv_tasnet.Encoder: load_named_children,
+    conv_tasnet.Decoder: load_named_children,
+    conv_tasnet.ConvTasNetWrapper: load_named_children,
+    conv_tasnet.BinauralConvTasNetWrapper: load_named_children,
 }
 
 

@@ -1,7 +1,7 @@
 """Exporting a trained model as a ``Pretrained.from_hparams`` source (port
 of ``speechbrain_tpu/utils/pretrained.py`` ``save_for_pretrained``; and
-``export_classifier``, the classification twins' export from their own
-training YAML)."""
+``export_classifier`` and ``export_separator``, the classification and
+separation twins' exports from their own training YAML)."""
 
 import re
 import shutil
@@ -52,25 +52,60 @@ TRAINING_KEYS = ("output_folder", "save_folder", "train_log", "data_folder",
 SERVED_MODULES = ("embedding_model", "classifier")
 
 
-def served_hparams_text(yaml_text, overrides=None):
-    """A training YAML as the ``hyperparams.yaml`` of its export: the
-    run's overrides applied (``resolve_yaml``), the top-level blocks of
-    ``TRAINING_KEYS`` taken out, and a ``pretrainer`` appended whose
-    loadables are the ``SERVED_MODULES`` of the YAML's ``modules`` and its
-    ``label_encoder`` (each read from ``<name>.ckpt`` of the source)."""
+def _serving_lines(yaml_text, overrides, drop=TRAINING_KEYS):
+    """The lines of a training YAML after the run's overrides
+    (``resolve_yaml``), less its top-level blocks named in ``drop``."""
     from speechbrain_tpu_torch.utils.hyperyaml import resolve_yaml
 
     kept, keep = [], True
     for line in resolve_yaml(yaml_text, overrides).splitlines():
         key = re.match(r"^(\w+)\s*:", line)
         if key:
-            keep = key.group(1) not in TRAINING_KEYS
+            keep = key.group(1) not in drop
         if keep:
             kept.append(line)
-    kept += ["", "pretrainer: !new:speechbrain_tpu_torch.utils."
+    return kept
+
+
+def _pretrainer_lines(names):
+    return (["", "pretrainer: !new:speechbrain_tpu_torch.utils."
              "parameter_transfer.Pretrainer", "  loadables:"]
-    kept += [f"    {name}: !ref <modules[{name}]>" for name in SERVED_MODULES]
+            + [f"    {name}: !ref <modules[{name}]>" for name in names])
+
+
+def served_hparams_text(yaml_text, overrides=None):
+    """A training YAML as the ``hyperparams.yaml`` of its export: the
+    run's overrides applied (``resolve_yaml``), the top-level blocks of
+    ``TRAINING_KEYS`` taken out, and a ``pretrainer`` appended whose
+    loadables are the ``SERVED_MODULES`` of the YAML's ``modules`` and its
+    ``label_encoder`` (each read from ``<name>.ckpt`` of the source)."""
+    kept = _serving_lines(yaml_text, overrides)
+    kept += _pretrainer_lines(SERVED_MODULES)
     kept.append("    label_encoder: !ref <label_encoder>")
+    return "\n".join(kept) + "\n"
+
+
+# the modules of a separation export: the whole wrapper as ``masknet``,
+# or its three parts (the upstream checkpoint's layout)
+SEPARATOR_MODULES = {
+    False: {"masknet": "model"},
+    True: {"encoder": "model.encoder", "masknet": "model.masknet",
+           "decoder": "model.decoder"},
+}
+
+
+def separator_hparams_text(yaml_text, overrides=None, three_modules=False):
+    """A separation twin's YAML as the ``hyperparams.yaml`` of its
+    export: the blocks of ``TRAINING_KEYS``, ``modules`` and
+    ``lr_scheduler`` taken out, ``modules`` naming the YAML's ``model``
+    (or its three parts) as ``SepformerSeparation`` takes them, and a
+    ``pretrainer`` that loads each from ``<name>.ckpt``."""
+    served = SEPARATOR_MODULES[three_modules]
+    kept = _serving_lines(yaml_text, overrides,
+                          TRAINING_KEYS + ("modules", "lr_scheduler"))
+    kept += ["", "modules:"]
+    kept += [f"  {name}: !ref <{ref}>" for name, ref in served.items()]
+    kept += _pretrainer_lines(served)
     return "\n".join(kept) + "\n"
 
 
@@ -97,4 +132,31 @@ def export_classifier(hparams, yaml_text, overrides=None):
     hparams["label_encoder"].save(folder / "label_encoder.ckpt")
     (folder / "hyperparams.yaml").write_text(
         served_hparams_text(yaml_text, overrides), encoding="utf-8")
+    return folder
+
+
+def export_separator(hparams, yaml_text, overrides=None, folder=None,
+                     three_modules=False, min_key="loss"):
+    """The best checkpoint (lowest valid ``min_key``) of a separation run
+    as a ``SepformerSeparation.from_hparams`` source in ``folder``: the
+    model's state as ``masknet.ckpt`` (or its encoder, mask network and
+    decoder as ``encoder.ckpt``, ``masknet.ckpt`` and ``decoder.ckpt``
+    with ``three_modules``), and :func:`separator_hparams_text` of the
+    run's YAML as ``hyperparams.yaml``. Returns the folder."""
+    import torch
+
+    ckpt = hparams["checkpointer"].find_checkpoint(min_key=min_key)
+    if ckpt is None:
+        raise RuntimeError("no checkpoint found to export")
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    state = torch.load(ckpt.paramfiles["modules"], map_location="cpu",
+                       weights_only=True)
+    for name, ref in SEPARATOR_MODULES[three_modules].items():
+        prefix = ref + "."
+        torch.save({k[len(prefix):]: v for k, v in state.items()
+                    if k.startswith(prefix)}, folder / f"{name}.ckpt")
+    (folder / "hyperparams.yaml").write_text(
+        separator_hparams_text(yaml_text, overrides, three_modules),
+        encoding="utf-8")
     return folder

@@ -538,3 +538,44 @@ def test_fp32_training_step_through_fused_fbank_matches_plain(
     batch = next(iter(chip_smoke.make_train_loader(cfg, {"train": ds})))
     result = chip_smoke.train_step_kernel_vs_plain(cfg, batch, device=card)
     assert result["ok"], result
+
+
+def test_sepformer_separation_serves_on_the_card_as_on_the_cpu(card):
+    """A small SepFormer (no kernel of the port on its path) served by
+    ``SepformerSeparation`` in float32 on the card and on the CPU, the
+    same weights: the whole wrapper and the three modules equal on the
+    card, the card within 1e-5 relative L2 of the CPU (TF32 off)."""
+    from speechbrain_tpu_torch.inference.separation import (
+        SepformerSeparation,
+    )
+    from speechbrain_tpu_torch.lobes.models.dual_path import SepformerWrapper
+
+    torch.manual_seed(0)
+    model = SepformerWrapper(
+        encoder_kernel_size=16, encoder_out_nchannels=64,
+        masknet_chunksize=50, masknet_numlayers=2, intra_numlayers=2,
+        inter_numlayers=2, intra_nhead=4, inter_nhead=4, intra_dffn=128,
+        inter_dffn=128, device="cpu")
+    mix = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8000)).astype(np.float32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        on_cpu = SepformerSeparation(modules={"masknet": model},
+                                     run_opts={"device": "cpu"})
+        ref = on_cpu.separate_batch(mix)
+        whole = SepformerSeparation(modules={"masknet": model},
+                                    run_opts={"device": "cuda"})
+        out = whole.separate_batch(mix.to(card))
+        parts = SepformerSeparation(
+            modules={"encoder": model.encoder, "masknet": model.masknet,
+                     "decoder": model.decoder}, run_opts={"device": "cuda"})
+        assert torch.equal(parts.separate_batch(mix.to(card)), out)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert out.shape == (2, 8000, 2) and out.device.type == "cuda"
+    err = float((out.cpu() - ref).norm() / ref.norm())
+    assert err <= 1e-5, err

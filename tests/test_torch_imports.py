@@ -241,3 +241,54 @@ def test_classifier_entry_points_default_to_cuda_and_raise_without_it(name):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises((RuntimeError, AssertionError)):
         _classifier_entry_points()[name]()
+
+
+def _separation_entry_points():
+    from speechbrain_tpu_torch.inference.separation import (
+        SepformerSeparation,
+    )
+    from speechbrain_tpu_torch.lobes.models import (
+        conv_tasnet,
+        dual_path,
+        resepformer,
+    )
+    from speechbrain_tpu_torch.nnet.CNN import ConvTranspose1d
+    from speechbrain_tpu_torch.nnet.normalization import GroupNorm
+
+    lin = torch.nn.Linear(2, 2)
+    return {
+        "GroupNorm": lambda: GroupNorm(8, num_groups=1),
+        "ConvTranspose1d": lambda: ConvTranspose1d(1, 4, in_channels=8),
+        "SepformerWrapper": lambda: dual_path.SepformerWrapper(
+            encoder_out_nchannels=8, masknet_chunksize=4,
+            masknet_numlayers=1, intra_numlayers=1, inter_numlayers=1,
+            intra_nhead=2, inter_nhead=2, intra_dffn=8, inter_dffn=8),
+        "DPRNN": lambda: dual_path.SepformerWrapper(
+            encoder_out_nchannels=8, masknet_numlayers=1, intra_numlayers=1,
+            inter_numlayers=1, block_type="rnn", rnn_hidden=4),
+        "RESepformerWrapper": lambda: resepformer.RESepformerWrapper(
+            encoder_out_nchannels=8, masknet_chunksize=4, nhead=2, d_ffn=8),
+        "SkiM": lambda: resepformer.RESepformerWrapper(
+            encoder_out_nchannels=8, masknet_chunksize=4, mem_type="hc",
+            seg_model="lstm"),
+        "ConvTasNetWrapper": lambda: conv_tasnet.ConvTasNetWrapper(
+            N=8, B=4, H=8, X=1, R=1),
+        "BinauralConvTasNetWrapper": lambda:
+            conv_tasnet.BinauralConvTasNetWrapper(N=8, B=4, H=8, X=1, R=1,
+                                                  mode="cross"),
+        "SepformerSeparation": lambda: SepformerSeparation(
+            modules={"masknet": lin}),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "GroupNorm", "ConvTranspose1d", "SepformerWrapper", "DPRNN",
+    "RESepformerWrapper", "SkiM", "ConvTasNetWrapper",
+    "BinauralConvTasNetWrapper", "SepformerSeparation"])
+def test_separation_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The separation modules and ``SepformerSeparation`` are built on the
+    card unless asked otherwise, and raise where there is none."""
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _separation_entry_points()[name]()

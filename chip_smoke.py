@@ -153,6 +153,19 @@ LibriSpeech recipe:
   one valid batch of each of the 20 other separation twin YAMLs
   (WSJ0Mix, LibriMix, WHAM!/WHAMR!, Aishell1Mix, BinauralWSJ0Mix) at
   full width.
+- ``enhancement_path``: speech enhancement, which runs none of the kernels:
+  the VoiceBank spectral-mask twin (a CNN-Transformer masker: d_model 256,
+  8 layers, 16 heads, d_ffn 512, over a 512-point STFT at 16 kHz) and the
+  waveform-map twin (an FCN of 80 channels, kernel 55, 8 blocks), two bf16
+  steps each on 4 s utterances, the valid batch, a checkpoint and its
+  export, served through ``SpectralMaskEnhancement`` and
+  ``WaveformEnhancement.from_hparams`` in float32 on 4 utterances of 4 s:
+  bit for bit the same arithmetic on the trained module, within
+  ``ENHANCEMENT_CPU_RTOL`` of the port on the CPU, the STOI printed; the
+  ISTFT round trips at 8 and 16 kHz; then one bf16 step and one valid
+  batch of each other enhancement twin YAML (WHAM!/WHAMR!, DNS,
+  dereverberation, the template, the spectral-mask twin's other maskers)
+  at full width.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -175,6 +188,7 @@ import json
 import os
 import shutil
 import struct
+import re
 import subprocess
 import sys
 import tempfile
@@ -202,6 +216,10 @@ from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
 from speechbrain_tpu_torch.inference.classifiers import (
     AudioClassifier,
     EncoderClassifier,
+)
+from speechbrain_tpu_torch.inference.enhancement import (
+    SpectralMaskEnhancement,
+    WaveformEnhancement,
 )
 from speechbrain_tpu_torch.inference.separation import SepformerSeparation
 from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
@@ -231,6 +249,7 @@ from speechbrain_tpu_torch.nnet.attention import (
 from speechbrain_tpu_torch.nnet.containers import LengthsCapableSequential
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.linear import Linear
+from speechbrain_tpu_torch.nnet.loss.stoi_loss import stoi_loss
 from speechbrain_tpu_torch.nnet.losses import get_si_snr_with_pitwrapper
 from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d
 from speechbrain_tpu_torch.nnet.RNN import LSTM, AttentionalRNNDecoder
@@ -247,7 +266,11 @@ from speechbrain_tpu_torch.ops import (
     gather,
     mel_frontend,
 )
-from speechbrain_tpu_torch.processing.features import InputNormalization
+from speechbrain_tpu_torch.processing.features import (
+    STFT,
+    InputNormalization,
+)
+from speechbrain_tpu_torch.processing.signal_processing import resynthesize
 from speechbrain_tpu_torch.recipes.BinauralWSJ0Mix.separation import (
     train as binaural_recipe,
 )
@@ -6525,6 +6548,446 @@ def run_separation_path(out_dir, device="cuda"):
     return launches
 
 
+# -- enhancement_path: the enhancement twins and their two interfaces -------
+
+PORT_ROOT = os.path.join(ROOT, "speechbrain_tpu_torch")
+# the rate of the two served chains and of their served batch
+ENHANCE_SR = 16000
+# the VoiceBank spectral-mask twin (CNN-Transformer: d_model 256, 8 layers,
+# 16 heads, d_ffn 512; n_fft 512 at 16 kHz): trained, checkpointed,
+# exported and served through SpectralMaskEnhancement
+ENHANCEMENT_MAIN = ("recipes/VoiceBank/enhance/spectral_mask", "train.yaml")
+# the waveform-mapping FCN twin (80 channels, kernel 55, 8 blocks): the
+# same, served through WaveformEnhancement
+ENHANCEMENT_WAVEFORM = ("recipes/VoiceBank/enhance/waveform_map",
+                        "train.yaml")
+# the spectral-mask twin's other maskers, its MaskNet include swapped
+ENHANCEMENT_MASKERS = ("BLSTM.yaml", "2DFCN.yaml", "2DFCN+BLSTM.yaml")
+# every other enhancement twin YAML, one bf16 step each at its full width
+ENHANCEMENT_TWINS = tuple(
+    ("recipes/WHAMandWHAMR/enhancement", yaml) for yaml in (
+        "cnntransformer-wham-DM.yaml", "cnntransformer-whamr-DM.yaml",
+        "convtasnet-whamr-DM.yaml", "dprnn-whamr-DM.yaml",
+        "sepformer-wham.yaml", "sepformer-whamr.yaml",
+        "sepformer-whamr-DM.yaml", "sepformer-whamr-16k.yaml",
+        "sepformer-whamr-16k-DM.yaml",
+    )) + (("recipes/DNS/enhancement", "sepformer-dns.yaml"),
+          ("recipes/VoiceBank/dereverb/spectral_mask", "train.yaml"),
+          ("templates/enhancement", "train.yaml"))
+# the main chains' corpus: 8 train utterances (two steps at the YAMLs'
+# batch of 4) and 4 valid (one batch), 4 s at 16 kHz; every other twin's:
+# one YAML batch to train and one to validate, 4 s at the YAML's rate
+ENHANCEMENT_CORPUS = dict(train=8, valid=4, seconds=4.0)
+ENHANCEMENT_TWIN_SECONDS = 4.0
+ENHANCEMENT_TRAIN_STEPS = 2
+# served: 4 noisy utterances of 4 s, float32, through both exports
+ENHANCEMENT_SERVE = dict(batch=4, seconds=4.0, repeats=5)
+# float32 (TF32 off): the card's served output against the same weights
+# run by the port on the CPU, relative L2 over the first utterance
+ENHANCEMENT_CPU_RTOL = 1e-4
+# the ISTFT round trips on the card: (rate, n_fft, window and hop in ms);
+# the first is C48's case, a 256-sample window in a 512-sample frame
+ISTFT_CASES = ((8000, 512, 32, 16), (16000, 512, 32, 16))
+ISTFT_RTOL = 1e-5
+ENHANCEMENT_REDUCED = {
+    "weights": "random, from each YAML's seed",
+    "epochs": "100-200 -> 2 optimizer steps (the spectral-mask and "
+              "waveform-map chains) or 1 (every other twin) and one valid "
+              "batch",
+    "corpus": "synthetic vibrato tones in white noise (WHAM!/WHAMR!: "
+              "mixture and first source): 8 train and 4 valid utterances "
+              "of 4 s at 16 kHz for the two chains, one YAML batch each "
+              "of 4 s at the YAML's rate for every other twin",
+}
+# width overrides given to every enhancement YAML that names the key, and
+# to the swapped maskers' include: none on the card (full width); the CPU
+# tests shrink widths with them
+ENHANCEMENT_WIDTHS = {}
+ENHANCEMENT_MASKER_WIDTHS = {}
+# the recipe Brain each twin folder runs, and the key of its noisy signal
+ENHANCEMENT_SIGNALS = {"recipes/WHAMandWHAMR/enhancement": "mix_sig"}
+
+
+def _enhancement_module(folder):
+    """A twin folder's ``train`` module."""
+    return importlib.import_module(
+        "speechbrain_tpu_torch." + folder.replace("/", ".") + ".train")
+
+
+def _default_brain(run_fn):
+    """The Brain class a twin's ``run`` trains by default."""
+    import inspect
+
+    return inspect.signature(run_fn).parameters["brain_cls"].default
+
+
+def write_enhancement_corpus(folder, n_train, n_valid, seconds, sample_rate,
+                             keys=("noisy", "clean"), seed=0):
+    """``n_train + n_valid`` pairs of ``seconds``: a clean vibrato tone
+    with two harmonics under a slow amplitude modulation, and the same plus
+    white noise (about 5 dB SNR), as WAV files and the manifests
+    ``train.json``/``valid.json`` (``<key>_wav`` for the noisy and the
+    clean ``keys``, ``length`` in seconds); returns the manifests'
+    paths."""
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(sample_rate * seconds)
+    t = np.arange(n) / sample_rate
+    manifests = {"train": {}, "valid": {}}
+    for i in range(n_train + n_valid):
+        f0 = rng.uniform(120, 260)
+        phase = 2 * np.pi * f0 * t + 2 * np.sin(2 * np.pi * rng.uniform(
+            2, 5) * t)
+        am = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)
+        clean = 0.2 * am * (np.sin(phase) + 0.5 * np.sin(2 * phase)
+                            + 0.25 * np.sin(3 * phase))
+        noisy = clean + 0.06 * rng.standard_normal(n)
+        item = {"length": seconds}
+        for key, sig in zip(keys, (noisy, clean)):
+            path = os.path.join(folder, f"u{i}_{key}.wav")
+            write_audio(path, sig.astype(np.float32), sample_rate)
+            item[f"{key}_wav"] = path
+        manifests["train" if i < n_train else "valid"][f"u{i}"] = item
+    paths = {}
+    for split, items in manifests.items():
+        paths[split] = os.path.join(folder, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def enhancement_batch(device, cfg, sample_rate=16000, seed=9):
+    """``cfg["batch"]`` noisy utterances of ``cfg["seconds"]`` (B, T) and
+    their clean signals, on ``device``: :func:`write_enhancement_corpus`'s
+    signals made in memory."""
+    rng = np.random.default_rng(seed)
+    n = int(sample_rate * cfg["seconds"])
+    t = np.arange(n) / sample_rate
+    clean = []
+    for _ in range(cfg["batch"]):
+        phase = 2 * np.pi * rng.uniform(120, 260) * t + 2 * np.sin(
+            2 * np.pi * rng.uniform(2, 5) * t)
+        am = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)
+        clean.append(0.2 * am * (np.sin(phase) + 0.5 * np.sin(2 * phase)
+                                 + 0.25 * np.sin(3 * phase)))
+    clean = np.stack(clean)
+    noisy = clean + 0.06 * rng.standard_normal(clean.shape)
+    return (torch.from_numpy(noisy.astype(np.float32)).to(device),
+            torch.from_numpy(clean.astype(np.float32)).to(device))
+
+
+def enhancement_yaml(folder, yaml, data, out, device, masker=None):
+    """An enhancement twin's YAML with ``ENHANCEMENT_WIDTHS`` (the keys it
+    names), one epoch, its data and output folders and ``device``, its
+    ``MaskNet`` include swapped to ``models/<masker>`` (with ``n_fft``,
+    ``device`` and ``ENHANCEMENT_MASKER_WIDTHS``) where ``masker`` is
+    given: ``(text, overrides, hparams, yaml folder)``."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    yaml_dir = os.path.join(PORT_ROOT, folder,
+                            "" if folder.startswith("templates") else
+                            "hparams")
+    with open(os.path.join(yaml_dir, yaml), encoding="utf-8") as f:
+        text = f.read()
+    if masker is not None:
+        block = "".join(f"  {k}: {v}\n"
+                        for k, v in ENHANCEMENT_MASKER_WIDTHS.items())
+        start = text.index("MaskNet: !include:")
+        end = text.index("\n\n", start)
+        text = (text[:start] + f"MaskNet: !include:models/{masker}\n"
+                "  n_fft: !ref <n_fft>\n  device: !ref <device>\n" + block
+                + text[end + 1:])
+    names = {line.split(":")[0] for line in text.splitlines() if ":" in line}
+    overrides = {k: v for k, v in ENHANCEMENT_WIDTHS.items() if k in names}
+    overrides.update(
+        data_folder=data, output_folder=out, number_of_epochs=1,
+        device=device, train_annotation=os.path.join(data, "train.json"),
+        valid_annotation=os.path.join(data, "valid.json"))
+    hparams = load_hyperpyyaml(text, overrides, base_dir=yaml_dir)
+    return text, overrides, hparams, yaml_dir
+
+
+def _enhancement_train(folder, yaml, out_dir, corpus, steps, device,
+                       masker=None, export=False):
+    """``steps`` bf16 optimizer steps of an enhancement twin's ``run``
+    from its YAML on a :func:`write_enhancement_corpus` corpus
+    (``corpus``: train and valid counts and seconds), its valid stage and
+    checkpoint, and with ``export`` the export of its best checkpoint:
+    ``(brain, hparams, line)``."""
+    name = "_".join(folder.split("/")[-2:] + [yaml[:-5]]) + (
+        f"_{masker[:-5]}" if masker else "")
+    work = os.path.join(out_dir, name)
+    data = os.path.join(work, "data")
+    text, overrides, hparams, yaml_dir = enhancement_yaml(
+        folder, yaml, data, os.path.join(work, "out"), device, masker)
+    key = ENHANCEMENT_SIGNALS.get(folder, "noisy_sig")
+    rate = hparams["sample_rate"]
+    write_enhancement_corpus(data, corpus["train"], corpus["valid"],
+                             corpus["seconds"], rate,
+                             keys=(key[:-4], "s1" if key == "mix_sig"
+                                   else "clean"))
+    n_params = sum(p.numel() for p in hparams["modules"]["model"]
+                   .parameters())
+    module = _enhancement_module(folder)
+    run_fn = module.run
+    brain_cls = type("Timed" + module.__name__.split(".")[-2], (
+        TimedSteps, _default_brain(run_fn)), {"SIGNAL_KEY": key,
+                                             "SIGNAL_RATE": rate})
+    brain, counts, seconds, peak = _timed_run(lambda: run_fn(
+        hparams, {"device": device, "precision": "bf16",
+                  "noprogressbar": True, "optimizer_step_limit": steps},
+        brain_cls=brain_cls,
+        export_from=(text, overrides, yaml_dir) if export else None),
+        device)
+    line = {"yaml": f"{folder}/{yaml}" + (f" + models/{masker}" if masker
+                                          else ""),
+            "parameters": n_params, "seconds": seconds,
+            "step_ms": brain.step_ms(), "losses": brain.losses,
+            "valid_losses": brain.valid_losses, "peak_gb": peak / 1e9,
+            "launches": counts,
+            "forwards": {s.name: c for s, c in brain.forwards.items()},
+            "checkpoints": len(brain.checkpointer.list_checkpoints()),
+            "train_audio_seconds": brain.audio_seconds}
+    line["parameters_finite"] = all(
+        bool(torch.isfinite(p).all()) for p in brain.modules.parameters())
+    n_valid_batches = -(-corpus["valid"] // hparams["batch_size"])
+    line["ok"] = bool(
+        brain.forwards[Stage.TRAIN] == steps
+        and brain.forwards[Stage.VALID] == n_valid_batches
+        and line["checkpoints"] == 1 and len(brain.losses) == steps
+        and all(np.isfinite(brain.losses + brain.valid_losses))
+        and line["parameters_finite"])
+    return brain, hparams, line
+
+
+def _spectral_features(stft, noisy):
+    spec = stft(noisy)
+    return torch.log1p(torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-14))
+
+
+def _spectral_enhance(model, stft, istft, noisy):
+    """``SpectralMaskEnhancement.enhance_batch``'s arithmetic written out:
+    log1p magnitudes, the model's mask, expm1, resynthesis with the noisy
+    phase."""
+    feats = _spectral_features(stft, noisy)
+    return resynthesize(torch.expm1(feats * model(feats)), noisy, stft,
+                        istft)
+
+
+def _serve_enhancer(interface, source, noisy, clean, composed, cpu_out,
+                    launches, device):
+    """One export served through ``interface.from_hparams`` on ``noisy``:
+    its first call's launches (added to ``launches``), the median
+    ``enhance_batch`` ms by CUDA events, audio seconds a second, the
+    output against ``composed`` (the same arithmetic on the trained
+    module, bit for bit) and its first utterance against ``cpu_out``,
+    and the served output's STOI against ``clean``."""
+    enhancer = interface.from_hparams(
+        source=source, savedir=source + "_served",
+        run_opts={"device": device})
+    reset_launch_counts()
+    served = enhancer.enhance_batch(noisy)
+    _sync(device)
+    for k, v in launch_counts().items():
+        launches[k] += v
+    ms, all_ms, _ = _elapsed_ms(lambda: enhancer.enhance_batch(noisy),
+                                ENHANCEMENT_SERVE["repeats"], device)
+    card = served[:1].cpu()
+    rel_l2 = ((card - cpu_out).norm() / cpu_out.norm()).item()
+    stoi = -stoi_loss(served, clean, torch.ones(len(served)),
+                      reduction="batch")
+    line = {"enhance_batch_ms": ms, "enhance_batch_ms_all": all_ms,
+            "audio_s_per_s": noisy.numel() / ENHANCE_SR / (ms / 1e3),
+            "out_shape": list(served.shape),
+            "served_equals_trained": bool(torch.equal(served, composed)),
+            "fp32_card_vs_cpu_rel_l2": rel_l2,
+            "cpu_rtol": ENHANCEMENT_CPU_RTOL,
+            "stoi_of_random_weights": [float(v) for v in stoi]}
+    line["ok"] = bool(
+        tuple(served.shape) == tuple(noisy.shape)
+        and bool(torch.isfinite(served).all())
+        and line["served_equals_trained"] and rel_l2 <= ENHANCEMENT_CPU_RTOL)
+    return line
+
+
+def forward_backward_ms(model, x, precision, device, repeats=3):
+    """Median forward and backward ms (CUDA events) of ``model(x)``'s mean
+    at ``precision`` (``"bf16"`` under autocast, or ``"fp32"``), after a
+    warm-up pass; the gradients are dropped."""
+    from speechbrain_tpu_torch.utils.autocast import autocast
+
+    model.train()
+    times = []
+    for i in range(repeats + 1):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        with autocast(precision, device):
+            loss = model(x).float().mean()
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        _sync(device)
+        if i:
+            times.append([events[0].elapsed_time(events[1]),
+                          events[1].elapsed_time(events[2])])
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    fwd, bwd = np.median(np.array(times), axis=0)
+    return {"forward_ms": float(fwd), "backward_ms": float(bwd)}
+
+
+def run_enhancement_main(out_dir, device="cuda"):
+    """The VoiceBank spectral-mask twin (CNN-Transformer) and waveform-map
+    twin (FCN) at their YAMLs' widths: two bf16 steps each on 4 s
+    utterances, the valid batch, a checkpoint and its export, served
+    through ``SpectralMaskEnhancement``/``WaveformEnhancement.from_hparams``
+    in float32 on 4 utterances of 4 s (median ms by CUDA events, audio
+    seconds a second), held bit for bit against the same arithmetic on the
+    trained module and the card against the CPU on the first utterance
+    (``ENHANCEMENT_CPU_RTOL``); the STOI of the served output, a number
+    only (the weights are random); the model's forward and backward alone
+    on the served batch, bf16 and float32 (``model_step_split``)."""
+    noisy, clean = enhancement_batch(device, ENHANCEMENT_SERVE)
+    lines = {}
+    for label, (folder, yaml), interface in (
+            ("spectral_mask", ENHANCEMENT_MAIN, SpectralMaskEnhancement),
+            ("waveform_map", ENHANCEMENT_WAVEFORM, WaveformEnhancement)):
+        brain, hparams, line = _enhancement_train(
+            folder, yaml, out_dir, ENHANCEMENT_CORPUS,
+            ENHANCEMENT_TRAIN_STEPS, device, export=True)
+        launches = dict(line["launches"])
+        model = brain.modules.model.eval()
+        cpu_model = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            if interface is SpectralMaskEnhancement:
+                stft = hparams["compute_stft"]
+                composed = _spectral_enhance(model, stft, stft.inverse(),
+                                             noisy)
+                cpu_stft = STFT(ENHANCE_SR, n_fft=hparams["n_fft"],
+                                win_length=hparams["win_length"],
+                                hop_length=hparams["hop_length"],
+                                device="cpu")
+                cpu_out = _spectral_enhance(cpu_model, cpu_stft,
+                                            cpu_stft.inverse(),
+                                            noisy[:1].cpu())
+            else:
+                composed = model(noisy)
+                cpu_out = cpu_model(noisy[:1].cpu())
+            serve = _serve_enhancer(
+                interface, os.path.join(hparams["output_folder"],
+                                        "pretrained"),
+                noisy, clean, composed, cpu_out, launches, device)
+        # the step's model alone on the served batch: forward and
+        # backward, bf16 as trained and float32
+        feats = (_spectral_features(hparams["compute_stft"], noisy)
+                 if interface is SpectralMaskEnhancement else noisy)
+        split = {p: forward_backward_ms(model, feats, p, device)
+                 for p in ("bf16", "fp32")}
+        line.update(serve=serve, launches=launches, model_step_split=split,
+                    second_step_ms=line["step_ms"][-1],
+                    tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                          "cudnn": torch.backends.cudnn.allow_tf32})
+        line["ok"] = bool(line["ok"] and serve["ok"])
+        lines[label] = line
+        del brain, hparams, model, cpu_model, composed
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return lines
+
+
+def run_istft_round_trips(device="cuda", seconds=4.0, batch=4, seed=11):
+    """``ISTFT(STFT(x))`` on the card for each of ``ISTFT_CASES`` on white
+    noise: the relative L2 error, at most ``ISTFT_RTOL``, and the
+    round trip's median ms by CUDA events."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cases = {}
+    for sr, n_fft, win, hop in ISTFT_CASES:
+        x = torch.randn(batch, int(sr * seconds), generator=gen).to(device)
+        stft = STFT(sr, win_length=win, hop_length=hop, n_fft=n_fft,
+                    device=device)
+        istft = stft.inverse()
+        ms, _, rec = _elapsed_ms(
+            lambda: istft(stft(x), sig_length=x.shape[1]), 3, device)
+        err = ((rec - x).norm() / x.norm()).item()
+        cases[f"{sr}Hz_nfft{n_fft}_win{stft.win_length}"] = {
+            "rel_l2": err, "round_trip_ms": ms,
+            "ok": bool(err <= ISTFT_RTOL)}
+    return {"cases": cases, "rtol": ISTFT_RTOL,
+            "ok": all(c["ok"] for c in cases.values())}
+
+
+def run_enhancement_twin(folder, yaml, out_dir, device="cuda", masker=None):
+    """One bf16 optimizer step of an enhancement twin from its YAML at full
+    width and one valid batch, on one YAML batch of 4 s utterances each;
+    the twin's folder is removed after."""
+    path = os.path.join(PORT_ROOT, folder, "" if folder.startswith(
+        "templates") else "hparams", yaml)
+    with open(path, encoding="utf-8") as f:
+        batch = int(re.search(r"^batch_size: (\d+)", f.read(), re.M)[1])
+    corpus = dict(train=batch, valid=batch,
+                  seconds=ENHANCEMENT_TWIN_SECONDS)
+    brain, hparams, line = _enhancement_train(
+        folder, yaml, out_dir, corpus, 1, device, masker=masker)
+    work = os.path.dirname(hparams["data_folder"])
+    del brain, hparams
+    gc.collect()
+    shutil.rmtree(work, ignore_errors=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_enhancement_path(out_dir, device="cuda"):
+    """The spectral-mask and waveform-map chains
+    (:func:`run_enhancement_main`), the ISTFT round trips, then every other
+    enhancement twin YAML and the spectral-mask twin's other maskers, one
+    step each. No kernel of the port is on this path: returns each
+    kernel's launches over it (all 0)."""
+    t0 = time.perf_counter()
+    lines = run_enhancement_main(out_dir, device)
+    launches = {name: 0 for name in KERNELS}
+    for label, line in lines.items():
+        emit({"phase": f"enhancement_path/{label}", **line})
+        if not line["ok"]:
+            raise AssertionError(f"enhancement_path: the {label} chain "
+                                 "failed")
+        for k, v in line["launches"].items():
+            launches[k] += v
+    istft = run_istft_round_trips(device)
+    emit({"phase": "enhancement_path/istft_round_trip", **istft})
+    if not istft["ok"]:
+        raise AssertionError("enhancement_path: ISTFT does not invert STFT")
+    readings = {
+        "served_audio_s_per_s": {label: line["serve"]["audio_s_per_s"]
+                                 for label, line in lines.items()},
+        "enhance_batch_ms": {label: line["serve"]["enhance_batch_ms"]
+                             for label, line in lines.items()},
+        "second_step_ms": {label: line["second_step_ms"]
+                           for label, line in lines.items()},
+        "twins": {}}
+    for key in ("served_audio_s_per_s", "enhance_batch_ms",
+                "second_step_ms"):
+        emit({"phase": "enhancement_reading", key: readings[key]})
+    twins = [(folder, yaml, None) for folder, yaml in ENHANCEMENT_TWINS]
+    twins += [(ENHANCEMENT_MAIN[0], ENHANCEMENT_MAIN[1], masker)
+              for masker in ENHANCEMENT_MASKERS]
+    for folder, yaml, masker in twins:
+        line = run_enhancement_twin(folder, yaml, out_dir, device, masker)
+        emit({"phase": f"enhancement_path/{line['yaml']}", **line})
+        for k, v in line["launches"].items():
+            launches[k] += v
+        readings["twins"][line["yaml"]] = {"step_ms": line["step_ms"][0],
+                                           "peak_gb": line["peak_gb"]}
+        if not line["ok"]:
+            raise AssertionError(f"enhancement_path: {line['yaml']} failed")
+    emit({"phase": "enhancement_path_summary", "readings": readings,
+          "launches": launches, "reduced": ENHANCEMENT_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -6713,6 +7176,12 @@ def main():
         for kernel in kernels:
             kernel.setdefault("launches_by_path", {})["separation_path"] = \
                 separation_launches[kernel["name"]]
+        torch.cuda.empty_cache()
+        enhancement_launches = run_enhancement_path(
+            os.path.join(out_dir, "enhancement"))
+        for kernel in kernels:
+            kernel["launches_by_path"]["enhancement_path"] = \
+                enhancement_launches[kernel["name"]]
         torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)

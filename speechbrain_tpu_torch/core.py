@@ -31,6 +31,10 @@ on the device as the JAX train step decides it:
   up on the device and the host reads them once every N micro-batches,
   returning ``(mean, count)``. The epoch's tail is drained at its end,
   so ``avg_train_loss`` averages the same losses;
+* a stage in which no batch's loss is finite (one or more batches, all
+  NaN or infinite) reports NaN to ``on_stage_end``, not the 0.0 that the
+  running mean starts from, so that a diverged epoch can never rank as
+  the best checkpoint (the JAX package reports 0.0);
 * ``precision="bf16"`` runs ``compute_forward`` under ``torch.autocast``
   with bfloat16, parameters in float32 (the JAX package instead casts
   every float input, the waveform too, to bfloat16).
@@ -313,6 +317,7 @@ class Brain:
         self.host_syncs = 0  # host reads of the train loss
         self.avg_train_loss = 0.0
         self.nonfinite_count = 0
+        self._finite_losses = 0  # finite losses read in this TRAIN stage
         self.last_ckpt_time = time.time()
         # dropout draws from torch's generator of the device
         if self.device.type == "cuda":
@@ -531,6 +536,7 @@ class Brain:
                     "Loss is not finite and patience is exhausted."
                 )
             return self.avg_train_loss
+        self._finite_losses += 1
         return loss
 
     def _flush_pending_loss(self):
@@ -558,6 +564,7 @@ class Brain:
                 )
         if n < 1:
             return None
+        self._finite_losses += int(n)
         return total / n, int(n)
 
     @torch.no_grad()
@@ -638,6 +645,7 @@ class Brain:
             train_set.set_epoch(epoch)
         self.avg_train_loss = 0.0
         self.nonfinite_count = 0
+        self._finite_losses = 0
         self._loss_count = 0
         self._pending_loss = None
         self._loss_accum = None
@@ -677,6 +685,8 @@ class Brain:
             loss = self._drain_loss_accum()
         if loss is not None:
             self._add_train_loss(loss)
+        if self.nonfinite_count and not self._finite_losses:
+            self.avg_train_loss = float("nan")
         self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
         self.train_loss = self.avg_train_loss
         self.avg_train_loss = 0.0
@@ -687,13 +697,16 @@ class Brain:
             return
         self.modules.eval()
         self.on_stage_start(Stage.VALID, epoch)
-        avg_valid_loss = 0.0
+        avg_valid_loss, n_finite = 0.0, 0
         t = _progress(valid_set, enable, f"Epoch {epoch} VALID")
         for self.step, batch in enumerate(t, start=1):
             loss = self.evaluate_batch(batch, stage=Stage.VALID)
             avg_valid_loss = self.update_average(loss, avg_valid_loss)
+            n_finite += bool(np.isfinite(loss))
             if self._debug_stop():
                 break
+        avg_valid_loss = _nan_if_none_finite(avg_valid_loss, self.step,
+                                             n_finite)
         self.on_stage_end(Stage.VALID, avg_valid_loss, epoch)
         self.step = 0
 
@@ -710,13 +723,16 @@ class Brain:
         self.on_evaluate_start(max_key=max_key, min_key=min_key)
         self.modules.eval()
         self.on_stage_start(Stage.TEST, epoch=None)
-        avg_test_loss = 0.0
+        avg_test_loss, n_finite = 0.0, 0
         t = _progress(test_set, progressbar, "TEST")
         for self.step, batch in enumerate(t, start=1):
             loss = self.evaluate_batch(batch, stage=Stage.TEST)
             avg_test_loss = self.update_average(loss, avg_test_loss)
+            n_finite += bool(np.isfinite(loss))
             if self._debug_stop():
                 break
+        avg_test_loss = _nan_if_none_finite(avg_test_loss, self.step,
+                                            n_finite)
         self.on_stage_end(Stage.TEST, avg_test_loss, None)
         self.step = 0
         return avg_test_loss
@@ -752,6 +768,12 @@ class Brain:
             avg_loss -= avg_loss / self.step
             avg_loss += loss / self.step
         return avg_loss
+
+
+def _nan_if_none_finite(avg_loss, n_batches, n_finite):
+    """A stage's mean loss, or NaN where it ran batches and none of their
+    losses was finite."""
+    return float("nan") if n_batches and not n_finite else avg_loss
 
 
 class _FlatGrads:

@@ -144,7 +144,10 @@ class Pretrained:
         overrides = dict(overrides)
         if re.search(r"^device\s*:", text, re.M):
             overrides.setdefault("device", str(run_opts["device"]))
-        hparams = load_hyperpyyaml(text, overrides, overrides_must_match)
+        # an !include: of the YAML is read beside its source file
+        hparams = load_hyperpyyaml(
+            text, overrides, overrides_must_match,
+            base_dir=pathlib.Path(hparams_local_path).resolve().parent)
         pretrainer = hparams.get("pretrainer")
         if pretrainer is not None:
             pretrainer.set_collect_in(savedir)

@@ -1,6 +1,7 @@
 """Activation functions (port of ``speechbrain_tpu/nnet/activations.py``).
 
-Only the functions the transformer family uses are ported so far.
+Only the functions the transformer and enhancement families use are
+ported so far.
 """
 
 import torch
@@ -37,6 +38,7 @@ ACTIVATIONS = {
     "leaky_relu": leaky_relu,
     "gelu": gelu,
     "swish": swish,
+    "sigmoid": torch.sigmoid,
 }
 
 

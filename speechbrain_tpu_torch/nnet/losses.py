@@ -1,7 +1,8 @@
 """Losses masked by relative lengths (port of the sequence losses of
 ``speechbrain_tpu/nnet/losses.py``: ``compute_length_mask``,
 ``compute_masked_loss``, ``nll_loss``, ``kldiv_loss``, ``ctc_loss``,
-``classification_error``, the speaker family's margins
+``classification_error``, the regression losses ``mse_loss`` and
+``l1_loss``, the speaker family's margins
 ``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``,
 and the separation objectives ``cal_si_snr``, ``cal_snr``,
 ``PitWrapper`` and ``get_si_snr_with_pitwrapper``).
@@ -63,6 +64,25 @@ def compute_masked_loss(loss_fn, predictions, targets, length=None,
     if mask is None:
         mask = compute_length_mask(targets, length)
     return _reduce(loss_fn(predictions, targets), mask, reduction)
+
+
+def mse_loss(predictions, targets, length=None, reduction="mean"):
+    """Squared error masked by relative lengths along axis 1.
+
+    Example
+    -------
+    >>> float(mse_loss(torch.ones(2, 4), torch.zeros(2, 4),
+    ...                torch.tensor([0.5, 1.0]), reduction="sum"))
+    6.0
+    """
+    return compute_masked_loss(lambda p, t: (p - t) ** 2, predictions,
+                               targets, length, reduction=reduction)
+
+
+def l1_loss(predictions, targets, length=None, reduction="mean"):
+    """Absolute error masked by relative lengths along axis 1."""
+    return compute_masked_loss(lambda p, t: torch.abs(p - t), predictions,
+                               targets, length, reduction=reduction)
 
 
 def _smoothed_nll(log_probabilities, targets, label_smoothing):

@@ -1,6 +1,7 @@
 """Normalization layers (port of ``LayerNorm``, ``BatchNorm1d``,
-``BatchNorm2d``, ``GroupNorm``, ``ExponentialMovingAverage`` and ``PCEN``
-from ``speechbrain_tpu/nnet/normalization.py``).
+``BatchNorm2d``, ``GroupNorm``, ``InstanceNorm1d``,
+``ExponentialMovingAverage`` and ``PCEN`` from
+``speechbrain_tpu/nnet/normalization.py``).
 
 BatchNorm keeps its running statistics in buffers (``running_mean``,
 ``running_var``), which ride in the module's ``state_dict`` and so in every
@@ -167,6 +168,43 @@ class GroupNorm(nn.Module):
         if self.weight is not None:
             y = y * self.weight.float() + self.bias.float()
         return y.to(x.dtype)
+
+
+class InstanceNorm1d(nn.Module):
+    """Per-sample, per-channel normalisation of (batch, time, channel) over
+    time, padded frames included, as the JAX package computes it: the mean
+    and the biased variance of each (sample, channel), ``(x - mean) *
+    rsqrt(var + eps)``, then one scale and bias a channel where
+    ``affine``. No running statistics: training and evaluation agree.
+
+    Example
+    -------
+    >>> norm = InstanceNorm1d(8, affine=True, device="cpu")
+    >>> norm(torch.ones(2, 5, 8)).shape
+    torch.Size([2, 5, 8])
+    """
+
+    def __init__(self, input_size, eps=1e-05, affine=False, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(
+                torch.ones(input_size, device=device, dtype=dtype)
+            )
+            self.bias = nn.Parameter(
+                torch.zeros(input_size, device=device, dtype=dtype)
+            )
+        else:
+            self.weight = None
+            self.bias = None
+
+    def forward(self, x):
+        var, mean = torch.var_mean(x, dim=1, correction=0, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y
 
 
 class ExponentialMovingAverage(nn.Module):

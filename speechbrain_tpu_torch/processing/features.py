@@ -1,9 +1,9 @@
 """Low-level feature pipeline (port of the part of
 ``speechbrain_tpu/processing/features.py`` that ``Fbank`` and training
-need): windows, framing, ``STFT`` with its real power spectrogram, the
-mel filter matrix, ``Filterbank`` with dB compression and the
-per-sequence ``top_db`` clamp, ``spectral_magnitude``,
-``InputNormalization`` and ``GlobalNorm``.
+need, and enhancement's resynthesis): windows, framing, ``STFT`` with
+its real power spectrogram, ``ISTFT``, the mel filter matrix,
+``Filterbank`` with dB compression and the per-sequence ``top_db`` clamp,
+``spectral_magnitude``, ``InputNormalization`` and ``GlobalNorm``.
 Constants are
 built in numpy, exactly as the JAX package builds them, and moved to the
 device once.
@@ -68,7 +68,8 @@ def frame_signal(x, frame_length, hop_length, center=True):
 
 class STFT:
     """Short-Term Fourier Transform; returns complex (batch, time, freq).
-    ``win_length`` and ``hop_length`` are in milliseconds.
+    ``win_length`` and ``hop_length`` are in milliseconds; a window shorter
+    than ``n_fft`` sits centred in the frame, as ``torch.stft`` puts it.
 
     Example
     -------
@@ -84,20 +85,11 @@ class STFT:
         self.win_length = _ms_to_samples(sample_rate, win_length)
         self.hop_length = _ms_to_samples(sample_rate, hop_length)
         self.n_fft = n_fft
+        self.window_fn = window_fn
         self.normalized_stft = normalized_stft
         self.center = center
-        window = (
-            _WINDOWS[window_fn](self.win_length)
-            if isinstance(window_fn, str)
-            else np.asarray(window_fn(self.win_length), dtype=np.float32)
-        )
-        if self.win_length < n_fft:
-            # center the window inside the fft size (torch.stft behaviour)
-            left = (n_fft - self.win_length) // 2
-            padded = np.zeros(n_fft, dtype=np.float32)
-            padded[left: left + self.win_length] = window
-            window = padded
-        self.window = torch.from_numpy(window).to(device)
+        self.window = torch.from_numpy(
+            _frame_window(window_fn, self.win_length, n_fft)).to(device)
 
     def _windowed_frames(self, x):
         frames = frame_signal(x, self.n_fft, self.hop_length, self.center)
@@ -117,6 +109,20 @@ class STFT:
             ps = ps / self.n_fft
         return ps
 
+    def inverse(self):
+        """The ``ISTFT`` that inverts this transform: the same rate, frame,
+        window (placed as here), hop, normalisation and centring, on the
+        window's device. The constructor takes milliseconds where this
+        object holds samples; the JAX package's ``inverse`` passes on
+        only the rate, ``n_fft`` and the lengths."""
+        sr = self.sample_rate
+        return ISTFT(sr, n_fft=self.n_fft,
+                     win_length=self.win_length * 1000.0 / sr,
+                     hop_length=self.hop_length * 1000.0 / sr,
+                     window_fn=self.window_fn,
+                     normalized_stft=self.normalized_stft,
+                     center=self.center, device=self.window.device)
+
     def get_filter_properties(self):
         """The window (``win_length`` samples) and stride (``hop_length``)
         of a centred STFT, for ``StreamingFeatureWrapper``."""
@@ -128,6 +134,84 @@ class STFT:
             raise ValueError("Filter properties assume a centered STFT")
         return FilterProperties(window_size=self.win_length,
                                 stride=self.hop_length)
+
+
+def _frame_window(window_fn, win_length, n_fft):
+    """The analysis window of ``win_length`` samples (a name in
+    ``_WINDOWS`` or a function of the length) as an ``n_fft`` frame, the
+    window centred in it where it is shorter, numpy float32."""
+    window = (
+        _WINDOWS[window_fn](win_length)
+        if isinstance(window_fn, str)
+        else np.asarray(window_fn(win_length), dtype=np.float32)
+    )
+    if win_length < n_fft:
+        # center the window inside the fft size (torch.stft behaviour)
+        left = (n_fft - win_length) // 2
+        padded = np.zeros(n_fft, dtype=np.float32)
+        padded[left: left + win_length] = window
+        window = padded
+    return window
+
+
+class ISTFT:
+    """Inverse STFT: the inverse rFFT of each frame times the window,
+    overlap-added (``overlap_and_add``, one ``F.fold``) and divided by
+    the overlap-added squared window clamped at ``epsilon``; with
+    ``center`` the first ``n_fft // 2`` samples are dropped, and the
+    result is cut to ``sig_length`` where given. Complex (batch, time,
+    freq) -> (batch, samples); (batch, time, freq, channel) -> (batch,
+    samples, channel).
+
+    The window sits in the frame where ``STFT`` puts it, centred where
+    ``win_length < n_fft``, so that ``ISTFT(STFT(x))`` gives back ``x``
+    at any window length. (The JAX package's ``ISTFT`` multiplies the
+    first ``win_length`` samples of each frame, which inverts its STFT
+    only where the window fills the frame; there the two agree.)
+
+    Example
+    -------
+    >>> stft = STFT(8000, win_length=32, hop_length=16, n_fft=512,
+    ...             device="cpu")
+    >>> x = torch.randn(2, 4000, generator=torch.Generator().manual_seed(0))
+    >>> y = stft.inverse()(stft(x), sig_length=4000)
+    >>> bool(((y - x).norm() / x.norm()) < 1e-5)
+    True
+    """
+
+    def __init__(self, sample_rate, n_fft=400, win_length=25, hop_length=10,
+                 window_fn="hamming", normalized_stft=False, center=True,
+                 epsilon=1e-12, device="cuda"):
+        self.sample_rate = sample_rate
+        self.win_length = _ms_to_samples(sample_rate, win_length)
+        self.hop_length = _ms_to_samples(sample_rate, hop_length)
+        self.n_fft = n_fft
+        self.center = center
+        self.epsilon = epsilon
+        self.normalized_stft = normalized_stft
+        self.window = torch.from_numpy(
+            _frame_window(window_fn, self.win_length, n_fft)).to(device)
+
+    def __call__(self, stft, sig_length=None):
+        from speechbrain_tpu_torch.processing.signal_processing import (
+            overlap_and_add,
+        )
+
+        multi_channel = stft.ndim == 4
+        if multi_channel:
+            stft = stft.movedim(-1, 1)
+        if self.normalized_stft:
+            stft = stft * math.sqrt(self.n_fft)
+        frames = torch.fft.irfft(stft, n=self.n_fft, dim=-1) * self.window
+        sig = overlap_and_add(frames, self.hop_length)
+        env = overlap_and_add(
+            (self.window ** 2).expand(frames.shape[-2], -1), self.hop_length)
+        sig = sig / torch.clamp(env, min=self.epsilon)
+        if self.center:
+            sig = sig[..., self.n_fft // 2:]
+        if sig_length is not None:
+            sig = sig[..., :sig_length]
+        return sig.movedim(1, -1) if multi_channel else sig
 
 
 def spectral_magnitude(stft, power=1, log=False, eps=1e-14):

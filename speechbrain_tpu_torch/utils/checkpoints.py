@@ -184,6 +184,23 @@ def _plain(obj):
     return obj
 
 
+def meta_rank(value, higher_is_better):
+    """A sort key, best highest, of a checkpoint's meta value: a NaN (a
+    stage with no finite loss) ranks below every number, so that no
+    ``min_key``/``max_key`` choice keeps or recovers it while a checkpoint
+    with a number exists (Python's sort of a bare NaN key is undefined).
+
+    Example
+    -------
+    >>> sorted([2.0, float("nan"), 1.0],
+    ...        key=lambda v: meta_rank(v, False), reverse=True)
+    [1.0, 2.0, nan]
+    """
+    if value != value:
+        return (False, 0.0)
+    return (True, value if higher_is_better else -value)
+
+
 class Checkpointer:
     """Saves and recovers registered "recoverables" in checkpoint
     directories.
@@ -272,11 +289,12 @@ class Checkpointer:
         for key in keys:
             ranked = sorted(potential, key=key, reverse=True)
             protected.update(c.path for c in ranked[:num_to_keep])
-        for mk, best_first in ([(k, True) for k in max_keys or []]
-                               + [(k, False) for k in min_keys or []]):
+        for mk, higher_is_better in ([(k, True) for k in max_keys or []]
+                                     + [(k, False) for k in min_keys or []]):
             ranked = sorted(
                 [c for c in potential if mk in c.meta],
-                key=lambda c: c.meta[mk], reverse=best_first,
+                key=lambda c: meta_rank(c.meta[mk], higher_is_better),
+                reverse=True,
             )
             protected.update(c.path for c in ranked[:num_to_keep])
         for ckpt in potential:
@@ -308,10 +326,12 @@ class Checkpointer:
             ckpts = [c for c in ckpts if ckpt_predicate(c)]
         if max_key is not None:
             ckpts = [c for c in ckpts if max_key in c.meta]
-            importance_key = lambda c: c.meta[max_key]  # noqa: E731
+            importance_key = lambda c: meta_rank(  # noqa: E731
+                c.meta[max_key], True)
         elif min_key is not None:
             ckpts = [c for c in ckpts if min_key in c.meta]
-            importance_key = lambda c: -c.meta[min_key]  # noqa: E731
+            importance_key = lambda c: meta_rank(  # noqa: E731
+                c.meta[min_key], False)
         elif importance_key is None:
             importance_key = ckpt_recency
         ckpts = sorted(ckpts, key=importance_key, reverse=True)

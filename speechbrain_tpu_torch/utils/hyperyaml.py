@@ -374,8 +374,11 @@ def _set_path(tree, key, value):
     node[parts[-1]] = value
 
 
-def load_hyperpyyaml(yaml_stream, overrides=None, overrides_must_match=True):
+def load_hyperpyyaml(yaml_stream, overrides=None, overrides_must_match=True,
+                     base_dir=None):
     """Load HyperPyYAML: returns a dict of resolved, instantiated objects.
+    A relative ``!include:`` path is taken from ``base_dir``, else from
+    the stream's file's folder, else from the working directory.
 
     Example
     -------
@@ -396,7 +399,10 @@ def load_hyperpyyaml(yaml_stream, overrides=None, overrides_must_match=True):
         yaml_stream = StringIO(yaml_stream)
 
     name = getattr(yaml_stream, "name", None)
-    loader = _make_loader(base_dir=os.path.dirname(name) if name else None)
+    if base_dir is None and name:
+        base_dir = os.path.dirname(name)
+    loader = _make_loader(base_dir=None if base_dir is None
+                          else str(base_dir))
     tree = yaml.load(yaml_stream, Loader=loader)
     if tree is None:
         return {}

@@ -58,6 +58,11 @@ the way:
   PReLU slopes (``prelu1``, ``prelu``, ``prelu2``, ``prelu_out``), the
   segment norms' ``scale``/``bias`` and gLN's ``gamma``/``beta`` go over
   as they are;
+* the enhancement models (``MaskingSE``'s ``WaveFCNMapper``,
+  ``BLSTMMasker``, ``FCN2DMasker`` and ``FCN2DBLSTMMasker``,
+  ``CNNTransformerSE``, ``EnhanceResnet``), whose submodules carry the
+  flax scopes' names; ``InstanceNorm1d``'s ``scale``/``bias`` sit in its
+  own scope;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -85,6 +90,8 @@ from speechbrain_tpu_torch.lobes.models import Cnn14 as cnn14
 from speechbrain_tpu_torch.lobes.models import conv_tasnet
 from speechbrain_tpu_torch.lobes.models import dual_path
 from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN as ecapa
+from speechbrain_tpu_torch.lobes.models import MaskingSE as masking_se
+from speechbrain_tpu_torch.lobes.models.EnhanceResnet import EnhanceResnet
 from speechbrain_tpu_torch.lobes.models import PIQ as piq
 from speechbrain_tpu_torch.lobes.models import focalnet
 from speechbrain_tpu_torch.lobes.models import ResNet as resnet
@@ -112,6 +119,9 @@ from speechbrain_tpu_torch.lobes.models.transformer.TransformerASR import (
 from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
     TransformerLM,
 )
+from speechbrain_tpu_torch.lobes.models.transformer.TransformerSE import (
+    CNNTransformerSE,
+)
 from speechbrain_tpu_torch.lobes.models.vit import ViTEncoder
 from speechbrain_tpu_torch.nnet.attention import (
     ContentBasedAttention,
@@ -137,6 +147,7 @@ from speechbrain_tpu_torch.nnet.normalization import (
     BatchNorm2d,
     ExponentialMovingAverage,
     GroupNorm,
+    InstanceNorm1d,
     LayerNorm,
 )
 from speechbrain_tpu_torch.nnet.pooling import (
@@ -632,6 +643,14 @@ _LOADERS = {
     conv_tasnet.Decoder: load_named_children,
     conv_tasnet.ConvTasNetWrapper: load_named_children,
     conv_tasnet.BinauralConvTasNetWrapper: load_named_children,
+    InstanceNorm1d: lambda module, scope: _load_scale_bias(module, scope,
+                                                           None),
+    masking_se.WaveFCNMapper: load_named_children,
+    masking_se.BLSTMMasker: load_named_children,
+    masking_se.FCN2DMasker: load_named_children,
+    masking_se.FCN2DBLSTMMasker: load_named_children,
+    CNNTransformerSE: load_named_children,
+    EnhanceResnet: load_named_children,
 }
 
 

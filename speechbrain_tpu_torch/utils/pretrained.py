@@ -1,7 +1,8 @@
 """Exporting a trained model as a ``Pretrained.from_hparams`` source (port
 of ``speechbrain_tpu/utils/pretrained.py`` ``save_for_pretrained``; and
-``export_classifier`` and ``export_separator``, the classification and
-separation twins' exports from their own training YAML)."""
+``export_classifier``, ``export_separator`` and ``export_enhancer``, the
+classification, separation and enhancement twins' exports from their own
+training YAML)."""
 
 import re
 import shutil
@@ -159,4 +160,65 @@ def export_separator(hparams, yaml_text, overrides=None, folder=None,
     (folder / "hyperparams.yaml").write_text(
         separator_hparams_text(yaml_text, overrides, three_modules),
         encoding="utf-8")
+    return folder
+
+
+# the inverse transform of an enhancement YAML's ``compute_stft``, which
+# the training YAMLs do not name and ``SpectralMaskEnhancement`` needs
+ENHANCER_ISTFT = [
+    "compute_istft: !new:speechbrain_tpu_torch.processing.features.ISTFT",
+    "  sample_rate: !ref <sample_rate>",
+    "  n_fft: !ref <n_fft>",
+    "  win_length: !ref <win_length>",
+    "  hop_length: !ref <hop_length>",
+    "  device: !ref <device>",
+]
+
+
+def enhancer_hparams_text(yaml_text, overrides=None):
+    """An enhancement twin's YAML as the ``hyperparams.yaml`` of its
+    export: the blocks of ``TRAINING_KEYS`` and ``modules`` taken out,
+    ``compute_istft`` added where the YAML has a ``compute_stft`` and no
+    inverse, ``modules`` naming the YAML's ``modules.model`` as
+    ``enhance_model``, and a ``pretrainer`` that loads it from
+    ``enhance_model.ckpt``."""
+    model = re.search(r"^modules:\s*\n\s+model:\s*(.+?)\s*$", yaml_text,
+                      re.M)
+    if model is None:
+        raise ValueError("the YAML names no modules.model")
+    kept = _serving_lines(yaml_text, overrides, TRAINING_KEYS + ("modules",))
+    keys = {m.group(1) for line in kept
+            if (m := re.match(r"^(\w+)\s*:", line))}
+    if "compute_stft" in keys and "compute_istft" not in keys:
+        kept += [""] + ENHANCER_ISTFT
+    kept += ["", "modules:", f"  enhance_model: {model.group(1)}"]
+    kept += _pretrainer_lines(["enhance_model"])
+    return "\n".join(kept) + "\n"
+
+
+def export_enhancer(hparams, yaml_text, overrides=None, folder=None,
+                    yaml_dir=None, min_key="loss"):
+    """The best checkpoint (lowest valid ``min_key``) of an enhancement
+    run as a ``SpectralMaskEnhancement``/``WaveformEnhancement`` source in
+    ``folder``: the model's state as ``enhance_model.ckpt``,
+    :func:`enhancer_hparams_text` of the run's YAML as
+    ``hyperparams.yaml``, and each file the YAML ``!include:``s, copied
+    from ``yaml_dir`` to the same relative path. Returns the folder."""
+    import torch
+
+    ckpt = hparams["checkpointer"].find_checkpoint(min_key=min_key)
+    if ckpt is None:
+        raise RuntimeError("no checkpoint found to export")
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    state = torch.load(ckpt.paramfiles["modules"], map_location="cpu",
+                       weights_only=True)
+    torch.save({k[len("model."):]: v for k, v in state.items()
+                if k.startswith("model.")}, folder / "enhance_model.ckpt")
+    for include in re.findall(r"!include:(\S+)", yaml_text):
+        dst = folder / include
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(Path(yaml_dir) / include, dst)
+    (folder / "hyperparams.yaml").write_text(
+        enhancer_hparams_text(yaml_text, overrides), encoding="utf-8")
     return folder

@@ -579,3 +579,84 @@ def test_sepformer_separation_serves_on_the_card_as_on_the_cpu(card):
     assert out.shape == (2, 8000, 2) and out.device.type == "cuda"
     err = float((out.cpu() - ref).norm() / ref.norm())
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+def test_istft_inverts_stft_on_the_card(card, sr):
+    """``ISTFT(STFT(x))`` on the card at ``n_fft`` 512 with 32 ms windows:
+    at 8 kHz the 256-sample window sits in the middle of the frame (C48's
+    case), at 16 kHz it fills it; 1e-5 relative L2 both, and the card
+    within 1e-5 of the CPU."""
+    from speechbrain_tpu_torch.processing.features import STFT
+
+    x = torch.from_numpy(np.random.default_rng(sr).standard_normal(
+        (3, 2 * sr)).astype(np.float32))
+    outs = {}
+    for device in ("cpu", card):
+        stft = STFT(sr, win_length=32, hop_length=16, n_fft=512,
+                    device=device)
+        outs[str(device)] = stft.inverse()(stft(x.to(device)),
+                                           sig_length=x.shape[1]).cpu()
+    err = float((outs["cuda"] - x).norm() / x.norm())
+    assert err <= 1e-5, err
+    assert float((outs["cuda"] - outs["cpu"]).norm() / x.norm()) <= 1e-5
+
+
+def test_spectral_mask_step_on_the_card_as_on_the_cpu(card, tmp_path):
+    """One float32 training step of the VoiceBank spectral-mask twin's
+    ``EnhanceBrain`` over a small causal ``CNNTransformerSE`` (no kernel of
+    the port on its path), on the card and on the CPU from the same
+    weights and batch: the loss within 1e-5 relative, the weights after
+    Adam's step within 1e-5 relative L2 (TF32 off)."""
+    import copy
+
+    from speechbrain_tpu_torch.dataio.batch import PaddedBatch
+    from speechbrain_tpu_torch.lobes.models.transformer.TransformerSE import (
+        CNNTransformerSE,
+    )
+    from speechbrain_tpu_torch.processing.features import STFT
+    from speechbrain_tpu_torch.recipes.VoiceBank.enhance.spectral_mask.train import (  # noqa: E501
+        EnhanceBrain,
+    )
+
+    torch.manual_seed(0)
+    model = CNNTransformerSE(d_model=64, num_layers=2, nhead=4, d_ffn=128,
+                             output_size=257, output_activation="sigmoid",
+                             device="cpu")
+    rng = np.random.default_rng(1)
+    clean = 0.3 * rng.standard_normal((2, 16000)).astype(np.float32)
+    noisy = clean + 0.1 * rng.standard_normal((2, 16000)).astype(np.float32)
+    batch = PaddedBatch([{"noisy_sig": torch.from_numpy(n),
+                          "clean_sig": torch.from_numpy(c)}
+                         for n, c in zip(noisy, clean)])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    try:
+        for device in ("cpu", "cuda"):
+            stft = STFT(16000, win_length=32, hop_length=16, n_fft=512,
+                        device=device)
+            brain = EnhanceBrain(
+                modules={"model": copy.deepcopy(model)},
+                opt_class=lambda p: torch.optim.Adam(p, lr=5e-4),
+                hparams={"compute_stft": stft},
+                run_opts={"device": device, "noprogressbar": True})
+            brain.on_fit_start()
+            brain.modules.train()
+            brain.fit_batch(batch)
+            loss = brain._flush_pending_loss()
+            weights = torch.cat([p.detach().cpu().flatten()
+                                 for p in brain.modules.parameters()])
+            results[device] = (loss, weights)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (cpu_loss, cpu_w), (card_loss, card_w) = results["cpu"], \
+        results["cuda"]
+    assert np.isfinite(card_loss) and card_loss == pytest.approx(cpu_loss,
+                                                                 rel=1e-5)
+    assert float((card_w - cpu_w).norm() / cpu_w.norm()) <= 1e-5
+    assert float((card_w - torch.cat([p.detach().flatten() for p in
+                                      model.parameters()])).norm()) > 0

@@ -292,3 +292,58 @@ def test_separation_entry_points_default_to_cuda_and_raise_without_it(name):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises((RuntimeError, AssertionError)):
         _separation_entry_points()[name]()
+
+
+def _enhancement_entry_points():
+    from speechbrain_tpu_torch.inference.enhancement import (
+        SpectralMaskEnhancement,
+        WaveformEnhancement,
+    )
+    from speechbrain_tpu_torch.lobes.models import MaskingSE
+    from speechbrain_tpu_torch.lobes.models.EnhanceResnet import (
+        EnhanceResnet,
+    )
+    from speechbrain_tpu_torch.lobes.models.transformer.TransformerSE import (
+        CNNTransformerSE,
+    )
+    from speechbrain_tpu_torch.nnet.normalization import InstanceNorm1d
+    from speechbrain_tpu_torch.processing.features import ISTFT, STFT
+    from speechbrain_tpu_torch.processing.signal_processing import (
+        notch_filter,
+    )
+
+    lin = torch.nn.Linear(2, 2)
+    return {
+        "InstanceNorm1d": lambda: InstanceNorm1d(4, affine=True),
+        "STFT": lambda: STFT(16000),
+        "ISTFT": lambda: ISTFT(16000),
+        "notch_filter": lambda: notch_filter(0.25),
+        "WaveFCNMapper": lambda: MaskingSE.WaveFCNMapper(4, 1, 5),
+        "BLSTMMasker": lambda: MaskingSE.BLSTMMasker(9, 4, 1, 4),
+        "FCN2DMasker": lambda: MaskingSE.FCN2DMasker(9, 2, 1, (3, 3)),
+        "FCN2DBLSTMMasker": lambda: MaskingSE.FCN2DBLSTMMasker(
+            9, 2, 1, (3, 3), 4, 1, 4),
+        "CNNTransformerSE": lambda: CNNTransformerSE(
+            d_model=8, num_layers=1, nhead=2, d_ffn=8, output_size=9),
+        "EnhanceResnet": lambda: EnhanceResnet(9, channels=(2,),
+                                               blocks_per_stage=1),
+        "SpectralMaskEnhancement": lambda: SpectralMaskEnhancement(
+            modules={"enhance_model": lin},
+            hparams={"compute_stft": None, "compute_istft": None}),
+        "WaveformEnhancement": lambda: WaveformEnhancement(
+            modules={"enhance_model": lin}),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "InstanceNorm1d", "STFT", "ISTFT", "notch_filter", "WaveFCNMapper",
+    "BLSTMMasker", "FCN2DMasker", "FCN2DBLSTMMasker", "CNNTransformerSE",
+    "EnhanceResnet", "SpectralMaskEnhancement", "WaveformEnhancement"])
+def test_enhancement_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The enhancement modules, the STFT pair, the notch filter and both
+    enhancement interfaces are built on the card unless asked otherwise,
+    and raise where there is none."""
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _enhancement_entry_points()[name]()

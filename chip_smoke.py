@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives sixteen paths at full width with random weights
+(``grad_guard``), and drives seventeen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -166,6 +166,24 @@ LibriSpeech recipe:
   batch of each other enhancement twin YAML (WHAM!/WHAMR!, DNS,
   dereverberation, the template, the spectral-mask twin's other maskers)
   at full width.
+- ``gan_path``: GAN training and the GAN recipes: B3 against its plain
+  version at 40 mels on (4, 65536) and (4, 64000); the VoiceBank
+  MetricGAN+ twin (a 2-layer BLSTM of 200, DNN 300, n_fft 512) three
+  alternating float32 D/G steps, each group with its own Adam, on batches
+  of 4 utterances of 4 s with the host STOI target, a checkpoint, the
+  generator restored from it and served through
+  ``SpectralMaskEnhancement.enhance_batch`` on 4 utterances of 4 s (bit
+  for bit the same arithmetic on the trained module), the two-step
+  semantics checked (a G step leaves the discriminator's parameters,
+  optimizer state and BatchNorm buffers bit for bit, a D step the
+  generator's); SEGAN (channels 16 ... 128, kernel 32) two steps on
+  batches of 8 segments of 16384 samples; the MTL chain: the perceptual
+  CRDNN pre-trained with ``fused_fbank`` at 40 mels on every train and
+  valid batch, the robust ASR stage with the unfused Fbank, and the
+  fused Fbank refused under its gradient; one step of every other GAN
+  twin (MetricGAN-U with SRMR and with SRMR standing in for DNSMOS,
+  dereverberation, the band-correlation MetricGAN, the mimic stage,
+  RescueSpeech's noise-robust Conformer CTC).
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -6988,6 +7006,451 @@ def run_enhancement_path(out_dir, device="cuda"):
     return launches
 
 
+# -- gan_path: GAN training and the GAN twins ---------------------------------
+
+# the VoiceBank MetricGAN+ twin (a 2-layer BLSTM of 200, DNN 300, n_fft
+# 512; a discriminator of four 15-channel 5 x 5 convolutions): alternating
+# D/G steps with the host STOI target, a checkpoint, the generator served
+GAN_MAIN = ("recipes/VoiceBank/enhance/MetricGAN", "train.yaml")
+# SEGAN at the YAML's width: channels 16 ... 128, kernel 32, batch 8 of
+# 16384 samples
+GAN_SEGAN = ("recipes/VoiceBank/enhance/SEGAN", "train.yaml")
+# the MTL chain: the perceptual CRDNN pre-trained on clean speech with B3
+# on every batch, then the robust ASR stage with the unfused Fbank
+GAN_MTL = "recipes/VoiceBank/MTL/ASR_enhance"
+# every other GAN twin YAML, one step each at its full width (the DNSMOS
+# YAML with the port's SRMR as the local stand-in its comment names)
+GAN_TWINS = (
+    ("recipes/VoiceBank/enhance/MetricGAN-U", "train.yaml", {}),
+    ("recipes/VoiceBank/enhance/MetricGAN-U", "train_dnsmos.yaml",
+     {"dnsmos_fn": "!name:speechbrain_tpu_torch.processing.srmr.srmr_batch"}),
+    ("recipes/VoiceBank/dereverb/MetricGAN-U", "train_dereverb.yaml", {}),
+    ("recipes/VoiceBank/enhancement", "train.yaml", {}),
+    ("recipes/VoiceBank/MTL/ASR_enhance", "enhance_mimic.yaml", {}),
+    ("recipes/RescueSpeech/ASR/noise-robust", "train.yaml", {}),
+)
+# D/G steps (batches of the YAML's 4) of MetricGAN+, of SEGAN (batches of
+# 8), of each MTL stage; utterances of 4 s at 16 kHz (SEGAN's 1.1 s hold a
+# segment of 16384 samples); one valid batch for the MTL stages
+GAN_STEPS = 3
+GAN_SEGAN_STEPS = 2
+GAN_MTL_STEPS = 2
+GAN_SECONDS = 4.0
+GAN_SEGAN_SECONDS = 1.1
+# served: 4 noisy utterances of 4 s, float32
+GAN_SERVE = dict(batch=4, seconds=4.0, repeats=5)
+# B3 at the MTL pre-training's 40 mels: the 4 s batch as the loader pads
+# it (to a multiple of 2048 samples) and unpadded
+GAN_B3_SHAPES = ((4, 65536, 40), (4, 64000, 40))
+GAN_REDUCED = {
+    "weights": "random, from each YAML's seed",
+    "epochs": "400-600 (GAN), 20-30 (MTL, RescueSpeech) -> 3 D/G steps "
+              "(MetricGAN+), 2 (SEGAN, each MTL stage), 1 (every other "
+              "twin), one valid batch for the Brain.fit twins",
+    "corpus": "synthetic vibrato tones in white noise at 16 kHz, 4 s "
+              "(SEGAN: 1.1 s, one 16384-sample segment each), transcripts "
+              "of two words for the ASR twins",
+}
+# width overrides given to every GAN YAML that names the key: none on the
+# card (full width); the CPU test shrinks widths with them
+GAN_WIDTHS = {}
+GAN_WORDS = ("clean", "speech", "now", "rescue", "help", "over")
+
+
+def write_gan_corpus(folder, n_train, n_valid, seconds, seed=0):
+    """:func:`write_enhancement_corpus`'s pairs, each manifest item with a
+    transcript of two words (``words``) for the ASR twins."""
+    paths = write_enhancement_corpus(folder, n_train, n_valid, seconds,
+                                     ENHANCE_SR, seed=seed)
+    for path in paths.values():
+        with open(path) as f:
+            items = json.load(f)
+        for i, item in enumerate(items.values()):
+            item["words"] = " ".join(GAN_WORDS[(i + j) % len(GAN_WORDS)]
+                                     for j in range(2))
+        with open(path, "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def gan_yaml(folder, yaml, data, out, device, overrides=None):
+    """A GAN or MTL twin's YAML with ``GAN_WIDTHS`` (the top-level keys it
+    names), one epoch, its data and output folders, ``device`` and
+    ``overrides``: the hparams."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    yaml_dir = os.path.join(PORT_ROOT, folder, "hparams")
+    with open(os.path.join(yaml_dir, yaml), encoding="utf-8") as f:
+        text = f.read()
+    names = {line.split(":")[0] for line in text.splitlines() if ":" in line}
+    over = {k: v for k, v in GAN_WIDTHS.items() if k in names}
+    over.update(
+        data_folder=data, output_folder=out, number_of_epochs=1,
+        device=device, train_annotation=os.path.join(data, "train.json"),
+        valid_annotation=os.path.join(data, "valid.json"), **(overrides or {}))
+    return load_hyperpyyaml(text, over, base_dir=yaml_dir)
+
+
+class TimedGanSteps:
+    """Readings for a GAN twin's Brain (put before the Brain in the
+    bases): each D and G step's time by CUDA events, and the host time of
+    each call of the twin module's ``stoi_loss`` and ``srmr_batch``."""
+
+    def make_gan_steps(self, *args):
+        self.step_events = {"d": [], "g": []}
+        d_step, g_step = super().make_gan_steps(*args)
+        return self._timed(d_step, "d"), self._timed(g_step, "g")
+
+    def _timed(self, step, key):
+        def timed(batch, generator=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(batch, generator)
+            end.record()
+            self.step_events[key].append((start, end))
+            return loss
+        return timed
+
+    def step_ms(self, key):
+        return [s.elapsed_time(e) for s, e in self.step_events[key]]
+
+
+@contextlib.contextmanager
+def host_timed(module, name, readings):
+    """``module.<name>`` wrapped to append each call's host seconds (its
+    result read on the host) to ``readings``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        readings.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _gan_run_opts(device, steps):
+    return {"device": device, "noprogressbar": True, "debug": True,
+            "debug_batches": steps, "debug_epochs": 1}
+
+
+def _gan_train(folder, yaml, out_dir, n_train, n_valid, seconds, steps,
+               device, overrides=None, brain_cls=None):
+    """``steps`` batches of a GAN or MTL twin's ``run`` from its YAML on a
+    :func:`write_gan_corpus` corpus: ``(brain, hparams, counts, seconds,
+    peak)``, the launch counts set to 0 just before the run and read just
+    after it."""
+    name = "_".join(folder.split("/")[-2:] + [yaml[:-5]])
+    work = os.path.join(out_dir, name)
+    data = os.path.join(work, "data")
+    write_gan_corpus(data, n_train, n_valid, seconds)
+    hparams = gan_yaml(folder, yaml, data, os.path.join(work, "out"), device,
+                       overrides)
+    run_fn = _enhancement_module(folder).run
+    brain_cls = brain_cls or _default_brain(run_fn)
+    brain, counts, secs, peak = _timed_run(
+        lambda: run_fn(hparams, _gan_run_opts(device, steps),
+                       brain_cls=brain_cls), device)
+    return brain, hparams, counts, secs, peak
+
+
+def _group_state(brain, key):
+    """Copies of a group's parameters, buffers and optimizer state."""
+    module = brain.modules[key]
+    opt = brain.optimizers_dict[key]
+    return ([t.detach().clone() for t in module.state_dict().values()]
+            + [v.clone() for s in opt.state.values() for v in s.values()
+               if torch.is_tensor(v)])
+
+
+def _unchanged(before, after):
+    return len(before) == len(after) and all(
+        torch.equal(a, b) for a, b in zip(before, after))
+
+
+def check_gan_step_semantics(brain, noisy, clean):
+    """After a G step the discriminator's parameters, optimizer state and
+    BatchNorm buffers are bit for bit what they were, and after a D step
+    the generator's; each step moves its own group."""
+    brain.modules.train()
+    noisy_mag, clean_mag = brain.spec_mag(noisy), brain.spec_mag(clean)
+    est_mag, _ = brain.enhanced(noisy, noisy_mag)
+    target = torch.full((len(noisy),), 0.5, device=noisy.device)
+    d0, g0 = _group_state(brain, "discriminator"), _group_state(brain,
+                                                                "generator")
+    brain.g_step((noisy_mag, clean_mag))
+    d1, g1 = _group_state(brain, "discriminator"), _group_state(brain,
+                                                                "generator")
+    brain.d_step((est_mag, clean_mag, target))
+    d2, g2 = _group_state(brain, "discriminator"), _group_state(brain,
+                                                                "generator")
+    out = {"g_step_leaves_discriminator": _unchanged(d0, d1),
+           "g_step_moves_generator": not _unchanged(g0, g1),
+           "d_step_leaves_generator": _unchanged(g1, g2),
+           "d_step_moves_discriminator": not _unchanged(d1, d2),
+           "discriminator_tensors": len(d0), "generator_tensors": len(g0)}
+    out["ok"] = all(v for k, v in out.items() if not k.endswith("tensors"))
+    return out
+
+
+def run_metricgan_main(out_dir, device="cuda"):
+    """MetricGAN+ at the YAML's width: ``GAN_STEPS`` alternating D/G
+    steps (fp32) with the host STOI target on batches of 4 utterances of
+    4 s, a checkpoint; the generator restored from it into a model built
+    anew from the YAML and served through
+    ``SpectralMaskEnhancement.enhance_batch`` on 4 utterances of 4 s
+    (median ms, audio seconds a second), bit for bit the same arithmetic
+    on the trained module; the step semantics checked on the card."""
+    module = _enhancement_module(GAN_MAIN[0])
+    brain_cls = type("TimedMetricGanBrain",
+                     (TimedGanSteps, module.MetricGanBrain), {})
+    stoi_s = []
+    with host_timed(module, "stoi_loss", stoi_s):
+        brain, hparams, counts, secs, peak = _gan_train(
+            *GAN_MAIN, out_dir, 4 * GAN_STEPS, 4, GAN_SECONDS, GAN_STEPS,
+            device, brain_cls=brain_cls)
+    d_ms, g_ms = brain.step_ms("d"), brain.step_ms("g")
+    generator = brain.modules.generator.eval()
+    ckpts = brain.checkpointer.list_checkpoints()
+    fresh = gan_yaml(*GAN_MAIN, hparams["data_folder"],
+                     hparams["output_folder"] + "_fresh", device)
+    served_model = fresh["modules"]["generator"]
+    saved = torch.load(ckpts[0].paramfiles["modules"], map_location=device,
+                       weights_only=True)
+    served_model.load_state_dict({k[len("generator."):]: v
+                                  for k, v in saved.items()
+                                  if k.startswith("generator.")})
+    restored = all(torch.equal(a, b) for a, b in zip(
+        served_model.state_dict().values(), generator.state_dict().values()))
+    stft, istft = hparams["compute_stft"], hparams["compute_istft"]
+    enhancer = SpectralMaskEnhancement(
+        modules={"enhance_model": served_model},
+        hparams={"compute_stft": stft, "compute_istft": istft},
+        run_opts={"device": device})
+    noisy, clean = enhancement_batch(device, GAN_SERVE)
+    reset_launch_counts()
+    with torch.no_grad():
+        served = enhancer.enhance_batch(noisy)
+        # the interface serves weights that require no grad, which moves
+        # a 3-D Linear onto another cuBLAS path (1.8e-7 apart on an H100,
+        # tools/served_generator_bitwise.py): the trained module is run so
+        # too
+        generator.requires_grad_(False)
+        composed = _spectral_enhance(generator, stft, istft, noisy)
+        generator.requires_grad_(True)
+    _sync(device)
+    serve_launches = launch_counts()
+    ms, all_ms, _ = _elapsed_ms(lambda: enhancer.enhance_batch(noisy),
+                                GAN_SERVE["repeats"], device)
+    semantics = check_gan_step_semantics(brain, noisy, clean)
+    line = {"yaml": "/".join(GAN_MAIN), "seconds": secs,
+            "peak_gb": peak / 1e9, "launches": counts,
+            "d_step_ms": d_ms, "g_step_ms": g_ms,
+            "stoi_ms": [1e3 * s for s in stoi_s],
+            "checkpoints": len(ckpts), "restored_bitwise": restored,
+            "parameters": {k: sum(p.numel() for p in m.parameters())
+                           for k, m in brain.modules.items()},
+            "serve": {"enhance_batch_ms": ms, "enhance_batch_ms_all": all_ms,
+                      "audio_s_per_s": noisy.numel() / ENHANCE_SR
+                      / (ms / 1e3),
+                      "out_shape": list(served.shape),
+                      "served_equals_trained": bool(torch.equal(served,
+                                                                composed)),
+                      "launches": serve_launches},
+            "step_semantics": semantics,
+            "feature_mismatch": "C49: trained on sqrt(|STFT|^2 + 1e-8), "
+                                "served on log1p(sqrt(|STFT|^2 + 1e-14))"}
+    with open(os.path.join(hparams["output_folder"], "train_log.txt")) as f:
+        line["train_log"] = f.read().strip().splitlines()
+    line["ok"] = bool(
+        len(line["d_step_ms"]) == len(line["g_step_ms"]) == GAN_STEPS
+        and len(stoi_s) == GAN_STEPS and len(ckpts) == 1 and restored
+        and line["serve"]["served_equals_trained"]
+        and tuple(served.shape) == tuple(noisy.shape)
+        and bool(torch.isfinite(served).all()) and semantics["ok"]
+        and all(v == 0 for v in counts.values())
+        and all(v == 0 for v in serve_launches.values()))
+    return line
+
+
+def run_segan(out_dir, device="cuda"):
+    """SEGAN at the YAML's width: ``GAN_SEGAN_STEPS`` D/G steps on
+    batches of 8 segments of 16384 samples."""
+    module = _enhancement_module(GAN_SEGAN[0])
+    brain_cls = type("TimedSeganBrain", (TimedGanSteps, module.SeganBrain),
+                     {})
+    brain, hparams, counts, secs, peak = _gan_train(
+        *GAN_SEGAN, out_dir, 8 * GAN_SEGAN_STEPS, 8, GAN_SEGAN_SECONDS,
+        GAN_SEGAN_STEPS, device,
+        brain_cls=brain_cls)
+    line = {"yaml": "/".join(GAN_SEGAN), "seconds": secs,
+            "peak_gb": peak / 1e9, "launches": counts,
+            "d_step_ms": brain.step_ms("d"), "g_step_ms": brain.step_ms("g"),
+            "parameters": {k: sum(p.numel() for p in m.parameters())
+                           for k, m in brain.modules.items()},
+            "parameters_finite": all(bool(torch.isfinite(p).all())
+                                     for p in brain.modules.parameters())}
+    line["ok"] = bool(len(line["d_step_ms"]) == GAN_SEGAN_STEPS
+                      and line["parameters_finite"]
+                      and all(v == 0 for v in counts.values()))
+    return line
+
+
+def _timed_mtl_brain(module):
+    return type("Timed" + module.__name__.split(".")[-2], (
+        TimedSteps, _default_brain(module.run)),
+        {"SIGNAL_KEY": "noisy_sig", "SIGNAL_RATE": ENHANCE_SR})
+
+
+def run_mtl_chain(out_dir, device="cuda"):
+    """The MTL chain: ``pretrain_perceptual.yaml`` (the fused Fbank, B3,
+    on every train and valid batch: its launches equal the batches run)
+    then ``robust_asr.yaml`` (the unfused Fbank: no launch), each
+    ``GAN_MTL_STEPS`` steps and one valid batch of 4 utterances of 4 s;
+    then the fused Fbank handed to ``robust_asr``'s training step, which
+    B3's wrapper refuses (the enhanced waveform requires grad)."""
+    module = _enhancement_module(GAN_MTL)
+    lines = {}
+    for yaml in ("pretrain_perceptual.yaml", "robust_asr.yaml"):
+        brain, hparams, counts, secs, peak = _gan_train(
+            GAN_MTL, yaml, out_dir, 4 * GAN_MTL_STEPS, 4, GAN_SECONDS,
+            GAN_MTL_STEPS, device, brain_cls=_timed_mtl_brain(module))
+        batches = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+        fused = hparams["compute_features"].fused
+        line = {"yaml": f"{GAN_MTL}/{yaml}", "seconds": secs,
+                "peak_gb": peak / 1e9, "launches": counts,
+                "fused_fbank": fused,
+                "forwards": {s.name: c for s, c in brain.forwards.items()},
+                "step_ms": brain.step_ms(), "losses": brain.losses,
+                "valid_losses": brain.valid_losses}
+        line["ok"] = bool(
+            brain.forwards[Stage.TRAIN] == GAN_MTL_STEPS
+            and brain.forwards[Stage.VALID] == min(
+                GAN_MTL_STEPS, -(-4 // hparams["batch_size"]))
+            and counts["fused_fbank"] == (batches if fused else 0)
+            and all(v == 0 for k, v in counts.items() if k != "fused_fbank")
+            and all(np.isfinite(brain.losses + brain.valid_losses)))
+        lines[yaml] = line
+    # robust_asr's step with the fused Fbank: the wrapper raises
+    hparams["compute_features"] = Fbank(n_mels=hparams["n_mels"], fused=True,
+                                        device=device)
+    brain.hparams.compute_features = hparams["compute_features"]
+    brain.modules.train()
+    loader = brain.make_dataloader(
+        module.dataio_prepare(hparams)["train"], Stage.TRAIN,
+        ckpt_prefix=None, batch_size=hparams["batch_size"],
+        pad_to_multiple=module.PAD_TO_MULTIPLE)
+    reset_launch_counts()
+    try:
+        brain.fit_batch(next(iter(loader)))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    refusal = {"raised": raised is not None
+               and "fused_fbank_reference" in raised,
+               "message": raised,
+               "b3_launches": launch_counts()["fused_fbank"]}
+    refusal["ok"] = bool(refusal["raised"] and refusal["b3_launches"] == 0)
+    lines["robust_asr_with_fused_fbank"] = refusal
+    return lines
+
+
+def run_gan_twin(folder, yaml, overrides, out_dir, device="cuda"):
+    """One step of a GAN or MTL twin at its YAML's width (and, for a
+    ``Brain.fit`` twin, one valid batch), on one YAML batch of 4 s
+    utterances; the twin's folder is removed after."""
+    with open(os.path.join(PORT_ROOT, folder, "hparams", yaml)) as f:
+        batch = int(re.search(r"^batch_size: (\d+)", f.read(), re.M)[1])
+    brain, hparams, counts, secs, peak = _gan_train(
+        folder, yaml, out_dir, batch, batch, GAN_SECONDS, 1, device,
+        overrides)
+    line = {"yaml": f"{folder}/{yaml}", "seconds": secs,
+            "peak_gb": peak / 1e9, "launches": counts,
+            "parameters": sum(p.numel() for p in brain.modules.parameters()),
+            "parameters_finite": all(bool(torch.isfinite(p).all())
+                                     for p in brain.modules.parameters())}
+    with open(os.path.join(hparams["output_folder"], "train_log.txt")) as f:
+        line["train_log"] = f.read().strip().splitlines()
+    line["ok"] = bool(line["parameters_finite"] and line["train_log"]
+                      and all(v == 0 for v in counts.values()))
+    work = os.path.dirname(hparams["data_folder"])
+    del brain, hparams
+    gc.collect()
+    shutil.rmtree(work, ignore_errors=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def run_gan_path(out_dir, device="cuda"):
+    """B3 against its plain version at the MTL pre-training's shapes;
+    MetricGAN+ trained, checkpointed and served
+    (:func:`run_metricgan_main`); SEGAN; the MTL chain
+    (:func:`run_mtl_chain`); every other GAN twin one step. Returns each
+    kernel's launches over the path and B3's errors."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    b3 = check_b3_at_shapes(GAN_B3_SHAPES, device)
+    emit({"phase": "gan_b3_check", "max_abs_err_db": b3, "atol": B3_ATOL,
+          "ok": max(b3.values()) <= B3_ATOL})
+    if max(b3.values()) > B3_ATOL:
+        raise AssertionError(f"gan_path: B3 against its plain version {b3}")
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    main = run_metricgan_main(out_dir, device)
+    emit({"phase": "gan_path/metricgan", **main})
+    add(main["launches"])
+    if not main["ok"]:
+        raise AssertionError("gan_path: MetricGAN+ failed")
+    segan = run_segan(out_dir, device)
+    emit({"phase": "gan_path/segan", **segan})
+    add(segan["launches"])
+    if not segan["ok"]:
+        raise AssertionError("gan_path: SEGAN failed")
+    mtl = run_mtl_chain(out_dir, device)
+    for label, line in mtl.items():
+        emit({"phase": f"gan_path/mtl/{label}", **line})
+        add(line.get("launches", {}))
+        if not line["ok"]:
+            raise AssertionError(f"gan_path: MTL {label} failed")
+    pretrain = mtl["pretrain_perceptual.yaml"]
+    b3_launches = {"pretrain_perceptual": pretrain["launches"]["fused_fbank"],
+                   "robust_asr": mtl["robust_asr.yaml"]["launches"][
+                       "fused_fbank"]}
+    readings = {"d_step_ms": main["d_step_ms"],
+                "g_step_ms": main["g_step_ms"], "stoi_ms": main["stoi_ms"],
+                "served_audio_s_per_s": main["serve"]["audio_s_per_s"],
+                "enhance_batch_ms": main["serve"]["enhance_batch_ms"],
+                "segan_d_step_ms": segan["d_step_ms"],
+                "segan_g_step_ms": segan["g_step_ms"],
+                "mtl_step_ms": {k: v["step_ms"] for k, v in mtl.items()
+                                if "step_ms" in v},
+                "b3_launches": b3_launches, "twins": {}}
+    for folder, yaml, overrides in GAN_TWINS:
+        line = run_gan_twin(folder, yaml, overrides, out_dir, device)
+        emit({"phase": f"gan_path/{line['yaml']}", **line})
+        add(line["launches"])
+        readings["twins"][line["yaml"]] = {"seconds": line["seconds"],
+                                           "peak_gb": line["peak_gb"]}
+        if not line["ok"]:
+            raise AssertionError(f"gan_path: {line['yaml']} failed")
+    emit({"phase": "gan_path_summary", "readings": readings,
+          "launches": launches, "reduced": GAN_REDUCED,
+          "seconds": time.perf_counter() - t0,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    return launches, b3_launches, b3
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -7183,6 +7646,13 @@ def main():
             kernel["launches_by_path"]["enhancement_path"] = \
                 enhancement_launches[kernel["name"]]
         torch.cuda.empty_cache()
+        gan_launches, gan_b3_launches, gan_b3_err = run_gan_path(
+            os.path.join(out_dir, "gan"))
+        for kernel in kernels:
+            kernel["launches_by_path"]["gan_path"] = \
+                gan_launches[kernel["name"]]
+        kernels[1]["launches_by_path"]["gan_path_by_stage"] = gan_b3_launches
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -7207,6 +7677,10 @@ def main():
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
                            "n_mels": n_mels,
                            "max_abs_err": speaker_b3_err[f"{B}x{T}@{n_mels}"]}
+    B, T, n_mels = GAN_B3_SHAPES[0]
+    kernels[1]["at_gan_pretrain_perceptual_shape"] = {
+        **measure_b3_at(B, T, n_mels=n_mels), "n_mels": n_mels,
+        "max_abs_err": gan_b3_err[f"{B}x{T}@{n_mels}"]}
     for (B, T, n_mels), key in zip(CLASSIFY_B3_SHAPES, (
             "at_esc50_shape", "at_urbansound8k_shape")):
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),

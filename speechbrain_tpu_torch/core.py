@@ -37,12 +37,20 @@ on the device as the JAX train step decides it:
   the best checkpoint (the JAX package reports 0.0);
 * ``precision="bf16"`` runs ``compute_forward`` under ``torch.autocast``
   with bfloat16, parameters in float32 (the JAX package instead casts
-  every float input, the waveform too, to bfloat16).
+  every float input, the waveform too, to bfloat16);
+* ``opt_class`` may be a dict ``{module name: factory}``: one optimizer a
+  group of modules, each registered with the checkpointer as
+  ``optimizer_<name>``; ``make_gan_steps`` returns the alternating
+  discriminator and generator updates of a GAN, each stepping its own
+  group's optimizer alone (the JAX package runs one optimizer over both
+  groups and feeds the other group zero gradients, which Adam's momentum
+  and shared step count turn into updates: ROADMAP C50).
 
-Not ported: meshes and several hosts, GAN steps.
+Not ported: meshes and several hosts.
 """
 
 import argparse
+import collections
 import inspect
 import logging
 import math
@@ -272,9 +280,12 @@ class Brain:
     modules : dict[str, nn.Module]
         The model's parts, moved into ``self.modules``, an
         ``nn.ModuleDict`` on ``run_opts["device"]``.
-    opt_class : callable, optional
+    opt_class : callable or dict, optional
         ``params -> torch.optim.Optimizer``, called with
-        ``self.modules.parameters()`` at the start of ``fit``.
+        ``self.modules.parameters()`` at the start of ``fit``; or a dict
+        ``{module name: factory}``, one optimizer a module's parameters
+        (``self.optimizers_dict``), which ``fit`` steps together and
+        ``make_gan_steps`` one at a time.
     hparams : dict, optional
         Exposed as ``self.hparams.<key>``; a key named like a run option
         sets it where ``run_opts`` does not.
@@ -305,6 +316,7 @@ class Brain:
         self.hparams = SimpleNamespace(**(hparams or {}))
         self.checkpointer = checkpointer
         self.optimizer = None
+        self.optimizers_dict = None
         self.step = 0  # batch within the current stage
         self.optimizer_step = 0  # windows the host has counted
         self._micro_step = 0  # micro-batches seen
@@ -363,19 +375,85 @@ class Brain:
 
     def init_optimizers(self):
         """Build the optimizer from ``opt_class`` (once) and register it
-        with the checkpointer. On a CUDA device, an optimizer with a
-        ``capturable`` option (Adam, AdamW) gets it, so that its step
-        count lives on the device, where the update is kept or undone
-        without a host read."""
+        with the checkpointer, as ``optimizer``, or with a dict
+        ``opt_class`` one optimizer a group as ``optimizer_<name>``. On a
+        CUDA device, an optimizer with a ``capturable`` option (Adam,
+        AdamW) gets it, so that its step count lives on the device, where
+        the update is kept or undone without a host read."""
         if self.opt_class is None or self.optimizer is not None:
             return
-        self.optimizer = self.opt_class(self.modules.parameters())
+        if isinstance(self.opt_class, dict):
+            trained = {name for name, module in self.modules.items()
+                       if any(p.requires_grad for p in module.parameters())}
+            missing = sorted(trained - set(self.opt_class))
+            if missing:
+                raise ValueError(f"opt_class names no optimizer for the "
+                                 f"modules {missing}")
+            self.optimizers_dict = {
+                name: self._new_optimizer(factory,
+                                          self.modules[name].parameters(),
+                                          f"optimizer_{name}")
+                for name, factory in self.opt_class.items()}
+            self.optimizer = _GroupOptimizers(self.optimizers_dict)
+        else:
+            self.optimizer = self._new_optimizer(
+                self.opt_class, self.modules.parameters(), "optimizer")
+
+    def _new_optimizer(self, factory, params, name):
+        optimizer = factory(params)
         if self.device.type == "cuda":
-            for group in self.optimizer.param_groups:
+            for group in optimizer.param_groups:
                 if "capturable" in group:
                     group["capturable"] = True
         if self.checkpointer is not None:
-            self.checkpointer.add_recoverable("optimizer", self.optimizer)
+            self.checkpointer.add_recoverable(name, optimizer)
+        return optimizer
+
+    def make_gan_steps(self, d_loss_fn, g_loss_fn, d_key, g_key):
+        """The two alternating updates of GAN training (upstream
+        SpeechBrain's ``d_optimizer``/``g_optimizer`` pattern):
+        ``d_step(batch, generator=None)`` and ``g_step(...)``, each
+        returning its loss (detached, on the device).
+
+        ``d_loss_fn``/``g_loss_fn`` take ``(batch, generator)``, the
+        ``torch.Generator`` of the step's random draws (or None), and
+        return a scalar loss. Each step differentiates its loss with
+        respect to its own module group (``d_key`` or ``g_key``) alone and
+        steps that group's optimizer alone, with its own state and step
+        count: the other group's parameters and optimizer state stay as
+        they were, bit for bit. A loss function that runs the other
+        group's BatchNorm in training mode leaves its running statistics
+        alone by calling it through :func:`forward_with_frozen_buffers`.
+
+        ``opt_class`` is a dict with a factory for each of the two
+        groups."""
+        self.init_optimizers()
+        groups = self.optimizers_dict or {}
+        if d_key not in groups or g_key not in groups:
+            raise ValueError(
+                f"make_gan_steps needs one optimizer for each of "
+                f"{d_key!r} and {g_key!r}; opt_class gave "
+                f"{sorted(groups)}")
+
+        def make_step(loss_fn, key):
+            optimizer = groups[key]
+            params = [p for p in self.modules[key].parameters()
+                      if p.requires_grad]
+
+            def step(batch, generator=None):
+                with autocast(self.run_opts.precision, self.device):
+                    loss = loss_fn(batch, generator)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                for p, g in zip(params, grads):
+                    p.grad = None if g is None else g.to(p.dtype)
+                optimizer.step()
+                for p in params:
+                    p.grad = None
+                return loss.detach()
+
+            return step
+
+        return make_step(d_loss_fn, d_key), make_step(g_loss_fn, g_key)
 
     def load_averaged_checkpoints(self, n, max_key=None, min_key=None):
         """Load into the modules the elementwise mean of the modules'
@@ -913,6 +991,35 @@ class _MaskedUpdate:
             torch._foreach_copy_(mirror, ts)
             torch.where(keep, mirror_flat, snap_flat, out=mirror_flat)
             torch._foreach_copy_(ts, mirror)
+
+
+class _GroupOptimizers:
+    """A dict ``opt_class``'s optimizers as one for ``fit``'s update:
+    ``step`` steps each; ``state`` is all of theirs."""
+
+    def __init__(self, optimizers):
+        self.optimizers = optimizers
+
+    @property
+    def state(self):
+        return collections.ChainMap(*(o.state
+                                      for o in self.optimizers.values()))
+
+    def step(self):
+        for optimizer in self.optimizers.values():
+            optimizer.step()
+
+
+def forward_with_frozen_buffers(module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its buffers swapped for copies for
+    the call, so that a BatchNorm in training mode normalises with the
+    batch's statistics and its running statistics stay as they were, bit
+    for bit (flax's ``apply`` with the ``batch_stats`` update thrown
+    away). Gradients reach the parameters and the inputs as in a plain
+    call."""
+    buffers = {name: b.clone() for name, b in module.named_buffers()}
+    return torch.func.functional_call(module, buffers, args, kwargs,
+                                      strict=False)
 
 
 def _progress(iterable, enable, desc):

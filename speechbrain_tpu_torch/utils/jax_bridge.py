@@ -63,6 +63,12 @@ the way:
   ``CNNTransformerSE``, ``EnhanceResnet``), whose submodules carry the
   flax scopes' names; ``InstanceNorm1d``'s ``scale``/``bias`` sit in its
   own scope;
+* the GAN models (``segan_model``'s ``Generator`` and ``Discriminator``,
+  MetricGAN's ``EnhancementGenerator`` and both ``MetricDiscriminator``
+  classes), child by child by the flax scopes' names;
+  ``LearnableSigmoid``'s ``slope`` goes over as it is; the BLSTM loads as
+  every ``LSTM`` does, the convolutions as ``Conv1d``/``Conv2d``/
+  ``ConvTranspose1d``;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -91,11 +97,14 @@ from speechbrain_tpu_torch.lobes.models import conv_tasnet
 from speechbrain_tpu_torch.lobes.models import dual_path
 from speechbrain_tpu_torch.lobes.models import ECAPA_TDNN as ecapa
 from speechbrain_tpu_torch.lobes.models import MaskingSE as masking_se
+from speechbrain_tpu_torch.lobes.models import MetricGAN as metricgan
+from speechbrain_tpu_torch.lobes.models import MetricGAN_U as metricgan_u
 from speechbrain_tpu_torch.lobes.models.EnhanceResnet import EnhanceResnet
 from speechbrain_tpu_torch.lobes.models import PIQ as piq
 from speechbrain_tpu_torch.lobes.models import focalnet
 from speechbrain_tpu_torch.lobes.models import ResNet as resnet
 from speechbrain_tpu_torch.lobes.models import resepformer
+from speechbrain_tpu_torch.lobes.models import segan_model
 from speechbrain_tpu_torch.lobes.models import Xvector as xvector
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN, FeatureChannelNorm
@@ -651,6 +660,12 @@ _LOADERS = {
     masking_se.FCN2DBLSTMMasker: load_named_children,
     CNNTransformerSE: load_named_children,
     EnhanceResnet: load_named_children,
+    segan_model.Generator: load_named_children,
+    segan_model.Discriminator: load_named_children,
+    metricgan.LearnableSigmoid: _own("slope"),
+    metricgan.EnhancementGenerator: load_named_children,
+    metricgan.MetricDiscriminator: load_named_children,
+    metricgan_u.MetricDiscriminator: load_named_children,
 }
 
 

@@ -203,6 +203,35 @@ def test_fused_fbank_kernel_at_40_mels(card, case):
     assert float((out - unfused).abs().max()) <= 5e-3
 
 
+# the MTL perceptual pre-training's batch: 4 utterances of 4 s at 40 mels,
+# unpadded and as the loader pads them (to a multiple of 2048 samples)
+_GAN_FBANK_CASES = {
+    "noise_64000": ("noise", 4, 64000),
+    "chirp_64000": ("chirp", 4, 64000),
+    "bursts_65536": ("bursts", 4, 65536),
+}
+
+
+@pytest.mark.parametrize("case", list(_GAN_FBANK_CASES))
+def test_fused_fbank_kernel_at_the_mtl_pretraining_batch(card, case):
+    """``pretrain_perceptual.yaml``'s fused Fbank (40 mels, n_fft 400):
+    one launch, within 5e-3 dB of the plain version and of the unfused
+    Fbank."""
+    kind, batch, samples = _GAN_FBANK_CASES[case]
+    wav = torch.from_numpy(
+        make_check_signal(kind, batch, samples, seed=17)).to(card)
+    fused = Fbank(n_mels=40, fused=True, device=card)
+    before = mel_frontend.launches
+    out = fused(wav)
+    assert mel_frontend.launches == before + 1
+    plain = _plain_fbank(wav, fused, fused.compute_STFT.hop_length)
+    unfused = Fbank(n_mels=40, device=card)(wav)
+    assert out.shape == unfused.shape == plain.shape == (
+        batch, 1 + samples // fused.compute_STFT.hop_length, 40)
+    assert float((out - plain).abs().max()) <= 5e-3
+    assert float((out - unfused).abs().max()) <= 5e-3
+
+
 # the speaker family's two configurations: speech commands' 24 mels at
 # (16, 16000) and VoxCeleb's 3 s crops at (32, 48000), 80 mels
 _SPEAKER_FBANK_CASES = {

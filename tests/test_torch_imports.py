@@ -347,3 +347,62 @@ def test_enhancement_entry_points_default_to_cuda_and_raise_without_it(name):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises((RuntimeError, AssertionError)):
         _enhancement_entry_points()[name]()
+
+
+def _gan_entry_points():
+    from speechbrain_tpu_torch.lobes.models import (
+        MetricGAN,
+        MetricGAN_U,
+        segan_model,
+    )
+
+    return {
+        "segan_Generator": lambda: segan_model.Generator(channels=(4, 8)),
+        "segan_Discriminator": lambda: segan_model.Discriminator(
+            channels=(4, 8)),
+        "LearnableSigmoid": lambda: MetricGAN.LearnableSigmoid(4),
+        "EnhancementGenerator": lambda: MetricGAN.EnhancementGenerator(
+            4, 4, n_freq=9),
+        "MetricDiscriminator": lambda: MetricGAN.MetricDiscriminator(
+            base_channels=2),
+        "MetricDiscriminator_U": lambda: MetricGAN_U.MetricDiscriminator(
+            base_channels=2),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "segan_Generator", "segan_Discriminator", "LearnableSigmoid",
+    "EnhancementGenerator", "MetricDiscriminator", "MetricDiscriminator_U"])
+def test_gan_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The GAN models are built on the card unless asked otherwise, and
+    raise where there is none."""
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _gan_entry_points()[name]()
+
+
+GAN_MODULES = [
+    "speechbrain_tpu_torch.lobes.models.segan_model",
+    "speechbrain_tpu_torch.lobes.models.MetricGAN",
+    "speechbrain_tpu_torch.lobes.models.MetricGAN_U",
+    "speechbrain_tpu_torch.processing.srmr",
+    "speechbrain_tpu_torch.recipes.VoiceBank.enhance.SEGAN.train",
+    "speechbrain_tpu_torch.recipes.VoiceBank.enhance.MetricGAN.train",
+    "speechbrain_tpu_torch.recipes.VoiceBank.enhance.MetricGAN-U.train",
+    "speechbrain_tpu_torch.recipes.VoiceBank.enhancement.train",
+    "speechbrain_tpu_torch.recipes.VoiceBank.dereverb.MetricGAN-U.train",
+    "speechbrain_tpu_torch.recipes.VoiceBank.MTL.ASR_enhance.train",
+    "speechbrain_tpu_torch.recipes.RescueSpeech.ASR.noise-robust.train",
+]
+
+
+@pytest.mark.parametrize("module", GAN_MODULES)
+def test_gan_modules_are_checked_for_jax_imports(module):
+    """The GAN slice's modules (two twin folders named with a hyphen,
+    imported by ``importlib``) are among the files the import checks
+    above walk, and import here."""
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+    assert importlib.import_module(module)

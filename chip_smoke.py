@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives seventeen paths at full width with random weights
+(``grad_guard``), and drives eighteen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -184,6 +184,23 @@ LibriSpeech recipe:
   twin (MetricGAN-U with SRMR and with SRMR standing in for DNSMOS,
   dereverberation, the band-correlation MetricGAN, the mimic stage,
   RescueSpeech's noise-robust Conformer CTC).
+- ``frame_path``: the frame-level tasks: B3 against its plain version at
+  40 mels on (30, 160000) and at 80 mels on (1, 24000); the LibriParty VAD
+  twin (a CRDNN of 16 and 32 channels, a 2-layer LSTM of 64, one DNN block
+  of 64, ``out_lin``) trained float32 with Adam on its tone-burst parties,
+  exported and served through ``VAD.from_hparams`` (``fused_fbank`` at 40
+  mels once for a file's chunks and once a double-checked segment) on a
+  300 s two-tone meeting, in both chunk modes, each stage timed, the
+  boundary errors against the meeting's turns, the posteriors and
+  boundaries held against the unfused Fbank's; speaker diarization of the
+  VAD's segments by ``SpeakerDiarization`` with the AMI ECAPA embedder
+  (channels 256 x 4 and 768, ``fused_fbank`` at 80 mels once a segment),
+  RTTM and DER, its labels against the unfused Fbank's; the AMI twin's
+  ``experiment.py`` with the ECAPA and x-vector YAMLs on its own meeting
+  and the 300 s one (``fused_fbank`` once a window); the ZED twin two
+  steps, exported and served through
+  ``Speech_Emotion_Diarization.diarize_file`` on a 60 s file, every
+  window with its last, and EDER.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -231,9 +248,17 @@ from speechbrain_tpu_torch.decoders.transducer import (
     TransducerGreedySearcherStreamingContext,
 )
 from speechbrain_tpu_torch.inference.ASR import EncoderASR, EncoderDecoderASR
+from speechbrain_tpu_torch.alignment.diarization import (
+    do_spec_clustering,
+    write_rttm,
+)
 from speechbrain_tpu_torch.inference.classifiers import (
     AudioClassifier,
     EncoderClassifier,
+)
+from speechbrain_tpu_torch.inference.diarization import (
+    SpeakerDiarization,
+    Speech_Emotion_Diarization,
 )
 from speechbrain_tpu_torch.inference.enhancement import (
     SpectralMaskEnhancement,
@@ -243,6 +268,7 @@ from speechbrain_tpu_torch.inference.separation import SepformerSeparation
 from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
 from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
 from speechbrain_tpu_torch.inference.streaming import StreamingASR
+from speechbrain_tpu_torch.inference.VAD import VAD
 from speechbrain_tpu_torch.lobes.features import Fbank, StreamingFeatureWrapper
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN as CRDNNEncoder
@@ -289,6 +315,9 @@ from speechbrain_tpu_torch.processing.features import (
     InputNormalization,
 )
 from speechbrain_tpu_torch.processing.signal_processing import resynthesize
+from speechbrain_tpu_torch.recipes.AMI.Diarization import (
+    experiment as ami_recipe,
+)
 from speechbrain_tpu_torch.recipes.BinauralWSJ0Mix.separation import (
     train as binaural_recipe,
 )
@@ -332,6 +361,10 @@ from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
 from speechbrain_tpu_torch.recipes.IEMOCAP.emotion_recognition import (
     train as iemocap_recipe,
 )
+from speechbrain_tpu_torch.recipes.LibriParty.VAD import (
+    prepare as vad_prepare,
+)
+from speechbrain_tpu_torch.recipes.LibriParty.VAD import train as vad_recipe
 from speechbrain_tpu_torch.recipes.LibriMix.separation import (
     train as librimix_recipe,
 )
@@ -374,6 +407,12 @@ from speechbrain_tpu_torch.recipes.VoxLingua107.lang_id import (
 from speechbrain_tpu_torch.recipes.WSJ0Mix.separation import (
     train as wsj0mix_recipe,
 )
+from speechbrain_tpu_torch.recipes.ZaionEmotionDataset.emotion_diarization import (  # noqa: E501
+    prepare as zed_prepare,
+)
+from speechbrain_tpu_torch.recipes.ZaionEmotionDataset.emotion_diarization import (  # noqa: E501
+    train as zed_recipe,
+)
 from speechbrain_tpu_torch.templates.speaker_id import (
     train as speaker_id_template,
 )
@@ -386,6 +425,7 @@ from speechbrain_tpu_torch.utils.checkpoints import (
     Checkpointer,
     get_default_hook,
 )
+from speechbrain_tpu_torch.utils.DER import DER
 from speechbrain_tpu_torch.utils.data_utils import pad_time_to_multiple
 from speechbrain_tpu_torch.utils.dynamic_chunk_training import (
     DynChunkTrainConfig,
@@ -396,6 +436,7 @@ from speechbrain_tpu_torch.utils.edit_distance import (
     count_ops,
     op_table,
 )
+from speechbrain_tpu_torch.utils.EDER import EDER
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
 from speechbrain_tpu_torch.utils.parameter_transfer import Pretrainer
 from speechbrain_tpu_torch.utils.pretrained import export_separator
@@ -7451,6 +7492,519 @@ def run_gan_path(out_dir, device="cuda"):
     return launches, b3_launches, b3
 
 
+# -- frame_path: VAD, speaker and emotion diarization ----------------------
+
+FRAME_VAD = "recipes/LibriParty/VAD"
+FRAME_ZED = "recipes/ZaionEmotionDataset/emotion_diarization"
+FRAME_AMI = "recipes/AMI/Diarization"
+FRAME_AMI_YAMLS = ("ecapa.yaml", "xvectors.yaml")
+# the VAD twin's corpus: its prepare_synthetic's tone bursts, 64 train and
+# 2 valid parties of 2 s; epochs of 16 float32 Adam steps at batch 4
+FRAME_VAD_UTTS = 66
+FRAME_VAD_EPOCHS = 8
+# the ZED twin: its own corpus (6 train and 2 valid utterances of 2 s),
+# one epoch of 2 steps at batch 4
+FRAME_ZED_EPOCHS = 1
+# the served meeting: two "speakers" as tones of two pitches in turns of
+# 1-4 s separated by 0.5-1.5 s of the noise floor; the first turn starts
+# after a gap
+FRAME_MEETING = dict(seconds=300.0, turn_s=(1.0, 4.0), gap_s=(0.5, 1.5),
+                     freqs=(220.0, 660.0), amplitude=0.5, noise=0.01,
+                     seed=5)
+# the emotion file: a 220 Hz tone, its emotional intervals modulated as
+# the ZED twin's corpus modulates them (2 + 3 emo Hz), 1.5-4 s each after
+# 1-3 s of neutral
+FRAME_ZED_FILE = dict(seconds=60.0, emo_s=(1.5, 4.0), neutral_s=(1.0, 3.0),
+                      seed=6)
+# the ZED twin's emotion ids as EDER's labels ("n" is EDER's neutral)
+FRAME_EMOTION_LABELS = {0: "n", 1: "h", 2: "s", 3: "a"}
+# B3 where this path runs it: the VAD's 30 chunks of 10 s at 40 mels, and
+# one 1.5 s window at 80 mels (the AMI window; a diarizer segment or a
+# double-checked one is a batch of one of its own length)
+FRAME_B3_SHAPES = ((30, 160000, 40), (1, 24000, 80))
+# float32 posteriors through B3 against the same model on the unfused
+# Fbank: B3 is within 5e-3 dB of its plain version (B3_ATOL), and the two
+# float32 Fbanks differ by about as much (ROADMAP C15); a 5e-3 dB move of
+# a 40-mel frame moves a sigmoid posterior by far less than this
+FRAME_PROB_ATOL = 1e-3
+# the served VAD's thresholded frames that agree with the meeting's truth
+FRAME_ACCURACY = 0.9
+FRAME_REDUCED = {
+    "weights": "random ECAPA and x-vector embedders from each AMI YAML's "
+               "seed; the VAD and ZED CRDNNs trained from their YAMLs' "
+               "seed",
+    "corpus": "synthetic tones: tone-burst parties (VAD), modulated "
+              "tones (ZED), a 300 s two-tone meeting and a 60 s emotion "
+              "file made with numpy from a seed",
+    "epochs": "20 -> 8 epochs of 16 steps (VAD), 1 epoch of 2 steps "
+              "(ZED)",
+}
+# text edits of every frame-level twin YAML: none on the card (full
+# width); the CPU test shrinks the models with them
+FRAME_YAML_EDITS = []
+
+
+def frame_yaml_text(folder, yaml):
+    """A frame-level twin's YAML after ``FRAME_YAML_EDITS``."""
+    with open(os.path.join(PORT_ROOT, folder, "hparams", yaml),
+              encoding="utf-8") as f:
+        text = f.read()
+    for old, new in FRAME_YAML_EDITS:
+        text = text.replace(old, new)
+    return text
+
+
+def frame_yaml(folder, yaml, overrides):
+    """:func:`frame_yaml_text` and the objects it builds with
+    ``overrides``: ``(text, hparams)``."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    text = frame_yaml_text(folder, yaml)
+    return text, load_hyperpyyaml(text, overrides)
+
+
+def write_meeting(path, cfg, sr=SR):
+    """``cfg``'s meeting as a WAV file; returns its turns ``[(start_s,
+    end_s, "A" or "B")]``, the speakers alternating."""
+    rng = np.random.default_rng(cfg["seed"])
+    T = int(cfg["seconds"] * sr)
+    t = np.arange(T) / sr
+    sig = rng.normal(0, cfg["noise"], T).astype(np.float32)
+    turns, pos = [], float(rng.uniform(*cfg["gap_s"]))
+    while True:
+        dur = float(rng.uniform(*cfg["turn_s"]))
+        if pos + dur > cfg["seconds"]:
+            break
+        k = len(turns) % 2
+        seg = (t >= pos) & (t < pos + dur)
+        sig[seg] += (cfg["amplitude"] * np.sin(
+            2 * np.pi * cfg["freqs"][k] * t[seg])).astype(np.float32)
+        turns.append((pos, pos + dur, "AB"[k]))
+        pos += dur + float(rng.uniform(*cfg["gap_s"]))
+    write_audio(path, sig, sr)
+    return turns
+
+
+def write_emotion_file(path, cfg, sr=SR):
+    """``cfg``'s emotion file as a WAV file; returns its emotional
+    intervals as EDER's ``[{"start", "end", "emo"}]``."""
+    rng = np.random.default_rng(cfg["seed"])
+    T = int(cfg["seconds"] * sr)
+    t = np.arange(T) / sr
+    sig = 0.4 * np.sin(2 * np.pi * 220 * t).astype(np.float32)
+    intervals, pos = [], float(rng.uniform(*cfg["neutral_s"]))
+    while True:
+        dur = float(rng.uniform(*cfg["emo_s"]))
+        if pos + dur > cfg["seconds"]:
+            break
+        emo = 1 + len(intervals) % 3
+        seg = (t >= pos) & (t < pos + dur)
+        sig[seg] *= (1 + 0.9 * np.sin(2 * np.pi * (2 + 3 * emo) * t[seg])
+                     ).astype(np.float32)
+        intervals.append({"start": pos, "end": pos + dur,
+                          "emo": FRAME_EMOTION_LABELS[emo]})
+        pos += dur + float(rng.uniform(*cfg["neutral_s"]))
+    write_audio(path, sig, sr)
+    return intervals
+
+
+def _stats(values):
+    values = np.asarray(values, np.float64)
+    if not len(values):
+        return None
+    return {"median": float(np.median(values)), "mean": float(values.mean()),
+            "max": float(values.max())}
+
+
+def boundary_errors(boundaries, turns, res=0.01, last_from=None):
+    """Each true turn against the detected segment that overlaps it most:
+    the start and end differences in frames of ``res`` seconds (their
+    median, mean and max), over every turn and over the turns that start
+    at or after ``last_from`` (the last chunk's); turns no segment
+    overlaps are missed, segments that overlap no turn are extra."""
+    segs = np.asarray(boundaries, np.float64).reshape(-1, 2)
+    out = {"turns": len(turns), "segments": len(segs)}
+    errs, last, used = {"start": [], "end": []}, {"start": [], "end": []}, \
+        set()
+    for s, e, _ in turns:
+        overlap = np.minimum(segs[:, 1], e) - np.maximum(segs[:, 0], s)
+        if not len(segs) or overlap.max() <= 0:
+            continue
+        i = int(overlap.argmax())
+        used.add(i)
+        for key, err in (("start", abs(segs[i, 0] - s) / res),
+                         ("end", abs(segs[i, 1] - e) / res)):
+            errs[key].append(err)
+            if last_from is not None and s >= last_from:
+                last[key].append(err)
+    out["matched"] = len(errs["start"])
+    out["missed"] = len(turns) - out["matched"]
+    out["extra"] = sum(
+        1 for i, (s, e) in enumerate(segs) if i not in used and not any(
+            min(e, te) > max(s, ts) for ts, te, _ in turns))
+    out["start_err_frames"] = _stats(errs["start"])
+    out["end_err_frames"] = _stats(errs["end"])
+    if last_from is not None:
+        out["last_chunk"] = {"from_s": last_from,
+                             "turns": len(last["start"]),
+                             "start_err_frames": _stats(last["start"]),
+                             "end_err_frames": _stats(last["end"])}
+    return out
+
+
+def truth_frames(turns, n_frames, res=0.01):
+    """Speech (True) at each frame whose centre lies in a turn."""
+    centers = (np.arange(n_frames) + 0.5) * res
+    inside = np.zeros(n_frames, bool)
+    for s, e, _ in turns:
+        inside |= (centers >= s) & (centers < e)
+    return inside
+
+
+def _host_ms(fn, device):
+    """``fn()`` and its milliseconds on the host's clock, the device
+    synchronized before and after."""
+    _sync(device)
+    t0 = time.perf_counter()
+    result = fn()
+    _sync(device)
+    return result, 1e3 * (time.perf_counter() - t0)
+
+
+def _same_partition(a, b):
+    """Whether two label lists are equal up to a permutation of labels."""
+    return (len(a) == len(b)
+            and len(set(zip(a, b))) == len(set(a)) == len(set(b)))
+
+
+def _candidates(vad, prob):
+    """The segments ``get_speech_segments`` double-checks for the
+    posteriors ``prob`` (its default thresholds)."""
+    return vad.remove_short_segments(vad.merge_close_segments(
+        vad.get_boundaries(vad.apply_threshold(prob))))
+
+
+def run_frame_vad(out_dir, device="cuda"):
+    """The LibriParty VAD twin trained from its YAML (float32, Adam,
+    ``FRAME_VAD_EPOCHS`` epochs on ``FRAME_VAD_UTTS`` parties, the unfused
+    Fbank), its best checkpoint exported and served through
+    ``VAD.from_hparams`` (B3 at 40 mels) on the 300 s meeting:
+    ``get_speech_segments`` in both modes, each stage timed, the boundary
+    errors against the turns (JAX's layout of the posteriors too, C51),
+    the posteriors and boundaries held against the same model on the
+    unfused Fbank. B3: one launch for a file's chunks, one a
+    double-checked segment. Returns ``(line, vad, audio, boundaries,
+    turns, wav)``."""
+    data = os.path.join(out_dir, "vad_data")
+    vad_prepare.prepare_synthetic(data, n_utts=FRAME_VAD_UTTS)
+    overrides = {"data_folder": data, "device": device,
+                 "output_folder": os.path.join(out_dir, "vad_out"),
+                 "number_of_epochs": FRAME_VAD_EPOCHS}
+    text, hparams = frame_yaml(FRAME_VAD, "train.yaml", overrides)
+    brain_cls = type("TimedVADBrain", (TimedSteps, vad_recipe.VADBrain),
+                     {})
+    brain, train_counts, train_s, peak = _timed_run(
+        lambda: vad_recipe.run(hparams, {"device": device,
+                                         "noprogressbar": True},
+                               brain_cls=brain_cls,
+                               export_from=(text, overrides)), device)
+    step_ms = brain.step_ms()
+    train = {"seconds": train_s, "peak_bytes": peak,
+             "steps": len(brain.losses), "first_losses": brain.losses[:3],
+             "last_losses": brain.losses[-3:],
+             "valid_losses": brain.valid_losses,
+             "step_ms_median": float(np.median(step_ms)),
+             "parameters": sum(p.numel() for p in
+                               brain.modules.parameters()),
+             "launches": train_counts}
+    vad = VAD.from_hparams(source=hparams["pretrained_folder"],
+                           savedir=os.path.join(out_dir, "vad_served"),
+                           run_opts={"device": device})
+    wav = os.path.join(out_dir, "meeting.wav")
+    turns = write_meeting(wav, FRAME_MEETING)
+    seconds = FRAME_MEETING["seconds"]
+    chunk = 10 * SR
+    last_from = (-(-int(seconds * SR) // chunk) - 1) * chunk / SR
+    _sync(device)
+    reset_launch_counts()
+    # the entry point, twice: the first call pays the first-use costs
+    calls = [_host_ms(lambda: vad.get_speech_segments(wav), device)
+             for _ in range(2)]
+    boundaries = calls[-1][0]
+    # the stages one by one, on the audio read once
+    audio, load_ms = _host_ms(lambda: vad.load_audio(wav), device)
+    prob, prob_ms = _host_ms(lambda: vad.get_speech_prob_file(audio), device)
+    candidates, th_ms = _host_ms(lambda: _candidates(vad, prob), device)
+    checked, dc_ms = _host_ms(
+        lambda: vad.double_check_speech_segments(candidates, audio), device)
+    overlapped, ov_ms = _host_ms(
+        lambda: vad.get_speech_segments(audio, overlap_small_chunk=True),
+        device)
+    ov_candidates = _candidates(vad, vad.get_speech_prob_file(
+        audio, overlap_small_chunk=True))
+    # JAX's layout of the default mode keeps each chunk's extra frame
+    # (C51): the same model's posteriors laid out so, one launch
+    padded = torch.nn.functional.pad(audio, (0, -(-len(audio) // chunk)
+                                             * chunk - len(audio)))
+    jax_layout = vad.get_speech_prob_chunk(padded.reshape(-1, chunk))
+    jax_layout = jax_layout.reshape(1, -1, 1)[:, : prob.shape[1]]
+    _sync(device)
+    counts = launch_counts()
+    # 2 + 1 calls of the default mode, 1 + 1 of the overlapped one, and
+    # the JAX layout
+    predicted = (3 * (1 + len(candidates)) + 2 + len(ov_candidates) + 1)
+    # the same model on the unfused Fbank: no launch
+    plain = VAD(modules={"model": vad.mods.model},
+                hparams={**vars(vad.hparams), "compute_features": Fbank(
+                    n_mels=vad.hparams.n_mels, fused=False, device=device)},
+                run_opts={"device": device})
+    plain_prob = plain.get_speech_prob_file(audio)
+    plain_boundaries = plain.get_speech_segments(audio)
+    prob_err = float((prob - plain_prob).abs().max())
+    decisions = vad.apply_threshold(prob)[0, :, 0] > 0
+    accuracy = float(np.mean(decisions == truth_frames(turns,
+                                                       len(decisions))))
+    whole_ms = calls[-1][1]
+    line = {
+        "train": train,
+        "serve": {
+            "get_speech_segments_ms": [ms for _, ms in calls],
+            "audio_s_per_s": seconds / (whole_ms / 1e3),
+            "load_ms": load_ms, "posterior_ms": prob_ms,
+            "threshold_ms": th_ms, "double_check_ms": dc_ms,
+            "double_checked": len(candidates), "segments": len(boundaries),
+            "frame_accuracy": accuracy,
+            "boundary_errors": boundary_errors(boundaries, turns,
+                                               last_from=last_from)},
+        "overlapped": {"ms": ov_ms, "segments": len(overlapped),
+                       "boundary_errors": boundary_errors(
+                           overlapped, turns, last_from=last_from)},
+        "c51_jax_layout": {"boundary_errors": boundary_errors(
+            _candidates(vad, jax_layout), turns, last_from=last_from)},
+        "vs_unfused": {"posterior_max_abs_err": prob_err,
+                       "atol": FRAME_PROB_ATOL,
+                       "boundaries_equal": bool(np.array_equal(
+                           boundaries, plain_boundaries))},
+        "launches": counts, "predicted_b3": predicted,
+    }
+    line["ok"] = bool(
+        train_counts["fused_fbank"] == 0
+        and np.isfinite(brain.losses).all()
+        and np.mean(train["last_losses"]) < np.mean(train["first_losses"])
+        and len(boundaries) > 0 and accuracy >= FRAME_ACCURACY
+        and np.array_equal(boundaries, checked)
+        and prob_err <= FRAME_PROB_ATOL
+        and line["vs_unfused"]["boundaries_equal"]
+        and bool(torch.isfinite(prob).all())
+        and tuple(prob.shape) == (1, int(seconds * 100), 1)
+        and counts["fused_fbank"] == predicted
+        and all(v == 0 for k, v in counts.items() if k != "fused_fbank"))
+    return line, vad, audio, boundaries, turns, wav
+
+
+def run_frame_speakers(out_dir, audio, boundaries, turns, device="cuda"):
+    """``SpeakerDiarization.diarize_segments`` with the AMI ECAPA YAML's
+    embedder (random weights, B3 at 80 mels once a segment) on the VAD's
+    segments: clustered to the YAML's oracle 2 speakers, merged, written
+    as RTTM and scored by DER against the meeting's turns; the labels
+    equal, up to a permutation, those of the unfused Fbank's
+    embeddings."""
+    _, h = frame_yaml(FRAME_AMI, "ecapa.yaml", {
+        "data_folder": out_dir, "device": device,
+        "output_folder": os.path.join(out_dir, "diar_out")})
+    model = h["embedding_model"]
+    diar = SpeakerDiarization(
+        modules={"embedding_model": model},
+        hparams={"compute_features": h["compute_features"],
+                 "sample_rate": h["sample_rate"]},
+        run_opts={"device": device})
+    segs = [(float(s), float(e)) for s, e in boundaries]
+    n = h["oracle_n_speakers"]
+    _sync(device)
+    reset_launch_counts()
+    # first-use costs: the embedder's and the k-means' on the device
+    warm = min(len(segs), 4)
+    diar.diarize_segments(audio, segs[:warm], n_speakers=min(n, warm))
+    merged, diar_ms = _host_ms(
+        lambda: diar.diarize_segments(audio, segs, n_speakers=n), device)
+    embs, embed_ms = _host_ms(lambda: diar.embed_segments(audio, segs),
+                              device)
+    counts = launch_counts()
+    labels, cluster_ms = _host_ms(
+        lambda: do_spec_clustering(embs, n_speakers=n, device=device),
+        device)
+    plain = SpeakerDiarization(
+        modules={"embedding_model": model},
+        hparams={"compute_features": Fbank(n_mels=h["n_mels"], fused=False,
+                                           device=device),
+                 "sample_rate": h["sample_rate"]},
+        run_opts={"device": device})
+    plain_embs = plain.embed_segments(audio, segs)
+    plain_labels = do_spec_clustering(plain_embs, n_speakers=n,
+                                      device=device)
+    rttm = os.path.join(out_dir, "meeting.rttm")
+    write_rttm(merged, "meeting", rttm)
+    with open(rttm) as f:
+        rttm_lines = len(f.read().splitlines())
+    der = DER(list(turns), [(s, e, str(lab)) for s, e, lab in merged])
+    rel = float(np.max(np.abs(embs - plain_embs))
+                / max(np.max(np.abs(plain_embs)), 1e-12))
+    line = {"segments": len(segs), "merged_segments": len(merged),
+            "diarize_segments_ms": diar_ms,
+            "embed_ms_per_segment": embed_ms / len(segs),
+            "spectral_clustering_ms": cluster_ms,
+            "der": der, "rttm_lines": rttm_lines,
+            "labels": labels, "unfused_labels": plain_labels,
+            "labels_equal_unfused_up_to_permutation": _same_partition(
+                labels, plain_labels),
+            "embedding_max_rel_err_vs_unfused": rel,
+            "launches": counts, "predicted_b3": 2 * len(segs) + warm}
+    line["ok"] = bool(
+        len(segs) > 1 and np.isfinite(embs).all() and 0.0 <= der <= 1.0
+        and rttm_lines == len(merged)
+        and line["labels_equal_unfused_up_to_permutation"]
+        and counts["fused_fbank"] == line["predicted_b3"]
+        and all(v == 0 for k, v in counts.items() if k != "fused_fbank"))
+    return line
+
+
+def run_frame_ami(out_dir, turns, wav, device="cuda"):
+    """The AMI twin's ``experiment.py`` with each YAML on its own
+    synthetic meeting and on the 300 s one: DER, windows, ms a window (the
+    embedding loop's host time over its windows), B3 once a window."""
+    data = os.path.join(out_dir, "ami_data")
+    ami_recipe.prepare_synthetic(data)
+    meta = os.path.join(data, "meetings.json")
+    with open(meta) as f:
+        meetings = json.load(f)
+    meetings["meeting300"] = {"wav": wav, "turns": [
+        {"start": s, "end": e, "spk": spk} for s, e, spk in turns]}
+    with open(meta, "w") as f:
+        json.dump(meetings, f, indent=1)
+    lines = {}
+    for yaml in FRAME_AMI_YAMLS:
+        path = os.path.join(out_dir, "ami_" + yaml)
+        with open(path, "w") as f:
+            f.write(frame_yaml_text(FRAME_AMI, yaml))
+        embed_s = []
+        with host_timed(ami_recipe, "embed_windows", embed_s):
+            results, counts, secs, peak = _timed_run(lambda: ami_recipe.main(
+                [path, f"--data_folder={data}",
+                 f"--output_folder={os.path.join(out_dir, 'ami_out_' + yaml[:-5])}",
+                 f"--device={device}"]), device)
+        windows = sum(r["windows"] for r in results.values())
+        line = {"seconds": secs, "peak_bytes": peak,
+                "der": {k: r["der"] for k, r in results.items()},
+                "windows": {k: r["windows"] for k, r in results.items()},
+                "ms_per_window": 1e3 * sum(embed_s) / windows,
+                "launches": counts, "predicted_b3": windows}
+        line["ok"] = bool(
+            counts["fused_fbank"] == windows
+            and all(0.0 <= r["der"] <= 1.0 for r in results.values())
+            and all(v == 0 for k, v in counts.items() if k != "fused_fbank"))
+        lines[yaml] = line
+    return lines
+
+
+def run_frame_zed(out_dir, device="cuda"):
+    """The ZED twin one epoch (2 float32 steps) from its YAML, its export
+    served through ``Speech_Emotion_Diarization.from_hparams`` (B3 at 40
+    mels once a window) on the 60 s emotion file: the windows, the last
+    one included (C52), and EDER against the file's intervals."""
+    data = os.path.join(out_dir, "zed_data")
+    zed_prepare.prepare_synthetic(data)
+    overrides = {"data_folder": data, "device": device,
+                 "output_folder": os.path.join(out_dir, "zed_out"),
+                 "number_of_epochs": FRAME_ZED_EPOCHS}
+    text, hparams = frame_yaml(FRAME_ZED, "train.yaml", overrides)
+    brain_cls = type("TimedZEDBrain",
+                     (TimedSteps, zed_recipe.EmoDiarBrain), {})
+    brain, train_counts, train_s, _ = _timed_run(
+        lambda: zed_recipe.run(hparams, {"device": device,
+                                         "noprogressbar": True},
+                               brain_cls=brain_cls,
+                               export_from=(text, overrides)), device)
+    diarizer = Speech_Emotion_Diarization.from_hparams(
+        source=hparams["pretrained_folder"],
+        savedir=os.path.join(out_dir, "zed_served"),
+        run_opts={"device": device})
+    wav = os.path.join(out_dir, "emotions.wav")
+    reference = write_emotion_file(wav, FRAME_ZED_FILE)
+    _sync(device)
+    reset_launch_counts()
+    diarizer.diarize_file(wav)  # first-use costs
+    segments, ms = _host_ms(lambda: diarizer.diarize_file(wav), device)
+    counts = launch_counts()
+    hyp = [dict(s, emotion=FRAME_EMOTION_LABELS[s["emotion"]])
+           for s in segments]
+    T = int(FRAME_ZED_FILE["seconds"] * SR)
+    win, hop = SR, SR // 2
+    expected = (T - win) // hop + 1
+    line = {"train_steps": len(brain.losses), "train_losses": brain.losses,
+            "valid_losses": brain.valid_losses, "train_seconds": train_s,
+            "windows": len(segments), "expected_windows": expected,
+            "jax_windows": len(range(0, max(T - win, 1), hop)),
+            "last_window_end_s": segments[-1]["end"],
+            "eder": EDER(hyp, "emotions", FRAME_ZED_FILE["seconds"],
+                         reference),
+            "diarize_file_ms": ms, "ms_per_window": ms / len(segments),
+            "launches": counts, "predicted_b3": 2 * expected}
+    line["ok"] = bool(
+        len(segments) == expected
+        and segments[-1]["end"] == FRAME_ZED_FILE["seconds"]
+        and train_counts["fused_fbank"] == 0
+        and np.isfinite(brain.losses).all()
+        and counts["fused_fbank"] == line["predicted_b3"]
+        and all(v == 0 for k, v in counts.items() if k != "fused_fbank"))
+    return line
+
+
+def run_frame_path(out_dir, device="cuda"):
+    """B3 against its plain version at ``FRAME_B3_SHAPES``; the VAD
+    trained, exported and served (:func:`run_frame_vad`); speaker
+    diarization of its segments (:func:`run_frame_speakers`); the AMI
+    twin with both YAMLs (:func:`run_frame_ami`); the ZED twin trained and
+    served (:func:`run_frame_zed`). Returns each kernel's launches over
+    the path (the counts set to 0 just before each stage and read just
+    after it) and B3's errors."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    b3 = check_b3_at_shapes(FRAME_B3_SHAPES, device)
+    emit({"phase": "frame_b3_check", "max_abs_err_db": b3, "atol": B3_ATOL,
+          "ok": max(b3.values()) <= B3_ATOL})
+    if max(b3.values()) > B3_ATOL:
+        raise AssertionError(f"frame_path: B3 against its plain version {b3}")
+    launches = {name: 0 for name in KERNELS}
+    predicted = 0
+
+    def add(line, label):
+        nonlocal predicted
+        emit({"phase": f"frame_path/{label}", **line})
+        for k, v in line["launches"].items():
+            launches[k] += v
+        predicted += line["predicted_b3"]
+        if not line["ok"]:
+            raise AssertionError(f"frame_path: {label} failed")
+
+    vad_line, vad, audio, boundaries, turns, wav = run_frame_vad(
+        out_dir, device)
+    add(vad_line, "vad")
+    add(run_frame_speakers(out_dir, audio, boundaries, turns, device),
+        "speaker_diarization")
+    for yaml, line in run_frame_ami(out_dir, turns, wav, device).items():
+        add(line, f"ami/{yaml}")
+    add(run_frame_zed(out_dir, device), "emotion_diarization")
+    ok = launches["fused_fbank"] == predicted > 0 and all(
+        v == 0 for k, v in launches.items() if k != "fused_fbank")
+    emit({"phase": "frame_path_summary", "launches": launches,
+          "predicted_b3": predicted, "reduced": FRAME_REDUCED,
+          "seconds": time.perf_counter() - t0, "ok": ok,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    if not ok:
+        raise AssertionError("frame_path: B3's launches are not the "
+                             "path's prediction")
+    return launches, b3
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -7653,6 +8207,12 @@ def main():
                 gan_launches[kernel["name"]]
         kernels[1]["launches_by_path"]["gan_path_by_stage"] = gan_b3_launches
         torch.cuda.empty_cache()
+        frame_launches, frame_b3_err = run_frame_path(
+            os.path.join(out_dir, "frame"))
+        for kernel in kernels:
+            kernel["launches_by_path"]["frame_path"] = \
+                frame_launches[kernel["name"]]
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -7681,6 +8241,11 @@ def main():
     kernels[1]["at_gan_pretrain_perceptual_shape"] = {
         **measure_b3_at(B, T, n_mels=n_mels), "n_mels": n_mels,
         "max_abs_err": gan_b3_err[f"{B}x{T}@{n_mels}"]}
+    for (B, T, n_mels), key in zip(FRAME_B3_SHAPES, (
+            "at_frame_vad_shape", "at_frame_window_shape")):
+        kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
+                           "n_mels": n_mels,
+                           "max_abs_err": frame_b3_err[f"{B}x{T}@{n_mels}"]}
     for (B, T, n_mels), key in zip(CLASSIFY_B3_SHAPES, (
             "at_esc50_shape", "at_urbansound8k_shape")):
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),

@@ -2,7 +2,7 @@
 ``speechbrain_tpu/nnet/losses.py``: ``compute_length_mask``,
 ``compute_masked_loss``, ``nll_loss``, ``kldiv_loss``, ``ctc_loss``,
 ``classification_error``, the regression losses ``mse_loss`` and
-``l1_loss``, the speaker family's margins
+``l1_loss``, the frame classifiers' ``bce_loss``, the speaker family's margins
 ``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``,
 and the separation objectives ``cal_si_snr``, ``cal_snr``,
 ``PitWrapper`` and ``get_si_snr_with_pitwrapper``).
@@ -83,6 +83,33 @@ def l1_loss(predictions, targets, length=None, reduction="mean"):
     """Absolute error masked by relative lengths along axis 1."""
     return compute_masked_loss(lambda p, t: torch.abs(p - t), predictions,
                                targets, length, reduction=reduction)
+
+
+def bce_loss(inputs, targets, length=None, weight=None, pos_weight=None,
+             reduction="mean", allowed_len_diff=3, label_smoothing=0.0):
+    """Binary cross-entropy on logits, masked by relative lengths along
+    axis 1: ``-(w_pos t log s(x) + (1 - t) log s(-x)) w`` with the
+    targets smoothed towards 0.5 by ``label_smoothing``; ``weight`` and
+    ``pos_weight`` broadcast against the logits.
+
+    Example
+    -------
+    >>> float(bce_loss(torch.zeros(1, 2), torch.ones(1, 2)))  # log 2
+    0.6931471824645996
+    """
+    targets = targets.to(inputs.dtype)
+    if label_smoothing > 0:
+        targets = targets * (1 - label_smoothing) + 0.5 * label_smoothing
+
+    def fn(logits, t):
+        logp = F.logsigmoid(logits)
+        lognotp = F.logsigmoid(-logits)
+        pos = t * logp if pos_weight is None else pos_weight * t * logp
+        loss = -(pos + (1 - t) * lognotp)
+        return loss if weight is None else loss * weight
+
+    return compute_masked_loss(fn, inputs, targets, length,
+                               reduction=reduction)
 
 
 def _smoothed_nll(log_probabilities, targets, label_smoothing):

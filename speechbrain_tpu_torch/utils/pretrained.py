@@ -1,7 +1,8 @@
 """Exporting a trained model as a ``Pretrained.from_hparams`` source (port
 of ``speechbrain_tpu/utils/pretrained.py`` ``save_for_pretrained``; and
-``export_classifier``, ``export_separator`` and ``export_enhancer``, the
-classification, separation and enhancement twins' exports from their own
+``export_classifier``, ``export_separator``, ``export_enhancer`` and
+``export_frame_model``, the classification, separation, enhancement and
+frame-level (VAD, emotion diarization) twins' exports from their own
 training YAML)."""
 
 import re
@@ -221,4 +222,65 @@ def export_enhancer(hparams, yaml_text, overrides=None, folder=None,
         shutil.copy(Path(yaml_dir) / include, dst)
     (folder / "hyperparams.yaml").write_text(
         enhancer_hparams_text(yaml_text, overrides), encoding="utf-8")
+    return folder
+
+
+# a frame-level twin's served features and model: the recipe trains
+# ``model`` (the CRDNN) and ``out_lin`` as two modules on the unfused
+# Fbank; ``VAD`` and ``Speech_Emotion_Diarization`` call one ``model``
+FRAME_SERVED = [
+    "# kernel B3: the served features (the recipe trains on the unfused "
+    "Fbank)",
+    "compute_features: !new:speechbrain_tpu_torch.lobes.features.Fbank",
+    "  sample_rate: !ref <sample_rate>",
+    "  n_mels: !ref <n_mels>",
+    "  fused: True",
+    "  device: !ref <device>",
+    "",
+    "# the recipe's two modules in sequence: features -> frame logits",
+    "frame_model: !new:speechbrain_tpu_torch.nnet.containers.Sequential",
+    "  layers: [!ref <model>, !ref <out_lin>]",
+    "",
+    "modules:",
+    "  model: !ref <frame_model>",
+]
+# the served model's children, in the order of FRAME_SERVED's layers
+FRAME_MODULES = ("model", "out_lin")
+
+
+def frame_hparams_text(yaml_text, overrides=None):
+    """A frame-level twin's YAML as the ``hyperparams.yaml`` of its
+    export: the blocks of ``TRAINING_KEYS``, ``modules`` and
+    ``compute_features`` taken out, the fused ``Fbank`` and ``modules``
+    of ``FRAME_SERVED`` added, and a ``pretrainer`` that loads ``model``
+    from ``model.ckpt``."""
+    kept = _serving_lines(yaml_text, overrides,
+                          TRAINING_KEYS + ("modules", "compute_features"))
+    kept += [""] + FRAME_SERVED + _pretrainer_lines(["model"])
+    return "\n".join(kept) + "\n"
+
+
+def export_frame_model(hparams, yaml_text, overrides=None):
+    """The best checkpoint (lowest valid ``loss``) of a VAD or emotion
+    diarization run as a ``VAD``/``Speech_Emotion_Diarization`` source in
+    ``hparams["pretrained_folder"]``: the states of ``FRAME_MODULES`` as
+    one ``model.ckpt`` of their sequence, and :func:`frame_hparams_text`
+    of the run's YAML as ``hyperparams.yaml``. Returns the folder."""
+    import torch
+
+    ckpt = hparams["checkpointer"].find_checkpoint(min_key="loss")
+    if ckpt is None:
+        raise RuntimeError("no checkpoint found to export")
+    folder = Path(hparams["pretrained_folder"])
+    folder.mkdir(parents=True, exist_ok=True)
+    state = torch.load(ckpt.paramfiles["modules"], map_location="cpu",
+                       weights_only=True)
+    served = {}
+    for i, name in enumerate(FRAME_MODULES):
+        prefix = name + "."
+        served.update({f"{i}.{k[len(prefix):]}": v for k, v in state.items()
+                       if k.startswith(prefix)})
+    torch.save(served, folder / "model.ckpt")
+    (folder / "hyperparams.yaml").write_text(
+        frame_hparams_text(yaml_text, overrides), encoding="utf-8")
     return folder

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives eighteen paths at full width with random weights
+(``grad_guard``), and drives nineteen paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -201,6 +201,21 @@ LibriSpeech recipe:
   steps, exported and served through
   ``Speech_Emotion_Diarization.diarize_file`` on a 60 s file, every
   window with its last, and EDER.
+- ``ssl_path``: self-supervised learning: B3 against its plain version at
+  80 mels on (8, 256000); the LibriSpeech wav2vec 2.0 twin
+  (``train_sb_wav2vec2.yaml``: a 7 x 512 convolutional extractor, a
+  12-layer Transformer of 768, 8 heads, FFN 3072, a 2 x 320 Gumbel
+  codebook, 100 negatives) three AdamW steps in float32 and three in bf16
+  on batches of 8 utterances of 15-16 s, the contrastive and diversity
+  loss and ``prob_perplexity`` of each, a checkpoint recovered bit for
+  bit; the BEST-RQ twin (``bestrq.yaml``: 80 mels, a Conformer of 576 x
+  12, 8192 codewords) three bf16 steps (``fused_fbank`` once a batch),
+  its random-projection buffers bit for bit after them, the front end and
+  encoder exported; ``train_with_bestrq`` fine-tuned from that export
+  three bf16 steps and served by greedy CTC (``fused_fbank`` once a
+  batch and a call); ``train_with_wav2vec`` the same without a kernel;
+  one bf16 step of every other twin (Libri-Light wav2vec 2.0 and BEST-RQ,
+  CommonVoice wav2vec 2.0, DVoice's seven YAMLs).
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -443,6 +458,11 @@ from speechbrain_tpu_torch.utils.pretrained import export_separator
 from speechbrain_tpu_torch.utils.seed import seed_everything
 from speechbrain_tpu_torch.utils.signals import make_check_signal
 from speechbrain_tpu_torch.utils.train_logger import FileTrainLogger
+
+# the wav2vec 2.0 pretraining twin (its folder's name holds hyphens)
+w2v_pretrain_recipe = importlib.import_module(
+    "speechbrain_tpu_torch.recipes.LibriSpeech.self-supervised-learning."
+    "wav2vec2.train_sb_wav2vec2")
 
 SR = 16000
 
@@ -1167,9 +1187,10 @@ def check_b3():
     hops; the two signals that show a DFT scheme's precision
     (:func:`make_check_signal`), the chirp with noise 60 dB down at the main
     path's shape from eight seeds and noise bursts with digital silence,
-    also at n_fft 512; hops whose 64 frames do not fit a block (320 at
-    16 kHz; 441 at 44.1 kHz and n_fft 2048); and the three signals at the
-    CRDNN recipe's 40 mels (80 elsewhere)."""
+    also at n_fft 512; noise and bursts at BEST-RQ's (8, 256000); hops
+    whose 64 frames do not fit a block (320 at 16 kHz; 441 at 44.1 kHz and
+    n_fft 2048); and the three signals at the CRDNN recipe's 40 mels (80
+    elsewhere)."""
     worst = 0.0
     rows = []
     cases = [
@@ -1182,6 +1203,13 @@ def check_b3():
         ("bursts", 2, 4.0, 10, 512, SR, 10),
         ("chirp", 2, 4.0, 20, 400, SR, 20),
         ("noise", 2, 4.0, 10, 2048, 44100, 44),
+        # BEST-RQ's batches: 8 utterances of 16 s. Noise and bursts: the
+        # two float32 references part by up to 5e-3 on long chirps (C15; a
+        # 16 s chirp at seed 21 put the kernel 0.0059 dB from the unfused
+        # Fbank and 0.0023 from its plain version); ssl_path holds the
+        # chirp at this shape against the plain version
+        ("noise", 8, 16.0, 10, 400, SR, 19),
+        ("bursts", 8, 16.0, 10, 400, SR, 21),
         # the CRDNN recipe's 40 mels
         ("noise", 8, 10.0, 10, 400, SR, 40, 40),
         ("chirp", 8, 10.0, 10, 400, SR, 41, 40),
@@ -8005,6 +8033,396 @@ def run_frame_path(out_dir, device="cuda"):
                              "path's prediction")
     return launches, b3
 
+SSL_W2V = "recipes/LibriSpeech/self-supervised-learning/wav2vec2"
+SSL_BRQ = "recipes/LibriSpeech/self-supervised-learning/BEST-RQ"
+SSL_CTC = "recipes/LibriSpeech/ASR/CTC"
+# every other twin of the slice, one step each from its own --debug corpus:
+# (folder, script, yaml)
+SSL_TWINS = (
+    ("recipes/Libri-Light/self-supervised-learning/wav2vec2", "train",
+     "wav2vec2.yaml"),
+    ("recipes/Libri-Light/self-supervised-learning/BEST-RQ", "train",
+     "bestrq.yaml"),
+    ("recipes/CommonVoice/self-supervised-learning/wav2vec2",
+     "train_hf_wav2vec2", "train_hf_wav2vec2.yaml"),
+    *(("recipes/DVoice/ASR/CTC", "train_with_wav2vec2", f"{name}.yaml")
+      for name in ("train_with_wav2vec2", "train_amh_with_wav2vec",
+                   "train_dar_with_wav2vec", "train_fon_with_wav2vec",
+                   "train_multi_with_wav2vec", "train_sw_with_wav2vec",
+                   "train_wol_with_wav2vec")),
+)
+# the corpus of the full-width runs: train utterances of 15-16 s, padded to
+# 16 s (the twins pad to multiples of 0.5 and 1 s), valid ones of 16 s;
+# one tone a character, 80 ms each
+SSL_CORPUS = dict(seconds=(15.0, 16.0), valid_seconds=16.0, char_s=0.08)
+SSL_BATCH = 8
+SSL_STEPS = 3
+SSL_SERVE_REPEATS = 3
+SSL_WORDS = ("self", "supervised", "speech", "wave", "vector", "quantised",
+             "target", "masked", "frames", "codebook")
+# B3 at BEST-RQ's batches: 8 utterances of 16 s at 80 mels
+SSL_B3_SHAPES = ((8, 256000, 80),)
+SSL_REDUCED = {
+    "weights": "random, from each twin YAML's seed",
+    "corpus": "synthetic tones (one a character, 80 ms) with noise 26 dB "
+              "down, 15-16 s an utterance, made with numpy from a seed",
+    "epochs": "one epoch of 3 steps a run (wav2vec 2.0 and BEST-RQ "
+              "pretraining, both fine-tunings); one step of every other "
+              "twin",
+}
+# text edits of every SSL twin YAML: none on the card (full width); the CPU
+# test shrinks the models with them
+SSL_YAML_EDITS = []
+
+
+def ssl_yaml(folder, yaml, data, out, device, overrides=None):
+    """An SSL twin's YAML after ``SSL_YAML_EDITS``, with one epoch, its data
+    and output folders, ``device`` and ``overrides``: the hparams."""
+    from speechbrain_tpu_torch.utils.hyperyaml import load_hyperpyyaml
+
+    with open(os.path.join(PORT_ROOT, folder, "hparams", yaml),
+              encoding="utf-8") as f:
+        text = f.read()
+    for old, new in SSL_YAML_EDITS:
+        text = text.replace(old, new)
+    over = {"output_folder": out, "number_of_epochs": 1, "device": device}
+    if data is not None:
+        over.update(data_folder=data,
+                    train_annotation=os.path.join(data, "train.json"),
+                    valid_annotation=os.path.join(data, "valid.json"))
+    over.update(overrides or {})
+    return load_hyperpyyaml(text, over)
+
+
+def _ssl_module(folder, script):
+    return importlib.import_module(
+        "speechbrain_tpu_torch." + folder.replace("/", ".") + "." + script)
+
+
+def write_ssl_corpus(folder, n_train, n_valid, cfg=None, seed=0):
+    """Speech-like utterances with transcripts: the words of ``SSL_WORDS``
+    in turn (the valid split's from those the train split used), one tone a
+    character (``char_s`` each, silence for a space) over noise 26 dB down,
+    ``train.json`` and ``valid.json`` with ``wav``, ``length`` and
+    ``words``."""
+    cfg = cfg or SSL_CORPUS
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    seg = int(SR * cfg["char_s"])
+    # the valid split takes its words in turn from those the train split
+    # used, so that the character encoder made from it knows them all
+    pool = SSL_WORDS
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        manifest, used, word = {}, [], 0
+        for i in range(n):
+            secs = (cfg["valid_seconds"] if split == "valid"
+                    else float(rng.uniform(*cfg["seconds"])))
+            T = int(SR * secs)
+            words = []
+            while not words or (len(" ".join(words)) + 12) * seg < T:
+                words.append(pool[word % len(pool)])
+                word += 1
+            used += [w for w in words if w not in used]
+            text = " ".join(words)
+            freq = np.repeat([0.0 if c == " " else 150.0 + 40.0 * (ord(c) % 26)
+                              for c in text], seg)
+            freq = np.pad(freq, (0, T - len(freq)))
+            wav = (0.3 * np.sin(2 * np.pi * np.cumsum(freq) / SR)
+                   * (freq > 0) + 0.015 * rng.standard_normal(T))
+            path = os.path.join(folder, f"{split}_{i:03d}.wav")
+            write_audio(path, wav.astype(np.float32), SR)
+            manifest[f"{split}_{i:03d}"] = {"wav": path, "length": secs,
+                                            "words": text}
+        with open(os.path.join(folder, f"{split}.json"), "w") as f:
+            json.dump(manifest, f)
+        pool = used
+
+
+def _ssl_run_opts(device, steps, precision="fp32"):
+    return {"device": device, "noprogressbar": True, "debug": True,
+            "debug_batches": steps, "debug_epochs": 1,
+            "precision": precision}
+
+
+class TimedW2VBrain(TimedSteps, w2v_pretrain_recipe.SBW2V2Pretrain):
+    """The wav2vec 2.0 twin's Brain with :class:`TimedSteps`' readings and
+    each train step's ``prob_perplexity``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.perplexities = []
+
+    def compute_objectives(self, predictions, batch, stage):
+        if stage == Stage.TRAIN:
+            self.perplexities.append(predictions[4].item())
+        return super().compute_objectives(predictions, batch, stage)
+
+
+def _ssl_train(folder, script, yaml, work, data, device, steps, precision,
+               overrides=None, brain_cls=None):
+    """``steps`` batches of an SSL twin's ``run`` from its YAML: ``(brain,
+    hparams, datasets, counts, seconds, peak)``, the launch counts set to
+    0 just before the run and read just after it. ``data`` None: the
+    twin's own ``--debug`` corpus."""
+    os.makedirs(work, exist_ok=True)
+    hparams = ssl_yaml(folder, yaml, data, work, device, overrides)
+    module = _ssl_module(folder, script)
+    brain_cls = brain_cls or type(
+        "Timed" + _default_brain(module.run).__name__,
+        (TimedSteps, _default_brain(module.run)), {})
+    (brain, datasets), counts, secs, peak = _timed_run(
+        lambda: module.run(hparams, _ssl_run_opts(device, steps, precision),
+                           brain_cls=brain_cls), device)
+    return brain, hparams, datasets, counts, secs, peak
+
+
+def _ssl_line(brain, counts, secs, peak, predicted_b3):
+    line = _train_line(brain, counts, secs, peak,
+                       sum(p.numel() for p in brain.modules.parameters()))
+    line["predicted_b3"] = predicted_b3
+    line["peak_gb"] = peak / 1e9
+    return line
+
+
+def _ssl_serve(brain, datasets, device):
+    """The fine-tuned Brain's ``transcribe_batch`` (bf16, greedy CTC) on the
+    valid split's first ``SSL_BATCH`` utterances: the launches of the first
+    call and of all ``calls`` (that one, a warm-up and
+    ``SSL_SERVE_REPEATS`` timed ones), the median ms of the timed ones,
+    audio seconds a second, the hypotheses' lengths. B3 launches once a
+    call where the model's Fbank is fused."""
+    from speechbrain_tpu_torch.dataio.batch import PaddedBatch
+
+    batch = PaddedBatch([datasets["valid"][i] for i in range(SSL_BATCH)])
+    wavs, lens = batch["sig"]
+    with torch.autocast(torch.device(device).type, dtype=torch.bfloat16):
+        _sync(device)
+        reset_launch_counts()
+        hyps = brain.transcribe_batch(batch)
+        _sync(device)
+        one_call = launch_counts()
+        ms, all_ms, _ = _elapsed_ms(lambda: brain.transcribe_batch(batch),
+                                    SSL_SERVE_REPEATS, device)
+        counts = launch_counts()
+    audio_s = float(lens.sum()) * wavs.shape[1] / SR
+    return {"ms": ms, "ms_all": all_ms, "shape": list(wavs.shape),
+            "audio_s_per_s": audio_s / (ms / 1e3), "launches": counts,
+            "launches_one_call": one_call, "calls": 2 + SSL_SERVE_REPEATS,
+            "hyp_lengths": [len(h) for h in hyps],
+            "ok": len(hyps) == SSL_BATCH and all(
+                isinstance(c, int) for h in hyps for c in h)}
+
+
+def run_ssl_w2v(out_dir, data, device="cuda"):
+    """wav2vec 2.0 pretraining at the YAML's full width: ``SSL_STEPS``
+    AdamW steps in float32 and, from a fresh init, in bf16, each run's
+    valid batch and checkpoint; the float32 run's checkpoint recovered
+    into modules built anew, bit for bit."""
+    lines = {}
+    for precision in ("fp32", "bf16"):
+        work = os.path.join(out_dir, f"w2v_{precision}")
+        brain, hparams, _, counts, secs, peak = _ssl_train(
+            SSL_W2V, "train_sb_wav2vec2", "train_sb_wav2vec2.yaml", work,
+            data, device, SSL_STEPS, precision, brain_cls=TimedW2VBrain)
+        line = _ssl_line(brain, counts, secs, peak, 0)
+        line["prob_perplexity"] = brain.perplexities
+        line["codebook_entries"] = (hparams["quantiser_vars"]
+                                    * hparams["quantiser_groups"])
+        if precision == "fp32":
+            fresh = ssl_yaml(SSL_W2V, "train_sb_wav2vec2.yaml", data, work,
+                             device, {"seed": 7})
+            modules = torch.nn.ModuleDict(fresh["modules"])
+            fresh["checkpointer"].add_recoverable("modules", modules)
+            fresh["checkpointer"].recover_if_possible()
+            line["recovered_bitwise"] = _bitwise_equal(brain.modules, modules)
+        line["ok"] = bool(
+            len(brain.losses) == SSL_STEPS and np.isfinite(brain.losses).all()
+            and line["checkpoints"] == 1
+            and all(0 < p <= line["codebook_entries"]
+                    for p in brain.perplexities)
+            and line.get("recovered_bitwise", True)
+            and all(v == 0 for v in counts.values()))
+        lines[precision] = line
+        del brain, hparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines
+
+
+def run_ssl_bestrq(out_dir, data, device="cuda"):
+    """BEST-RQ pretraining at the YAML's full width (bf16, B3 once a
+    batch): the quantiser's buffers bit for bit after the steps and in
+    no optimizer group; the front end and encoder written where
+    ``train_with_bestrq`` reads them. Returns ``(line, save_folder)``."""
+    work = os.path.join(out_dir, "bestrq")
+    frozen = {}
+
+    class FrozenBRQ(TimedSteps, _ssl_module(SSL_BRQ, "train").BestRQ):
+        def on_fit_start(self):
+            super().on_fit_start()
+            q = self.modules.quantizer
+            frozen.update(P=q.P.clone(), CB=q.CB.clone(),
+                          in_optimizer=any(
+                              p is b for g in self.optimizer.param_groups
+                              for p in g["params"] for b in q.buffers()))
+
+    brain, hparams, _, counts, secs, peak = _ssl_train(
+        SSL_BRQ, "train", "bestrq.yaml", work, data, device, SSL_STEPS,
+        "bf16", brain_cls=FrozenBRQ)
+    q = brain.modules.quantizer
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = _ssl_line(brain, counts, secs, peak, n_fwd)
+    save = hparams["save_folder"]
+    line.update(
+        buffers_bitwise=bool(torch.equal(q.P, frozen["P"])
+                             and torch.equal(q.CB, frozen["CB"])),
+        buffers_in_optimizer=frozen["in_optimizer"],
+        quantiser_parameters=sum(p.numel() for p in q.parameters()),
+        exported=sorted(f for f in os.listdir(save) if f.endswith(".ckpt")))
+    line["ok"] = bool(
+        len(brain.losses) == SSL_STEPS and np.isfinite(brain.losses).all()
+        and line["buffers_bitwise"] and not line["buffers_in_optimizer"]
+        and line["quantiser_parameters"] == 0
+        and line["exported"] == ["encoder.ckpt", "frontend.ckpt"]
+        and counts["fused_fbank"] == n_fwd
+        and sum(counts.values()) == n_fwd)
+    return line, save
+
+
+def run_ssl_finetune_bestrq(out_dir, data, pretrained, device="cuda"):
+    """``train_with_bestrq`` at full width from the BEST-RQ export (bf16,
+    B3 once a batch): the pour checked on modules built anew (the front
+    end's tensors and the encoder's shared ones bit for bit, 3 relative
+    position tensors a layer left at their init: C54); then served by
+    greedy CTC with B3 once a call."""
+    ft = _ssl_module(SSL_CTC, "train_with_bestrq")
+    work = os.path.join(out_dir, "ft_bestrq")
+    check = ssl_yaml(SSL_CTC, "train_with_bestrq.yaml", data,
+                     work + "_pour", device, {"pretrained_folder": pretrained})
+    fresh_names = ft.pour_pretrained(check)
+    poured = True
+    for name in ft.ENCODER_MODULES:
+        saved = torch.load(os.path.join(pretrained, f"{name}.ckpt"),
+                           map_location=device, weights_only=True)
+        state = check[name].state_dict()
+        poured = poured and all(torch.equal(state[k], v)
+                                for k, v in saved.items())
+    del check
+    brain, hparams, datasets, counts, secs, peak = _ssl_train(
+        SSL_CTC, "train_with_bestrq", "train_with_bestrq.yaml", work, data,
+        device, SSL_STEPS, "bf16", {"pretrained_folder": pretrained})
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = _ssl_line(brain, counts, secs, peak, n_fwd)
+    serve = _ssl_serve(brain, datasets, device)
+    line.update(poured_bitwise=poured, left_at_init=len(fresh_names),
+                serve=serve, lr_groups={
+                    g["name"]: g["lr"] for g in brain.optimizer.param_groups})
+    line["predicted_b3"] += serve["calls"]
+    layers = hparams["num_encoder_layers"]
+    line["ok"] = bool(
+        poured and len(fresh_names) == 3 * layers
+        and len(brain.losses) == SSL_STEPS and np.isfinite(brain.losses).all()
+        and counts["fused_fbank"] == n_fwd
+        and sum(counts.values()) == n_fwd and serve["ok"]
+        and serve["launches_one_call"]["fused_fbank"] == 1
+        and sum(serve["launches_one_call"].values()) == 1)
+    line["launches"] = {k: v + serve["launches"][k]
+                        for k, v in counts.items()}
+    return line
+
+
+def run_ssl_finetune_w2v(out_dir, data, device="cuda"):
+    """``train_with_wav2vec`` at full width (bf16; no kernel), then served
+    by greedy CTC."""
+    brain, hparams, datasets, counts, secs, peak = _ssl_train(
+        SSL_CTC, "train_with_wav2vec", "train_with_wav2vec.yaml",
+        os.path.join(out_dir, "ft_w2v"), data, device, SSL_STEPS, "bf16")
+    line = _ssl_line(brain, counts, secs, peak, 0)
+    serve = _ssl_serve(brain, datasets, device)
+    line["serve"] = serve
+    line["ok"] = bool(
+        len(brain.losses) == SSL_STEPS and np.isfinite(brain.losses).all()
+        and serve["ok"] and sum(serve["launches"].values()) == 0
+        and all(v == 0 for v in counts.values()))
+    return line
+
+
+def run_ssl_twin(folder, script, yaml, out_dir, device="cuda"):
+    """One bf16 step and the valid stage of a twin from its YAML at full
+    width, on its own ``--debug`` corpus."""
+    work = os.path.join(out_dir, "_".join(folder.split("/")[1:] + [yaml[:-5]]))
+    over = {"data_folder": os.path.join(work, "data")}
+    brain, hparams, _, counts, secs, peak = _ssl_train(
+        folder, script, yaml, work, None, device, 1, "bf16", over)
+    fused = getattr(hparams.get("compute_features"), "fused", False)
+    n_fwd = brain.forwards[Stage.TRAIN] + brain.forwards[Stage.VALID]
+    line = _ssl_line(brain, counts, secs, peak, n_fwd if fused else 0)
+    line["parameters_finite"] = all(bool(torch.isfinite(p).all())
+                                    for p in brain.modules.parameters())
+    line["ok"] = bool(
+        len(brain.losses) == 1 and np.isfinite(brain.losses).all()
+        and line["parameters_finite"]
+        and counts["fused_fbank"] == line["predicted_b3"]
+        and sum(counts.values()) == line["predicted_b3"])
+    return line
+
+
+def run_ssl_path(out_dir, device="cuda"):
+    """B3 against its plain version at BEST-RQ's shape; wav2vec 2.0
+    pretraining (:func:`run_ssl_w2v`); BEST-RQ pretraining
+    (:func:`run_ssl_bestrq`); the CTC fine-tuning from its export, served
+    (:func:`run_ssl_finetune_bestrq`); the wav2vec 2.0 CTC fine-tuning,
+    served (:func:`run_ssl_finetune_w2v`); one step of every other twin.
+    Returns each kernel's launches over the path (the counts set to 0
+    just before each stage and read just after it) and B3's errors."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    b3 = check_b3_at_shapes(SSL_B3_SHAPES, device)
+    emit({"phase": "ssl_b3_check", "max_abs_err_db": b3, "atol": B3_ATOL,
+          "ok": max(b3.values()) <= B3_ATOL})
+    if max(b3.values()) > B3_ATOL:
+        raise AssertionError(f"ssl_path: B3 against its plain version {b3}")
+    data = os.path.join(out_dir, "data")
+    write_ssl_corpus(data, SSL_BATCH * SSL_STEPS, SSL_BATCH)
+    launches = {name: 0 for name in KERNELS}
+    predicted = 0
+
+    def add(line, label):
+        nonlocal predicted
+        line["gpu_name_power_limit"] = gpu_name_power_limit()
+        emit({"phase": f"ssl_path/{label}", **line})
+        for k, v in line["launches"].items():
+            launches[k] += v
+        predicted += line["predicted_b3"]
+        if not line["ok"]:
+            raise AssertionError(f"ssl_path: {label} failed")
+        # the Brain and its checkpointer hold each other: free the run's
+        # modules and optimizer before the next one's peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for precision, line in run_ssl_w2v(out_dir, data, device).items():
+        add(line, f"wav2vec2_pretrain/{precision}")
+    line, pretrained = run_ssl_bestrq(out_dir, data, device)
+    add(line, "bestrq_pretrain")
+    add(run_ssl_finetune_bestrq(out_dir, data, pretrained, device),
+        "train_with_bestrq")
+    add(run_ssl_finetune_w2v(out_dir, data, device), "train_with_wav2vec")
+    for folder, script, yaml in SSL_TWINS:
+        add(run_ssl_twin(folder, script, yaml, out_dir, device),
+            f"{folder.split('/')[1]}/{yaml}")
+    ok = launches["fused_fbank"] == predicted > 0 and all(
+        v == 0 for k, v in launches.items() if k != "fused_fbank")
+    emit({"phase": "ssl_path_summary", "launches": launches,
+          "predicted_b3": predicted, "reduced": SSL_REDUCED,
+          "seconds": time.perf_counter() - t0, "ok": ok,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    if not ok:
+        raise AssertionError("ssl_path: B3's launches are not the path's "
+                             "prediction")
+    return launches, b3
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -8213,6 +8631,11 @@ def main():
             kernel["launches_by_path"]["frame_path"] = \
                 frame_launches[kernel["name"]]
         torch.cuda.empty_cache()
+        ssl_launches, ssl_b3_err = run_ssl_path(os.path.join(out_dir, "ssl"))
+        for kernel in kernels:
+            kernel["launches_by_path"]["ssl_path"] = \
+                ssl_launches[kernel["name"]]
+        torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -8246,6 +8669,10 @@ def main():
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),
                            "n_mels": n_mels,
                            "max_abs_err": frame_b3_err[f"{B}x{T}@{n_mels}"]}
+    for B, T, n_mels in SSL_B3_SHAPES:
+        kernels[1]["at_bestrq_shape"] = {
+            **measure_b3_at(B, T, n_mels=n_mels), "n_mels": n_mels,
+            "max_abs_err": ssl_b3_err[f"{B}x{T}@{n_mels}"]}
     for (B, T, n_mels), key in zip(CLASSIFY_B3_SHAPES, (
             "at_esc50_shape", "at_urbansound8k_shape")):
         kernels[1][key] = {**measure_b3_at(B, T, n_mels=n_mels),

@@ -1,7 +1,7 @@
 """Manifests, audio files and token sequences (port of
 ``load_data_json``, ``load_data_csv``, ``read_audio``, ``read_audio_info``,
-``read_audio_multichannel``, ``write_audio``, ``merge_char`` and
-``split_word`` from
+``read_audio_multichannel``, ``write_audio``, ``merge_char``,
+``split_word``, ``length_to_mask`` and ``relative_length_to_mask`` from
 ``speechbrain_tpu/dataio/dataio.py``).
 
 Audio is WAV read by the native decoder (``io/native.py``: 8-bit
@@ -18,6 +18,7 @@ import re
 import wave
 
 import numpy as np
+import torch
 
 from speechbrain_tpu_torch.io.native import read_wav, read_wav_mono, wav_info
 
@@ -178,3 +179,36 @@ def split_word(sequences, space="_"):
             chars.extend(word)
         results.append(chars)
     return results
+
+
+def length_to_mask(length, max_len=None, dtype=None, device=None):
+    """Absolute lengths ``(B,)`` to a boolean mask ``(B, max_len)``, True
+    inside each length; ``max_len`` defaults to the largest length.
+
+    Example
+    -------
+    >>> length_to_mask(torch.tensor([2, 3]), max_len=4).int().tolist()
+    [[1, 1, 0, 0], [1, 1, 1, 0]]
+    """
+    length = torch.as_tensor(length, device=device)
+    if max_len is None:
+        max_len = int(length.max())
+    positions = torch.arange(max_len, device=length.device)[None, :]
+    mask = positions < length[:, None]
+    return mask if dtype is None else mask.to(dtype)
+
+
+def relative_length_to_mask(rel_length, max_len, dtype=None, device=None):
+    """A mask from relative lengths in [0, 1] of ``max_len`` frames:
+    ``round(rel_length * max_len)`` frames each, rounding half to even as
+    ``jnp.round`` does.
+
+    Example
+    -------
+    >>> relative_length_to_mask(torch.tensor([0.625, 1.0]), 4).int().tolist()
+    [[1, 1, 0, 0], [1, 1, 1, 1]]
+    """
+    rel_length = torch.as_tensor(rel_length, dtype=torch.float32,
+                                 device=device)
+    lengths = torch.round(rel_length * max_len).to(torch.int32)
+    return length_to_mask(lengths, max_len=max_len, dtype=dtype)

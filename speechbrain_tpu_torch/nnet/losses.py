@@ -5,7 +5,8 @@
 ``l1_loss``, the frame classifiers' ``bce_loss``, the speaker family's margins
 ``AngularMargin``, ``AdditiveAngularMargin`` and ``LogSoftmaxWrapper``,
 and the separation objectives ``cal_si_snr``, ``cal_snr``,
-``PitWrapper`` and ``get_si_snr_with_pitwrapper``).
+``PitWrapper`` and ``get_si_snr_with_pitwrapper``, and wav2vec 2.0's
+``contrastive_loss``).
 
 Conventions as in the JAX package: predictions (batch, time, ...) with
 *relative* lengths in [0, 1], turned into counts by ``round(len * T)``
@@ -478,3 +479,17 @@ class _LogAddExp(torch.autograd.Function):
     def backward(ctx, grad):
         a, b, out = ctx.saved_tensors
         return grad * torch.exp(a - out), grad * torch.exp(b - out)
+
+
+def contrastive_loss(pos_sim, neg_sim, temperature=0.1):
+    """InfoNCE from similarities: ``pos_sim`` ``(...)`` and ``neg_sim``
+    ``(..., N)``; the mean over ``...`` of the positive's negative
+    log-softmax among the ``N + 1`` logits ``sim / temperature``.
+
+    Example
+    -------
+    >>> round(contrastive_loss(torch.zeros(2), torch.zeros(2, 3)).item(), 4)
+    1.3863
+    """
+    logits = torch.cat([pos_sim[..., None], neg_sim], dim=-1) / temperature
+    return -torch.log_softmax(logits, dim=-1)[..., 0].mean()

@@ -69,6 +69,13 @@ the way:
   ``LearnableSigmoid``'s ``slope`` goes over as it is; the BLSTM loads as
   every ``LSTM`` does, the convolutions as ``Conv1d``/``Conv2d``/
   ``ConvTranspose1d``;
+* the SSL modules: ``W2VLatentExtractor`` child by child (``conv_{i}``
+  as ``Conv1d``, ``norm_{i}``, the final ``norm``, flax's own LayerNorm
+  with no ``LayerNorm_0`` scope); ``GumbelVectorQuantizer``'s
+  ``weight_proj`` and its ``codebook`` as it is; ``W2VTargetQuantiser``'s
+  ``quantiser`` and ``proj``; ``RandomProjectionQuantizer``'s ``P`` and
+  ``CB`` as they are, into its buffers; a whole SSL recipe's modules
+  through :func:`load_modules`;
 * a variational posterior (BayesSpeech): ``{"mu": ..., "rho": ...}``, each
   a tree of the recipe's modules, into the modules and their
   ``PosteriorRho`` (:func:`load_posterior`).
@@ -105,6 +112,7 @@ from speechbrain_tpu_torch.lobes.models import focalnet
 from speechbrain_tpu_torch.lobes.models import ResNet as resnet
 from speechbrain_tpu_torch.lobes.models import resepformer
 from speechbrain_tpu_torch.lobes.models import segan_model
+from speechbrain_tpu_torch.lobes.models import wav2vec
 from speechbrain_tpu_torch.lobes.models import Xvector as xvector
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN, FeatureChannelNorm
@@ -162,6 +170,10 @@ from speechbrain_tpu_torch.nnet.normalization import (
 from speechbrain_tpu_torch.nnet.pooling import (
     AttentionPooling,
     GaussianLowpassPooling,
+)
+from speechbrain_tpu_torch.nnet.quantisers import (
+    GumbelVectorQuantizer,
+    RandomProjectionQuantizer,
 )
 from speechbrain_tpu_torch.nnet.RNN import (
     GRU,
@@ -666,6 +678,10 @@ _LOADERS = {
     metricgan.EnhancementGenerator: load_named_children,
     metricgan.MetricDiscriminator: load_named_children,
     metricgan_u.MetricDiscriminator: load_named_children,
+    wav2vec.W2VLatentExtractor: load_named_children,
+    wav2vec.W2VTargetQuantiser: load_named_children,
+    GumbelVectorQuantizer: _own("codebook"),
+    RandomProjectionQuantizer: _own("P", "CB"),
 }
 
 

@@ -4,6 +4,7 @@ perturbed, and carried across by ``utils/jax_bridge``; inputs from numpy.
 
 atol 1e-5: float32 matrix products and softmax sums in another order."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ Weights are drawn with numpy into the shapes of flax's variables
 Tolerance: 1e-5 relative L2 in float32 for outputs and running
 statistics, 1e-4 for the whole gradient (``GRAD_RTOL``); tokens equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 
 import numpy as np

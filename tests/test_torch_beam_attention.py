@@ -4,6 +4,7 @@ and against its Pallas kernel in interpret mode, on the same numpy inputs.
 float32, atol 1e-5: the three compute the same sums in float32 in another
 order."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@
   counted as its launches).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import os

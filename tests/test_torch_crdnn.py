@@ -17,6 +17,7 @@ weights (the port's 7e-6); 1e-4 on search scores (summed over up to 25
 steps; the JAX CTC prefix scorer reads its posteriors through a bf16
 hi/lo split, ROADMAP.md C6). Hypotheses must be equal token for token."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -277,7 +277,10 @@ _CLASSIFY_FBANK_CASES = {
 def test_fused_fbank_kernel_at_the_classifier_batches(card, case):
     """One launch at each batch, within 5e-3 dB of the plain version and
     of the unfused Fbank."""
-    kind, batch, samples = _CLASSIFY_FBANK_CASES[case]
+    _one_launch_within_5e_3_db(card, *_CLASSIFY_FBANK_CASES[case])
+
+
+def _one_launch_within_5e_3_db(card, kind, batch, samples):
     wav = torch.from_numpy(
         make_check_signal(kind, batch, samples, seed=5)).to(card)
     fused = Fbank(n_mels=80, fused=True, device=card)
@@ -290,6 +293,20 @@ def test_fused_fbank_kernel_at_the_classifier_batches(card, case):
     assert out.shape[1] == 1 + samples // fused.compute_STFT.hop_length
     assert float((out - plain).abs().max()) <= 5e-3
     assert float((out - unfused).abs().max()) <= 5e-3
+
+
+_BESTRQ_FBANK_CASES = {
+    "bestrq_noise": ("noise", 8, 256000),
+    "bestrq_chirp": ("chirp", 8, 256000),
+    "bestrq_bursts": ("bursts", 8, 256000),
+}
+
+
+@pytest.mark.parametrize("case", list(_BESTRQ_FBANK_CASES))
+def test_fused_fbank_kernel_at_the_bestrq_batch(card, case):
+    """BEST-RQ's batches (8 utterances of 16 s, 80 mels): one launch,
+    within 5e-3 dB of the plain version and of the unfused Fbank."""
+    _one_launch_within_5e_3_db(card, *_BESTRQ_FBANK_CASES[case])
 
 
 @pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])

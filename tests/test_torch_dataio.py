@@ -7,6 +7,7 @@ each side's ``Checkpointer``, and the shuffled order against JAX's
 ``ReproducibleRandomSampler``. Everything here is exact: audio samples,
 padded arrays, relative lengths and orders must be equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 
 import numpy as np

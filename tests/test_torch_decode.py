@@ -12,6 +12,7 @@ a few layers deep, sums in another order; the JAX prefix scorer also reads
 its posteriors through a bf16 hi/lo split that keeps about 16 bits of
 mantissa). Hypotheses must be equal token for token."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

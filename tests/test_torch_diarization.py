@@ -15,6 +15,7 @@ on the same numpy inputs, on the CPU:
   (ROADMAP C52), the port does not.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import warnings
 
 import numpy as np

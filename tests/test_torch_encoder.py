@@ -7,6 +7,7 @@ tensors, ``collapse_indices_ndim``, ``load_or_create`` from a dataset, and
 the transfer hook through which a ``Pretrainer`` loads a label file. Every
 comparison is exact: these are integers and strings."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 
 import numpy as np

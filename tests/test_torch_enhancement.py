@@ -24,6 +24,7 @@ Tolerance: 1e-5 relative L2 in float32 (module outputs, transforms,
 losses), 1e-6 absolute for the running statistics, 1e-6 for STOI (the
 same float64 arithmetic)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 import math
 

@@ -24,6 +24,7 @@
   the trained model, the ISTFT round trips, no kernel launched.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib
 import importlib.util
 import json

@@ -18,6 +18,7 @@ on search scores (a few layers deep and summed over up to 24 steps; the JAX
 CTC prefix scorer also reads its posteriors through a bf16 hi/lo split,
 ROADMAP.md C6). Hypotheses must be equal token for token."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

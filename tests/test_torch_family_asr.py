@@ -5,6 +5,7 @@ a small size: encode, forward and the KV-cached decode step. The models,
 their weights and the tolerance (1e-4: a few layers deep, float32 on both
 sides, sums in another order) are ``test_torch_families.py``'s."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import pytest
 import torch

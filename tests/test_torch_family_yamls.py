@@ -3,6 +3,7 @@ encoder families: each YAML loads through the port's ``utils/hyperyaml.py``
 on the CPU and builds modules with the widths and depths of the JAX YAML of
 the same name, which is read here as text (nothing of JAX is imported)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import re
 

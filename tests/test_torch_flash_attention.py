@@ -13,6 +13,7 @@ full: there the JAX kernel's padded keys and the unfused path disagree, and
 the port follows the unfused path.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

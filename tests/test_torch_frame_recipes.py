@@ -26,6 +26,7 @@ emotion_diarization``, ``recipes/AMI/Diarization``), on the CPU:
   hold (a few steps at a cut width do not train it that far).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import logging

@@ -26,6 +26,7 @@ float64 arithmetic), 2e-6 absolute for parameters after three Adam
 steps at a rate of 1e-3 (each update is about the rate, whatever the
 gradient's scale)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 import importlib.util
 from pathlib import Path

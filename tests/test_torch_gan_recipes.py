@@ -22,6 +22,7 @@
   its launches and refusing a graph as the kernel's wrapper does).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib
 import importlib.util
 import json

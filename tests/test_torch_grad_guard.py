@@ -9,6 +9,7 @@ versions, which the wrappers take for CPU tensors, carry gradients.
 (``tests/test_torch_cuda_kernels.py`` holds the same guard on the card,
 through the public wrappers.)"""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 import torch
 

@@ -14,6 +14,7 @@ A window of NaN micro-batches leaves the parameters and AdamW's state bit
 for bit as they were. Averages of checkpoints are float64 means: held
 exactly."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import logging
 

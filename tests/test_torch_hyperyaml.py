@@ -12,6 +12,7 @@ its ``__set_seed`` never runs), and the port's ``resolve_yaml`` writes no
 document-end marker after an overridden scalar (JAX's file does not load
 again)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import fractions
 import functools
 import math

@@ -5,6 +5,7 @@ GPU or PyYAML; and an entry point asked for a CUDA device that is not
 there (the serving interfaces included) raises instead of carrying on on
 the CPU."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import importlib
 import pathlib
@@ -165,6 +166,55 @@ def test_speaker_entry_points_default_to_cuda_and_raise_without_it(name):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises((RuntimeError, AssertionError)):
         _speaker_entry_points()[name]()
+
+
+def _ssl_entry_points():
+    from speechbrain_tpu_torch.lobes.models import BESTRQ, wav2vec
+    from speechbrain_tpu_torch.nnet import quantisers
+
+    return {
+        "W2VLatentExtractor": lambda: wav2vec.W2VLatentExtractor(
+            out_channels=(4, 4), kernel_sizes=(3, 3), strides=(2, 2)),
+        "W2VTargetQuantiser": lambda: wav2vec.W2VTargetQuantiser(8, 4, 4),
+        "GumbelVectorQuantizer": lambda: quantisers.GumbelVectorQuantizer(
+            8, num_vars=4, vq_dim=4),
+        "RandomProjectionQuantizer":
+            lambda: quantisers.RandomProjectionQuantizer(8, 4, 16),
+        "w2v_mask": lambda: wav2vec.w2v_mask((2, 20), 0.2, 4),
+        "brq_mask": lambda: BESTRQ.brq_mask((2, 20), 0.2, 4),
+    }
+
+
+# the SSL slice's modules, among the files test_no_jax_imports reads
+SSL_FILES = (
+    "nnet/quantisers.py", "lobes/models/wav2vec.py", "lobes/models/BESTRQ.py",
+    "lobes/models/fairseq_wav2vec.py", "dataio/dataio.py",
+    "recipes/LibriSpeech/self-supervised-learning/wav2vec2/"
+    "train_sb_wav2vec2.py",
+    "recipes/LibriSpeech/self-supervised-learning/BEST-RQ/train.py",
+    "recipes/LibriSpeech/ASR/CTC/train_with_bestrq.py",
+    "recipes/LibriSpeech/ASR/CTC/train_with_wav2vec.py",
+    "recipes/Libri-Light/self-supervised-learning/wav2vec2/train.py",
+    "recipes/Libri-Light/self-supervised-learning/BEST-RQ/train.py",
+    "recipes/CommonVoice/self-supervised-learning/wav2vec2/"
+    "train_hf_wav2vec2.py",
+    "recipes/DVoice/ASR/CTC/train_with_wav2vec2.py",
+    "recipes/DVoice/ASR/CTC/prepare.py",
+)
+
+
+@pytest.mark.parametrize("name", [
+    "W2VLatentExtractor", "W2VTargetQuantiser", "GumbelVectorQuantizer",
+    "RandomProjectionQuantizer", "w2v_mask", "brq_mask"])
+def test_ssl_entry_points_default_to_cuda_and_raise_without_it(name):
+    """The SSL modules and samplers build and draw on the card unless asked
+    otherwise, and raise where there is none; their files are among those
+    the import checks read."""
+    assert set(PORT / f for f in SSL_FILES) <= set(_port_files())
+    if _cuda_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _ssl_entry_points()[name]()
 
 
 def test_searcher_refuses_states_off_its_device():

@@ -30,6 +30,7 @@ on resampled samples (float32 sums of the same taps in another order);
 hypotheses and words exactly. The port runs on the CPU (its kernels'
 plain versions)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import pathlib
 

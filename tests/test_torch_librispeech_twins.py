@@ -22,6 +22,7 @@ features come from its unfused ``Fbank``, the port's from the fused one
 log-probabilities 1e-4 absolute, the KL 1e-5 relative (a float32 sum over
 every weight in another order), tokens equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 import importlib.util
 import os

@@ -9,6 +9,7 @@ forward recursion runs over up to 40 frames in another order (optax's
 against torch's). On an alignment that cannot be made optax gives about
 1e5 (its ``log_epsilon``), and so does the port (the last test)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

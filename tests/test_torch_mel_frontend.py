@@ -6,6 +6,7 @@ JAX's, on the same numpy waveform.
 atol 5e-3 dB is the tolerance of the JAX package's own test of its fused
 kernel (float32 DFT sums of 400 terms in another order, then a log)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ Counts, alignments, token lists and reports are equal exactly; rates
 library builds, the port its one pure-Python path: their counts must
 agree."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import io
 
 import jax.numpy as jnp

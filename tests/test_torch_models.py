@@ -7,6 +7,7 @@ perturbed, through ``utils/jax_bridge``; inputs from numpy.
 atol 1e-4: float32 throughout, a few layers deep; the two frameworks sum
 in another order."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

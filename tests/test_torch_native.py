@@ -9,6 +9,7 @@ bit against JAX's decoder, and against a numpy decode of the same bytes;
 a 24-bit and a float file written from known samples read back within one
 quantisation step (2**-23, and exactly)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import struct
 
 import numpy as np

@@ -8,6 +8,7 @@ several batches (and the global one's freeze after
 Tolerance: 1e-5 absolute on outputs of size about 1 (float32 masked sums
 over up to 12 frames in another order)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

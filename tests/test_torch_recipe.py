@@ -17,6 +17,7 @@ recipe, and the valid loss reads hundreds where it read 0.0 before the
 port's ``ctc_loss`` followed optax on such rows (``ROADMAP.md`` C11).
 Samples: within one step of 1/32768 (both write 16-bit PCM)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import math

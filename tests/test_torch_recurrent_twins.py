@@ -17,6 +17,7 @@
 * ``chip_smoke.py``'s ``recurrent_twins_path`` on the CPU at a cut width.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import re

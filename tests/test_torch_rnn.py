@@ -10,6 +10,7 @@ through ``utils/jax_bridge``; inputs come from numpy.
 Tolerances: 1e-5 absolute on outputs and gradients (float32 on both sides,
 sums in another order); 1e-6 on running statistics."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ On the CPU ``ops.gather.row_gather`` runs its plain version
 (``index_select``); the JAX function runs its Pallas kernel in interpret
 mode. A gather copies, so the two must be bitwise equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

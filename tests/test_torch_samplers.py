@@ -7,6 +7,7 @@ threaded loader yields the unthreaded loader's batches in order, resumes
 inside an epoch on the same batch, and leaves no thread behind;
 ``LoopedLoader`` counts and checkpoints as JAX's does."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import threading
 
 import numpy as np

@@ -15,6 +15,7 @@ Tolerance: 1e-6 absolute on parameters of size about 1 after three
 updates of size about 1e-3 (float32; the two AdamWs divide in another
 order). Noam's rates are Python floats on both sides: equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ the shapes of flax's variables) carried over by ``utils/jax_bridge``:
 Tolerance: 1e-5 relative L2 in float32 (outputs, losses), 1e-4 for the
 whole gradient; permutations equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@
   the trained model, no kernel launched.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib
 import importlib.util
 import json

@@ -15,6 +15,7 @@ its unfused ``Fbank``, the port's from the fused one (on the CPU its plain
 version). Tolerances: losses 1e-4 relative; running statistics 1e-5;
 optimizer states and parameters 1e-6."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import os

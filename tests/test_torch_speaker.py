@@ -15,6 +15,7 @@ for features, poolings and module outputs; 1e-4 relative for embeddings
 and losses; labels and decisions equal; the numpy back end (PLDA, LDA)
 exactly equal, the same code on the same inputs."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import copy
 
 import numpy as np

@@ -22,6 +22,7 @@ imported as it is, at a small size:
   (``torch.cuda``'s timing calls stubbed, the fused Fbank's plain version
   counted as its launches)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import os

@@ -22,6 +22,7 @@ convolution module, ``encode`` and the streamed states 1e-5 absolute
 offline features bit for bit, and JAX's within 5e-3 dB; tokens and texts
 equal; the JAX departures more than 1e-2."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import io
 
 import numpy as np

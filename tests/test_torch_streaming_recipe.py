@@ -12,6 +12,7 @@ Fbank's plain version counted as its launches).
 Weights, batches and the tolerance (the loss 1e-4 relative) are those of
 ``test_torch_transducer_recipe.py``."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import re
 import subprocess

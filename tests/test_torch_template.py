@@ -18,6 +18,7 @@ template (``templates/speech_recognition/train.py``, imported as it is).
   export, which ``EncoderASR.from_hparams`` serves with the best
   checkpoint's weights bit for bit."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import os

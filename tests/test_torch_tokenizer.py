@@ -9,6 +9,7 @@ Unigram training orders its seed pieces through a ``set`` of strings, so
 its result follows ``PYTHONHASHSEED``; the two sides are trained in this
 one process, under one hash seed (``ROADMAP.md`` Queue C)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import csv
 import json
 import shutil

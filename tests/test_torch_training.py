@@ -15,6 +15,7 @@ accumulation 2, clip 5, AdamW and Noam (per micro-batch losses and each
 epoch's ``avg_train_loss``); and the parameters after those steps.
 
 Weights come from a numpy seed in the recipe's parameter tree (its shapes
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from ``jax.eval_shape`` of the recipe's ``init_forward``). The JAX
 features come from its unfused ``Fbank``, the port's from the fused one
 (on the CPU its plain version): the two differ by about 1e-4 dB

@@ -13,6 +13,7 @@ Tolerances: joint 1e-5 absolute; loss 1e-4 relative; gradient 1e-5
 absolute; tokens equal; beam scores 1e-4 absolute (float32 on both sides,
 sums in another order)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

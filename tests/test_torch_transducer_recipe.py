@@ -13,6 +13,7 @@ Weights come from a numpy seed in the JAX recipe's variables (shapes from
 its unfused ``Fbank``, the port's from the fused one (on the CPU its plain
 version). Tolerance: the loss 1e-4 relative; tokens equal."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import os
 import re

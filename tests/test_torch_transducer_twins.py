@@ -7,6 +7,7 @@ YAML; the twin run from its YAML in a subprocess at the debug flags of
 ``prepare_synthetic`` against the JAX recipe's, manifests and WAV files
 byte for byte; and TIMIT's phone map against the JAX recipe's."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import json
 import os

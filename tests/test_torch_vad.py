@@ -21,6 +21,7 @@ given to both sides, so that a frame's posterior is a known function of
 that frame alone.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -5,7 +5,7 @@
 builds the hand-written kernels of ``speechbrain_tpu_torch/csrc`` with
 ``nvcc`` (at first use), holds each kernel against its plain PyTorch version
 on the card, checks that no kernel's wrapper lets a graph through
-(``grad_guard``), and drives nineteen paths at full width with random weights
+(``grad_guard``), and drives twenty paths at full width with random weights
 made from a seed, the first seven at that of the conformer-large
 LibriSpeech recipe:
 
@@ -216,6 +216,22 @@ LibriSpeech recipe:
   batch and a call); ``train_with_wav2vec`` the same without a kernel;
   one bf16 step of every other twin (Libri-Light wav2vec 2.0 and BEST-RQ,
   CommonVoice wav2vec 2.0, DVoice's seven YAMLs).
+- ``rescore_path``: n-best decoding and second-pass rescoring: NORTH's
+  bf16 ancestry search with its 10 best an utterance (kernels
+  ``fused_fbank`` and ``ancestry_attention``) reranked by
+  ``RescorerBuilder`` over the LibriSpeech Transformer LM (768 x 12), the
+  LM's float32 scores against a step-by-step sum and the order against
+  numpy's argsort; the CRDNN serve's 16 best reranked through
+  ``RNNLMRescorer`` over ``RNNLM.yaml``'s LM (``fused_fbank``); the CTC
+  twin's ``conformer_large`` posteriors of NORTH's batch decoded on the
+  host by ``CTCBeamSearcher`` and ``CTCPrefixBeamSearcher`` at beam 8 and
+  100, host ms an utterance and a frame, and the float32 top-1 through
+  ``fused_fbank`` against its plain version; the two wav2vec rescoring
+  twin YAMLs one bf16 step and a rescored valid stage each; NORTH's
+  float32 permuting search with the buffer ``TransformerLMScorer``
+  against ``KVTransformerLMScorer`` (``row_gather``), step ms of each;
+  ``Fbank(deltas=True, context=True, fused=True)`` on NORTH's batch
+  against the unfused one, and ``MFCC``.
 
 Then it times the kernels. It prints one JSON object a line and exits
 non-zero as soon as a phase fails. It needs one CUDA device and does not
@@ -253,10 +269,19 @@ from speechbrain_tpu_torch.dataio.dataloader import make_dataloader
 from speechbrain_tpu_torch.dataio.dataset import DynamicItemDataset
 from speechbrain_tpu_torch.dataio.sampler import DynamicBatchSampler
 from speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
+from speechbrain_tpu_torch.decoders.ctc import (
+    CTCBeamSearcher,
+    CTCPrefixBeamSearcher,
+)
 from speechbrain_tpu_torch.decoders.scorer import (
+    BaseRescorerInterface,
     CTCScorer,
     KVTransformerLMScorer,
+    RescorerBuilder,
+    RNNLMRescorer,
     ScorerBuilder,
+    TransformerLMRescorer,
+    TransformerLMScorer,
 )
 from speechbrain_tpu_torch.decoders.seq2seq import S2SKVBeamSearcher
 from speechbrain_tpu_torch.decoders.transducer import (
@@ -284,7 +309,11 @@ from speechbrain_tpu_torch.inference.SLU import EndToEndSLU
 from speechbrain_tpu_torch.inference.speaker import SpeakerRecognition
 from speechbrain_tpu_torch.inference.streaming import StreamingASR
 from speechbrain_tpu_torch.inference.VAD import VAD
-from speechbrain_tpu_torch.lobes.features import Fbank, StreamingFeatureWrapper
+from speechbrain_tpu_torch.lobes.features import (
+    MFCC,
+    Fbank,
+    StreamingFeatureWrapper,
+)
 from speechbrain_tpu_torch.lobes.models.convolution import ConvolutionFrontEnd
 from speechbrain_tpu_torch.lobes.models.CRDNN import CRDNN as CRDNNEncoder
 from speechbrain_tpu_torch.lobes.models.RNNLM import RNNLM
@@ -523,7 +552,11 @@ class Pipeline:
     from ``cfg`` (``encoder_module``, ``attention_type``,
     ``normalize_before``; NORTH's conformer, ``RelPosMHAXL`` and pre-norm
     where it names none), and ``cfg["lm"] = False`` leaves the LM out of the
-    search (CTC alone is fused then)."""
+    search (CTC alone is fused then). ``cfg["topk"]`` above 1 returns that
+    many hypotheses an utterance (``return_topk``);
+    ``cfg["buffer_lm_length"]`` fuses the LM through the buffer
+    ``TransformerLMScorer`` of that length, which re-reads each hypothesis
+    every step, in place of the KV-cached one."""
 
     def __init__(self, cfg, device="cuda", dtype=torch.float32, seed=0,
                  ancestry=True):
@@ -579,7 +612,13 @@ class Pipeline:
             )
 
         weights, full_scorers = {"ctc": C["ctc_weight"]}, {}
-        if lm is not None:
+        if lm is not None and C.get("buffer_lm_length"):
+            weights["transformerlm"] = C["lm_weight"]
+            full_scorers["transformerlm"] = TransformerLMScorer(
+                lm, bos_index=C["bos"], max_length=C["buffer_lm_length"],
+                temperature=C["temperature"], eos_index=C["eos"],
+            )
+        elif lm is not None:
             weights["transformerlm"] = C["lm_weight"]
             full_scorers["transformerlm"] = KVTransformerLMScorer(
                 step_fn=lm.score_step,
@@ -613,6 +652,7 @@ class Pipeline:
             max_decode_ratio=C["max_decode_ratio"], beam_size=C["beam"],
             using_eos_threshold=False, length_normalization=True,
             temperature=C["temperature"], scorer=scorer, device=self.device,
+            topk=C.get("topk", 1), return_topk=C.get("topk", 1) > 1,
         )
 
     @torch.no_grad()
@@ -8423,6 +8463,484 @@ def run_ssl_path(out_dir, device="cuda"):
     return launches, b3
 
 
+# -- rescore_path: n-best decoding and second-pass rescoring ----------------
+
+# NORTH's search returns its 10 best hypotheses an utterance; the rerank
+# weighs the Transformer LM (TLM_CFG) at 0.5 (the rescoring YAMLs' weight)
+RESCORE_TOPK = 10
+RESCORE_WEIGHT = 0.5
+# rescorer against the teacher-forced sum taken step by step (float32)
+RESCORE_SCORE_ATOL = 1e-4
+# ... and, for the CRDNN's hypotheses of up to 250 tokens, whose LM sums
+# come to about -1,200 (where one float32 step is 1.2e-4), 1e-6 of the sum
+# on top: about 8 float32 roundings of it
+RESCORE_RNN_RTOL = 1e-6
+# the host CTC searches: the rescoring YAMLs' setting and JAX's default
+CTC_SEARCHES = {"yaml_beam8_topk4": dict(beam_size=8, topk=4),
+                "default_beam100": dict(beam_size=100)}
+# utterances of NORTH's batch decoded at each setting: beam 100 over 33
+# characters takes seconds an utterance on the host (about 25 of them above
+# the pruning floor a frame)
+CTC_SEARCH_UTTS = {"yaml_beam8_topk4": 8, "default_beam100": 1}
+# the buffer LM scorer's token buffer, and the scores' tolerance against
+# the KV-cached scorer's (float32)
+BUFFER_LM_LENGTH = 64
+BUFFER_SCORE_ATOL = 1e-4
+RESCORE_TWINS = ("train_hf_wav2vec_rnn_rescoring.yaml",
+                 "train_hf_wav2vec_transformer_rescoring.yaml")
+# the twins' corpus: 6 utterances a split (the YAMLs' batch), 3.5-4 s
+RESCORE_TWIN_CORPUS = dict(seconds=(3.5, 4.0), valid_seconds=4.0,
+                           char_s=0.08, utterances=6)
+RESCORE_REDUCED = {
+    "weights": "random, from seeds (the search's, both LMs', the CTC "
+               "twin's); the LMs rerank hypotheses they never learned",
+    "nbest_transformer": "NORTH's search at beam 10 and decode ratio 0.2 "
+                         "(recipe: 66, 1.0), its 10 best an utterance",
+    "ctc_beam": "LibriSpeech test-clean -> NORTH's batch of noise; JAX's "
+                "default beam of 100 on its first utterance only",
+    "w2v_rescoring_twins": "one bf16 step and one valid batch of 6 "
+                           "synthetic tone utterances of 3.5-4 s (10 "
+                           "epochs of LibriSpeech in the recipe)",
+    "buffer_lm_scorer": "the buffer's length 64, not the YAML's 512: the "
+                        "LM is causal, so slots past the step change no "
+                        "score; NORTH's decode ratio 0.2 (51 steps)",
+}
+
+
+def teacher_forced_lm_sums(lm_step, init, tokens, lens, bos, eos,
+                           temperature=1.0):
+    """Each hypothesis's LM log-probability summed one position at a time:
+    ``lm_step(column (N,), state, step) -> (logits (N, V), state)`` fed
+    bos and then the hypothesis, the eos's log-probability read at its
+    length, positions past it left out; the log-probabilities in float32,
+    summed in float64 (so that the sum's own rounding, up to about 1e-4 in
+    float32 over 50 positions of -8, does not count against the
+    rescorer). The rescorers' sums by another road (one incremental call
+    a position)."""
+    N, L = tokens.shape
+    inp = torch.cat([tokens.new_full((N, 1), bos), tokens], dim=1)
+    tgt = torch.cat([tokens, tokens.new_full((N, 1), eos)], dim=1).long()
+    rows = torch.arange(N, device=tokens.device)
+    tgt[rows, lens.long()] = eos
+    state = init
+    total = torch.zeros(N, dtype=torch.float64, device=tokens.device)
+    for s in range(L + 1):
+        logits, state = lm_step(inp[:, s], state, s)
+        logp = torch.log_softmax(logits.float() / temperature, dim=-1)
+        total = total + torch.where(
+            lens >= s, logp[rows, tgt[:, s]].double(), torch.zeros_like(total))
+    return total
+
+
+def _rerank_checks(builder, topk_hyps, topk_scores, lm_scores, weight):
+    """The builder's rerank (first row of each list) against numpy's
+    ``argsort(-combined)`` of the float32 combined scores computed here."""
+    best, best_scores, (rr_hyps, _) = builder.rescore(topk_hyps, topk_scores)
+    B, K = len(topk_hyps), len(topk_hyps[0])
+    combined = (np.asarray(topk_scores, np.float32)
+                + weight * np.asarray(lm_scores).reshape(B, K))
+    order = np.argsort(-combined, axis=-1)
+    expected = [[topk_hyps[b][k] for k in order[b]] for b in range(B)]
+    return {"order_equals_numpy_argsort": rr_hyps == expected,
+            "best_equals_first": best == [row[0] for row in expected],
+            "best_scores_close": bool(np.allclose(
+                best_scores, combined.max(-1), atol=RESCORE_SCORE_ATOL)),
+            "changed_best": sum(int(order[b][0] != 0) for b in range(B))}
+
+
+def rescore_lm(device="cuda"):
+    """``transformer.yaml``'s LM (``TLM_CFG``) in evaluation, random
+    weights from seed 11."""
+    cfg = TLM_CFG
+    return TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
+                         nhead=cfg["nhead"], num_encoder_layers=cfg["layers"],
+                         d_ffn=cfg["d_ffn"], dropout=0.0, device=device,
+                         generator=torch.Generator().manual_seed(11)).eval()
+
+
+def run_nbest_transformer(device="cuda"):
+    """NORTH's bf16 ancestry search with its 10 best hypotheses an
+    utterance (B3 once, B1 in every decoder and LM layer a step), reranked
+    by a ``RescorerBuilder`` over the Transformer LM at
+    ``RESCORE_WEIGHT``; the rerank timed in bf16 and float32, the float32
+    LM scores held against :func:`teacher_forced_lm_sums`, the order
+    against numpy's argsort."""
+    cfg = dict(NORTH, topk=RESCORE_TOPK)
+    wavs, lens = make_waveforms(cfg, device)
+    pipe = Pipeline(cfg, device=device, dtype=torch.bfloat16, seed=0,
+                    ancestry=True)
+    pipe.transcribe(wavs, lens)  # warm-up
+    reset_launch_counts()
+    pipe.fbank_calls = 0
+    _, _, _, (topk_hyps, topk_scores, _) = pipe.transcribe(wavs, lens)
+    counts = launch_counts()
+    expected = expected_launches(cfg, True, pipe.searcher.last_steps,
+                                 pipe.fbank_calls)
+    lm = rescore_lm(device)
+    rescorer = TransformerLMRescorer(lm, bos_index=TLM_CFG["bos"],
+                                     eos_index=TLM_CFG["eos"], device=device)
+    builder = RescorerBuilder({"lm": RESCORE_WEIGHT}, {"lm": rescorer})
+    with torch.autocast(torch.device(device).type, dtype=torch.bfloat16):
+        builder.rescore(topk_hyps, topk_scores)  # warm-up
+        _, bf16_ms = _host_ms(lambda: builder.rescore(topk_hyps, topk_scores),
+                            device)
+    builder.rescore(topk_hyps, topk_scores)
+    _, fp32_ms = _host_ms(lambda: builder.rescore(topk_hyps, topk_scores),
+                        device)
+    tokens, hyp_lens = BaseRescorerInterface.pad_topk(topk_hyps)
+    B, K, L = tokens.shape
+    flat = torch.from_numpy(tokens.reshape(B * K, L)).to(device)
+    flat_lens = torch.from_numpy(hyp_lens.reshape(B * K)).to(device)
+    lm_scores = rescorer.rescore(flat, flat_lens)
+    with torch.no_grad():
+        stepwise = teacher_forced_lm_sums(
+            lambda col, cache, s: lm.score_step(col, cache, s),
+            lm.init_cache(B * K, L + 1), flat, flat_lens, TLM_CFG["bos"],
+            TLM_CFG["eos"])
+    diff = float((lm_scores.double() - stepwise).abs().max())
+    checks = _rerank_checks(builder, topk_hyps, topk_scores,
+                            lm_scores.cpu().numpy(), RESCORE_WEIGHT)
+    line = {
+        "hypotheses": B * K, "max_hyp_length": L,
+        "steps": pipe.searcher.last_steps, "launches": counts,
+        "expected_launches": expected, "decode_ms": pipe.last_decode_ms,
+        "encode_ms": pipe.last_encode_ms, "rerank_ms_bf16": bf16_ms,
+        "rerank_ms_fp32": fp32_ms, "lm_vs_stepwise_max_diff": diff,
+        "atol": RESCORE_SCORE_ATOL, **checks,
+    }
+    line["ok"] = bool(
+        counts == expected and counts["ancestry_attention"] > 0
+        and B == cfg["batch"] and K == RESCORE_TOPK
+        and np.isfinite(np.asarray(topk_scores)).all()
+        and diff <= RESCORE_SCORE_ATOL and checks["order_equals_numpy_argsort"]
+        and checks["best_equals_first"] and checks["best_scores_close"])
+    del pipe, lm
+    return line
+
+
+def run_nbest_rnn(device="cuda"):
+    """The CRDNN serve (``CRDNN_CFG``, ``CRDNN_DECODE``: beam 16, CTC,
+    RNNLM and coverage fusion) in bf16 with its 16 best an utterance,
+    reranked through ``RNNLMRescorer`` over ``RNNLM.yaml``'s LM; float32 LM
+    scores against :func:`teacher_forced_lm_sums` through the LSTM's
+    state (within ``RESCORE_SCORE_ATOL`` plus ``RESCORE_RNN_RTOL`` of the
+    sum), the order against numpy's argsort."""
+    cfg = CRDNN_CFG
+    beam = CRDNN_DECODE["beam_size"]
+    modules = crdnn_modules(cfg, device=device)
+    lm = crdnn_lm(cfg, device=device).eval()
+    asr = crdnn_served_asr(cfg, modules, lm, None, device=device,
+                           decode=dict(CRDNN_DECODE, topk=beam,
+                                       return_topk=True))
+    wavs, lens = make_waveforms(NORTH, device)
+    decoder = asr.hparams.decoder
+
+    def serve():
+        with torch.no_grad(), torch.autocast(
+                torch.device(device).type, dtype=torch.bfloat16):
+            return decoder(asr.encode_batch(wavs, lens), lens)
+
+    serve()  # warm-up: cuDNN's plans
+    reset_launch_counts()
+    (_, _, _, (topk_hyps, topk_scores, _)), decode_ms = _host_ms(serve, device)
+    counts = launch_counts()
+    rescorer = RNNLMRescorer(lambda t, s: lm(t, hx=s), lambda n: None,
+                             bos_index=cfg["bos"], eos_index=cfg["eos"],
+                             device=device)
+    builder = RescorerBuilder({"lm": RESCORE_WEIGHT}, {"lm": rescorer})
+    builder.rescore(topk_hyps, topk_scores)
+    _, fp32_ms = _host_ms(lambda: builder.rescore(topk_hyps, topk_scores),
+                        device)
+    tokens, hyp_lens = BaseRescorerInterface.pad_topk(topk_hyps)
+    B, K, L = tokens.shape
+    flat = torch.from_numpy(tokens.reshape(B * K, L)).to(device)
+    flat_lens = torch.from_numpy(hyp_lens.reshape(B * K)).to(device)
+    lm_scores = rescorer.rescore(flat, flat_lens)
+
+    def lstm_step(col, state, s):
+        logits, state = lm(col[:, None], hx=state)
+        return logits[:, 0], state
+
+    with torch.no_grad():
+        stepwise = teacher_forced_lm_sums(lstm_step, None, flat, flat_lens,
+                                          cfg["bos"], cfg["eos"])
+    gap = (lm_scores.double() - stepwise).abs()
+    diff = float(gap.max())
+    within = bool((gap <= RESCORE_SCORE_ATOL
+                   + RESCORE_RNN_RTOL * stepwise.abs()).all())
+    checks = _rerank_checks(builder, topk_hyps, topk_scores,
+                            lm_scores.cpu().numpy(), RESCORE_WEIGHT)
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    line = {"hypotheses": B * K, "max_hyp_length": L, "launches": counts,
+            "serve_ms": decode_ms, "steps": decoder.searcher.last_steps,
+            "rerank_ms_fp32": fp32_ms, "lm_vs_stepwise_max_diff": diff,
+            "lm_vs_stepwise_max_rel_diff": float((gap / stepwise.abs()).max()),
+            "atol": RESCORE_SCORE_ATOL, "rtol": RESCORE_RNN_RTOL,
+            "lm_sum_range": [float(stepwise.min()), float(stepwise.max())],
+            **checks}
+    line["ok"] = bool(
+        counts == b3_once and K == beam and B == NORTH["batch"] and within
+        and checks["order_equals_numpy_argsort"]
+        and checks["best_equals_first"] and checks["best_scores_close"])
+    del asr, modules, lm
+    return line
+
+
+def ctc_posteriors(brain, wavs, lens, autocast):
+    """The CTC twin's posteriors of a batch (its ``compute_forward`` in
+    evaluation), float32 on the device, and the lengths rescaled to
+    them."""
+    brain.modules.eval()
+    with torch.no_grad(), torch.autocast(
+            wavs.device.type, dtype=torch.bfloat16, enabled=autocast):
+        logp, enc_lens = brain.compute_forward(
+            brain._prepare_batch({"sig": (wavs, lens)}), Stage.TEST)
+    return logp.float(), enc_lens
+
+
+def _top1_margin(beams):
+    """The best beam's score above the second's (inf with one beam)."""
+    if len(beams) < 2:
+        return float("inf")
+    return float(beams[0].score - beams[1].score)
+
+
+def run_ctc_beam(device="cuda"):
+    """The LibriSpeech CTC twin's ``conformer_large`` (full width, B3)
+    posteriors of NORTH's batch, decoded on the host by ``CTCBeamSearcher``
+    and ``CTCPrefixBeamSearcher`` at the rescoring YAMLs' setting and at
+    JAX's default beam of 100: host ms an utterance and a frame. Then in
+    float32 the posteriors through B3 and through its plain version,
+    decoded at the YAMLs' setting: the top-1 texts must agree wherever the
+    first's margin over its runner-up exceeds twice the largest change a
+    path's score can take (the sum over frames of the posteriors' largest
+    difference; C32's policy)."""
+    cfg, family = CTC_CFG, CTC_FAMILIES["conformer_large"]
+    modules = ctc_modules(cfg, family, device=device)
+    brain = TimedCTCBrain(
+        modules=modules, opt_class=recipe.adamw(cfg["lr"]),
+        hparams={"compute_features": Fbank(n_mels=cfg["n_mels"], fused=True,
+                                           device=device),
+                 "normalize": InputNormalization(norm_type="sentence"),
+                 "blank_index": cfg["blank"]},
+        run_opts={"device": device, "noprogressbar": True})
+    wavs, lens = make_waveforms(NORTH, device)
+    ctc_posteriors(brain, wavs, lens, True)  # warm-up
+    reset_launch_counts()
+    (logp, enc_lens), fwd_ms = _host_ms(
+        lambda: ctc_posteriors(brain, wavs, lens, True), device)
+    counts = launch_counts()
+    T = logp.shape[1]
+    searches = {}
+    for name, kw in CTC_SEARCHES.items():
+        n = CTC_SEARCH_UTTS[name]
+        for cls in (CTCBeamSearcher, CTCPrefixBeamSearcher):
+            searcher = cls(blank_index=cfg["blank"], **kw)
+            t0 = time.perf_counter()
+            out = searcher(logp[:n], enc_lens[:n])
+            ms = (time.perf_counter() - t0) * 1e3
+            frames = sum(int(round(float(v) * T))
+                         for v in enc_lens[:n].cpu())
+            searches[f"{cls.__name__}/{name}"] = {
+                "utterances": n, "frames": frames, "ms": ms,
+                "ms_per_utterance": ms / n, "ms_per_frame": ms / frames,
+                "beams": [len(row) for row in out],
+                "top1_lengths": [len(row[0].text) for row in out],
+                "finite": all(np.isfinite(b.score) for row in out
+                              for b in row)}
+    reset_launch_counts()
+    kernel_lp, kernel_lens = ctc_posteriors(brain, wavs, lens, False)
+    fp32_counts = launch_counts()
+    with plain_versions("fused_fbank"):
+        plain_lp, _ = ctc_posteriors(brain, wavs, lens, False)
+    searcher = CTCBeamSearcher(blank_index=cfg["blank"],
+                               **CTC_SEARCHES["yaml_beam8_topk4"])
+    beams_k = searcher(kernel_lp, kernel_lens)
+    beams_p = searcher(plain_lp, kernel_lens)
+    frame_diff = (kernel_lp - plain_lp).abs().amax(-1)  # (B, T)
+    compared, agree = 0, True
+    for b, (rk, rp) in enumerate(zip(beams_k, beams_p)):
+        n_frames = int(round(float(kernel_lens[b]) * T))
+        bound = 2 * float(frame_diff[b, :n_frames].sum())
+        if _top1_margin(rk) > bound:
+            compared += 1
+            agree = agree and rk[0].text == rp[0].text
+    line = {"posteriors_shape": list(logp.shape), "forward_ms_bf16": fwd_ms,
+            "launches": {k: counts[k] + fp32_counts[k] for k in KERNELS},
+            "bf16_launches": counts, "fp32_launches": fp32_counts,
+            "searches": searches,
+            "fp32_max_posterior_diff": float(frame_diff.max()),
+            "fp32_utterances_compared": compared,
+            "fp32_top1_equal_where_compared": agree,
+            "fp32_top1_equal_all": [rk[0].text == rp[0].text
+                                    for rk, rp in zip(beams_k, beams_p)]}
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    line["ok"] = bool(
+        counts == b3_once and fp32_counts == b3_once and agree
+        and all(s["finite"] and min(s["beams"]) >= 1
+                for s in searches.values()))
+    del brain, modules
+    return line
+
+
+def run_w2v_rescoring_twins(out_dir, device="cuda"):
+    """Both rescoring YAMLs at their widths (wav2vec 768 x 12): one bf16
+    step, then the valid stage through the rescoring ``evaluate_batch``
+    (the host CTC search's top 4 reranked by the YAML's LM); the CER must
+    be a number, the run must not raise, and no kernel launches."""
+    cfg = RESCORE_TWIN_CORPUS
+    data = os.path.join(out_dir, "data")
+    write_ssl_corpus(data, cfg["utterances"], cfg["utterances"], cfg)
+    lines = {}
+    for yaml in RESCORE_TWINS:
+        brain, hparams, _, counts, secs, peak = _ssl_train(
+            SSL_CTC, "train_with_wav2vec", yaml,
+            os.path.join(out_dir, yaml[:-5]), data, device, 1, "bf16")
+        cer = brain.cer_metric.summarize("error_rate")
+        line = _ssl_line(brain, counts, secs, peak, 0)
+        line.update(cer=cer, rescored_utterances=len(brain.cer_metric.ids),
+                    rescorer=type(hparams["rescorer"].rescorers["lm"]).__name__)
+        line["ok"] = bool(
+            len(brain.losses) == 1 and np.isfinite(brain.losses).all()
+            and np.isfinite(cer) and line["rescored_utterances"] > 0
+            and sum(counts.values()) == 0)
+        lines[yaml] = line
+        del brain, hparams
+        gc.collect()
+    return lines
+
+
+def run_buffer_lm_scorer(device="cuda"):
+    """NORTH's permuting search in float32 (B4 on the decoder's cache
+    permute) with the buffer ``TransformerLMScorer`` (length
+    ``BUFFER_LM_LENGTH``) and with ``KVTransformerLMScorer``: tokens equal,
+    scores within ``BUFFER_SCORE_ATOL``, each run's decode ms a step; B4
+    gathers the LM's caches too in the KV run only."""
+    wavs, lens = make_waveforms(NORTH, device)
+    runs = {}
+    for name, extra in (("buffer", {"buffer_lm_length": BUFFER_LM_LENGTH}),
+                        ("kv", {})):
+        cfg = dict(NORTH, **extra)
+        pipe = Pipeline(cfg, device=device, dtype=torch.float32, seed=0,
+                        ancestry=False)
+        pipe.transcribe(wavs, lens)  # warm-up
+        reset_launch_counts()
+        pipe.fbank_calls = 0
+        hyps, _, scores, _ = pipe.transcribe(wavs, lens)
+        steps = pipe.searcher.last_steps
+        expected = expected_launches(cfg, False, steps, pipe.fbank_calls)
+        if name == "buffer":
+            expected["row_gather"] = 2 * cfg["dec_layers"] * steps
+        runs[name] = {"hyps": hyps, "scores": np.asarray(scores),
+                      "steps": steps, "decode_ms": pipe.last_decode_ms,
+                      "step_ms": pipe.last_decode_ms / steps,
+                      "launches": launch_counts(), "expected": expected}
+        del pipe
+        _sync(device)
+    buf, kv = runs["buffer"], runs["kv"]
+    diff = float(np.max(np.abs(buf["scores"] - kv["scores"])))
+    line = {name: {k: v for k, v in run.items()
+                   if k not in ("hyps", "scores")}
+            for name, run in runs.items()}
+    line.update(tokens_equal=buf["hyps"] == kv["hyps"],
+                max_score_diff=diff, atol=BUFFER_SCORE_ATOL,
+                buffer_length=BUFFER_LM_LENGTH)
+    line["ok"] = bool(
+        line["tokens_equal"] and diff <= BUFFER_SCORE_ATOL
+        and all(r["launches"] == r["expected"] for r in runs.values())
+        and buf["steps"] + 1 <= BUFFER_LM_LENGTH)
+    line["launches"] = {k: buf["launches"][k] + kv["launches"][k]
+                        for k in KERNELS}
+    return line
+
+
+def run_frontend_options(device="cuda"):
+    """``Fbank(deltas=True, context=True, fused=True)`` on NORTH's batch
+    (8 x 10 s -> (8, 1001, 2640); B3 once) against ``fused=False``: the
+    log-mels within ``B3_ATOL``, their deltas within 0.6 of it and the
+    second deltas within 0.36 (the weights of a delta sum to 6/10 in
+    absolute value), each context block the same; then ``MFCC``."""
+    wavs, _ = make_waveforms(NORTH, device)
+    n = NORTH["n_mels"]
+    fused = Fbank(n_mels=n, deltas=True, context=True, fused=True,
+                  device=device)
+    unfused = Fbank(n_mels=n, deltas=True, context=True, device=device)
+    mfcc = MFCC(device=device)
+    with torch.no_grad():
+        fused(wavs)
+        unfused(wavs)
+        mfcc(wavs)  # warm-up
+        reset_launch_counts()
+        out, fused_ms = _host_ms(lambda: fused(wavs), device)
+        counts = launch_counts()
+        ref, unfused_ms = _host_ms(lambda: unfused(wavs), device)
+        coeffs, mfcc_ms = _host_ms(lambda: mfcc(wavs), device)
+    blocks = (out - ref).abs().reshape(*out.shape[:2], -1, 3, n)
+    errs = [float(blocks[..., i, :].max()) for i in range(3)]
+    bounds = [B3_ATOL, 0.6 * B3_ATOL, 0.36 * B3_ATOL]
+    b3_once = dict.fromkeys(KERNELS, 0)
+    b3_once["fused_fbank"] = 1
+    line = {"shape": list(out.shape), "fused_ms": fused_ms,
+            "unfused_ms": unfused_ms, "launches": counts,
+            "max_abs_err_db": {"static": errs[0], "delta": errs[1],
+                               "delta_delta": errs[2]},
+            "atol_db": {"static": bounds[0], "delta": bounds[1],
+                        "delta_delta": bounds[2]},
+            "mfcc_shape": list(coeffs.shape), "mfcc_ms": mfcc_ms,
+            "mfcc_finite": bool(torch.isfinite(coeffs).all())}
+    T = 1 + wavs.shape[1] // fused.compute_STFT.hop_length
+    line["ok"] = bool(
+        counts == b3_once and list(out.shape) == [wavs.shape[0], T, 33 * n]
+        and all(e <= b for e, b in zip(errs, bounds))
+        and line["mfcc_finite"]
+        and list(coeffs.shape) == [wavs.shape[0], T, 660])
+    return line
+
+
+def run_rescore_path(out_dir, device="cuda"):
+    """The n-best decoding and second-pass rescoring path, phase by phase:
+    :func:`run_nbest_transformer`, :func:`run_nbest_rnn`,
+    :func:`run_ctc_beam`, :func:`run_w2v_rescoring_twins`,
+    :func:`run_buffer_lm_scorer`, :func:`run_frontend_options`. Each
+    phase's launches are counted from 0 just before its measured runs
+    and read just after. Returns each kernel's launches over the path."""
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    launches = {name: 0 for name in KERNELS}
+    by_phase = {}
+
+    def add(label, line):
+        line["gpu_name_power_limit"] = gpu_name_power_limit()
+        emit({"phase": f"rescore_path/{label}", **line})
+        by_phase[label] = line["launches"]
+        for k, v in line["launches"].items():
+            launches[k] += v
+        if not line["ok"]:
+            raise AssertionError(f"rescore_path: {label} failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    add("nbest_transformer", run_nbest_transformer(device))
+    add("nbest_rnn", run_nbest_rnn(device))
+    add("ctc_beam", run_ctc_beam(device))
+    twins = run_w2v_rescoring_twins(os.path.join(out_dir, "twins"), device)
+    for yaml, line in twins.items():
+        add(f"w2v_rescoring_twins/{yaml}", line)
+    add("buffer_lm_scorer", run_buffer_lm_scorer(device))
+    add("frontend", run_frontend_options(device))
+    ok = (launches["fused_fbank"] >= 4 and launches["ancestry_attention"] > 0
+          and launches["row_gather"] > 0 and launches["flash_attention"] == 0)
+    emit({"phase": "rescore_path_summary", "launches": launches,
+          "launches_by_phase": by_phase, "reduced": RESCORE_REDUCED,
+          "seconds": time.perf_counter() - t0, "ok": ok,
+          "gpu_name_power_limit": gpu_name_power_limit()})
+    if not ok:
+        raise AssertionError("rescore_path: a kernel's launches are off")
+    return launches
+
+
 def run_grad_guard():
     """Each kernel's wrapper, given a CUDA input that requires grad with
     grad mode on, raises (naming the plain version) and launches nothing;
@@ -8635,6 +9153,11 @@ def main():
         for kernel in kernels:
             kernel["launches_by_path"]["ssl_path"] = \
                 ssl_launches[kernel["name"]]
+        torch.cuda.empty_cache()
+        rescore_launches = run_rescore_path(os.path.join(out_dir, "rescore"))
+        for kernel in kernels:
+            kernel["launches_by_path"]["rescore_path"] = \
+                rescore_launches[kernel["name"]]
         torch.cuda.empty_cache()
         if args.profile:
             profile_train(TRAIN, out_dir, datasets, host=True)

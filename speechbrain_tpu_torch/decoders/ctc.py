@@ -1,9 +1,14 @@
-"""CTC decoding (port of ``filter_ctc_output``, ``ctc_greedy_decode`` and
-``CTCPrefixScore`` from ``speechbrain_tpu/decoders/ctc.py``): greedy
-decoding, and batched prefix scoring over a pruned candidate set, used for
-joint CTC/attention beam decoding.
+"""CTC decoding (port of ``speechbrain_tpu/decoders/ctc.py``): greedy
+decoding, batched prefix scoring over a pruned candidate set, used for
+joint CTC/attention beam decoding, and the host-side CTC beam searchers
+(``CTCBeam``, ``CTCBaseSearcher``, ``CTCBeamSearcher``,
+``CTCPrefixBeamSearcher``) that give the n-best lists of second-pass
+rescoring.
 """
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from speechbrain_tpu_torch.decoders.utils import inflate_tensor
@@ -204,3 +209,181 @@ class CTCPrefixScore:
         r_n = new_states["r_n"][hyp_indices, :, cand_indices]
         psi = new_states["psi"][hyp_indices, cand_indices]
         return {"r_b": r_b, "r_n": r_n, "psi_prev": psi}
+
+
+# ---------------------------------------------------------------------------
+# Host-side CTC beam search (pyctcdecode-style)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CTCBeam:
+    """One beam of the host-side CTC search: its token tuple, last token,
+    the log-probabilities of its paths that end in blank and in a token,
+    its score and the LM state."""
+
+    text: tuple
+    last_token: int
+    p_blank: float
+    p_non_blank: float
+    score: float
+    lm_state: object = None
+
+    @property
+    def p_total(self):
+        return np.logaddexp(self.p_blank, self.p_non_blank)
+
+
+def _logsumexp(*xs):
+    return float(np.logaddexp.reduce(np.asarray(xs)))
+
+
+def _host(x):
+    """A tensor (on any device, of any float type) or an array as a numpy
+    array: float tensors come over as float32, in one copy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.is_floating_point():
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+class CTCBaseSearcher:
+    """The host-side searchers' settings and batch loop.
+
+    ``__call__(log_probs, wav_lens=None)`` copies the ``(B, T, V)``
+    log-probabilities to the host once, cuts utterance ``b`` to
+    ``round(wav_lens[b] * T)`` frames and returns, for each, its best
+    ``topk`` beams (:class:`CTCBeam`), best first. The search runs in numpy
+    and Python floats, one utterance at a time.
+
+    ``lm`` is an object with ``score_tokens(token tuple) -> log-prob`` (or
+    kenlm's ``score(sentence)`` with ``vocab_list``); a hypothesis' score
+    is then its CTC log-probability + ``alpha * lm`` + ``beta * length``.
+    ``kenlm_model_path`` loads a kenlm model, and raises ``ImportError``
+    where the ``kenlm`` package is missing.
+    """
+
+    def __init__(self, blank_index, vocab_list=None, space_token=" ",
+                 kenlm_model_path=None, beam_size=100, beam_prune_logp=-10.0,
+                 token_prune_min_logp=-5.0, prune_history=True, topk=1,
+                 alpha=0.5, beta=1.5, lm=None):
+        self.blank_index = blank_index
+        self.vocab_list = vocab_list
+        self.beam_size = beam_size
+        self.beam_prune_logp = beam_prune_logp
+        self.token_prune_min_logp = token_prune_min_logp
+        self.prune_history = prune_history
+        self.topk = topk
+        self.alpha = alpha
+        self.beta = beta
+        self.lm = lm
+        if kenlm_model_path is not None and lm is None:
+            try:
+                import kenlm  # pragma: no cover
+
+                self.lm = kenlm.Model(kenlm_model_path)
+            except ImportError:
+                raise ImportError("kenlm not available; pass lm= instead")
+
+    def __call__(self, log_probs, wav_lens=None):
+        log_probs = _host(log_probs)
+        B, T, V = log_probs.shape
+        if wav_lens is None:
+            lens = [T] * B
+        else:
+            lens = [int(round(float(v) * T)) for v in _host(wav_lens)]
+        return [self.search(log_probs[b, : lens[b]])[: self.topk]
+                for b in range(B)]
+
+    def search(self, log_probs):
+        raise NotImplementedError
+
+
+class CTCBeamSearcher(CTCBaseSearcher):
+    """CTC prefix beam search with optional shallow LM scoring.
+
+    Each frame extends every beam by the tokens whose log-probability
+    reaches ``token_prune_min_logp`` (in vocabulary order; the frame's
+    argmax where none does): blank keeps the text, a repeat of the last
+    token keeps it on the non-blank paths and extends it after a blank,
+    any other token extends it. Beams with the same text merge (in the
+    order they arise; the first LM state is kept). Then the beams are
+    scored, sorted by score (a stable sort) and the best ``beam_size``
+    kept, less those more than ``-beam_prune_logp`` below the best.
+
+    Example
+    -------
+    >>> lp = np.log(np.asarray([[[0.05, 0.05, 0.9], [0.05, 0.9, 0.05]]]))
+    >>> searcher = CTCBeamSearcher(blank_index=0, beam_size=4)
+    >>> tuple(int(t) for t in searcher(lp)[0][0].text)
+    (2, 1)
+    """
+
+    def search(self, log_probs):
+        T, V = log_probs.shape
+        beams = {(): CTCBeam((), -1, 0.0, NEG_INF, 0.0)}
+        for t in range(T):
+            frame = log_probs[t]
+            candidates = np.where(frame >= self.token_prune_min_logp)[0]
+            if len(candidates) == 0:
+                candidates = [int(np.argmax(frame))]
+            next_beams = {}
+
+            def upd(text, last, pb, pnb, lm_state=None):
+                prev = next_beams.get(text)
+                if prev is None:
+                    next_beams[text] = CTCBeam(text, last, pb, pnb, 0.0,
+                                               lm_state)
+                else:
+                    next_beams[text] = CTCBeam(
+                        text, last, np.logaddexp(prev.p_blank, pb),
+                        np.logaddexp(prev.p_non_blank, pnb), 0.0,
+                        prev.lm_state or lm_state)
+
+            for beam in beams.values():
+                p_tot = beam.p_total
+                for c in candidates:
+                    p = float(frame[c])
+                    if c == self.blank_index:
+                        upd(beam.text, beam.last_token, p_tot + p, NEG_INF,
+                            beam.lm_state)
+                    elif c == beam.last_token:
+                        # the repeat merges into the same text on the
+                        # non-blank paths, and after a blank extends it
+                        upd(beam.text, c, NEG_INF, beam.p_non_blank + p,
+                            beam.lm_state)
+                        upd(beam.text + (c,), c, NEG_INF, beam.p_blank + p,
+                            beam.lm_state)
+                    else:
+                        upd(beam.text + (c,), c, NEG_INF, p_tot + p,
+                            beam.lm_state)
+            scored = []
+            for beam in next_beams.values():
+                score = beam.p_total
+                if self.lm is not None and len(beam.text):
+                    score = (score + self.alpha * self.lm_score(beam.text)
+                             + self.beta * len(beam.text))
+                scored.append(dataclasses.replace(beam, score=score))
+            scored.sort(key=lambda b: b.score, reverse=True)
+            best = scored[0].score if scored else 0.0
+            beams = {b.text: b for b in scored[: self.beam_size]
+                     if b.score >= best + self.beam_prune_logp}
+        return sorted(beams.values(), key=lambda b: b.score, reverse=True)
+
+    def lm_score(self, text):
+        """The LM's log-probability of a token tuple: ``lm.score_tokens``
+        where the LM has it, else kenlm's ``score`` of the text spelled
+        with ``vocab_list`` (``_`` read as a space), else 0."""
+        if hasattr(self.lm, "score_tokens"):
+            return self.lm.score_tokens(text)
+        if self.vocab_list is not None and hasattr(self.lm, "score"):
+            sentence = "".join(self.vocab_list[t] for t in text).replace(
+                "_", " ")
+            return self.lm.score(sentence)
+        return 0.0
+
+
+class CTCPrefixBeamSearcher(CTCBeamSearcher):
+    """The same prefix-merging search as :class:`CTCBeamSearcher`, under
+    the name recipes configure."""

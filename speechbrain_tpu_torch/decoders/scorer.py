@@ -1,15 +1,19 @@
-"""Pluggable scorers for LM fusion and joint decoding in beam search
-(port of ``BaseScorerInterface``, ``RNNLMScorer``,
+"""Pluggable scorers for LM fusion and joint decoding in beam search, and
+the second-pass rescorers of n-best lists (port of
+``BaseScorerInterface``, ``RNNLMScorer``, ``TransformerLMScorer``,
 ``KVTransformerLMScorer``, ``CTCScorer``, ``CoverageScorer``,
-``LengthScorer`` and ``ScorerBuilder`` from
+``LengthScorer``, ``ScorerBuilder``, ``BaseRescorerInterface``,
+``RNNLMRescorer``, ``TransformerLMRescorer`` and ``RescorerBuilder`` from
 ``speechbrain_tpu/decoders/scorer.py``).
 
 Scorers run inside the beam-search loop: state in, state out. Full
 scorers contribute over the entire vocab; partial scorers (CTC prefix)
 score a pruned candidate set of size ``scorer_beam_scale * beam_size`` and
-are scattered back.
+are scattered back. Rescorers score complete hypotheses after the search,
+one batched LM forward for the whole n-best list.
 """
 
+import numpy as np
 import torch
 
 from speechbrain_tpu_torch.decoders.ctc import CTCPrefixScore
@@ -69,6 +73,46 @@ class RNNLMScorer(BaseScorerInterface):
             logits[:, 0].float() / self.temperature, dim=-1
         )
         return log_probs, new_state
+
+
+class TransformerLMScorer(BaseScorerInterface):
+    """Shallow fusion with a causal transformer LM that re-reads the whole
+    hypothesis every step.
+
+    The memory is a ``(N, max_length)`` int32 token buffer, eos-filled with
+    bos at slot 0, and the step. Each step writes ``inp_tokens`` at
+    ``step``, runs ``lm_fn(buffer)`` -> logits ``(N, max_length, V)`` and
+    returns the log-probabilities (over ``temperature``) at ``step``. The
+    LM being causal, the slots past ``step`` change nothing, so its scores
+    are :class:`KVTransformerLMScorer`'s at O(max_length) the work a step.
+    ``permute_mem`` gathers the buffer's rows.
+    """
+
+    def __init__(self, lm_fn, bos_index, max_length=512, temperature=1.0,
+                 eos_index=0):
+        self.lm_fn = lm_fn
+        self.bos_index = bos_index
+        self.eos_index = eos_index
+        self.max_length = max_length
+        self.temperature = temperature
+
+    def reset_mem(self, x, enc_lens):
+        buf = torch.full((x.shape[0], self.max_length), self.eos_index,
+                         dtype=torch.int32, device=x.device)
+        buf[:, 0] = self.bos_index
+        return {"tokens": buf, "step": 0}
+
+    def score(self, inp_tokens, memory, candidates, attn):
+        step = memory["step"]
+        buf = memory["tokens"].clone()
+        buf[:, step] = inp_tokens
+        logits = self.lm_fn(buf)[:, step].float()
+        log_probs = torch.log_softmax(logits / self.temperature, dim=-1)
+        return log_probs, {"tokens": buf, "step": step + 1}
+
+    def permute_mem(self, memory, index):
+        return {"tokens": memory["tokens"].index_select(0, index),
+                "step": memory["step"]}
 
 
 class KVTransformerLMScorer(BaseScorerInterface):
@@ -353,3 +397,164 @@ class ScorerBuilder:
             else:
                 out[name] = scorer.permute_mem(mem, index)
         return out
+
+
+# ---------------------------------------------------------------------------
+# N-best rescoring (second pass)
+# ---------------------------------------------------------------------------
+
+class BaseRescorerInterface:
+    """A second-pass scorer of the beam searcher's n-best lists.
+
+    ``rescore(tokens, lens)`` takes complete hypotheses, ``(N, L)`` int
+    token ids (a numpy array or a tensor; bos and eos are added inside)
+    and their ``(N,)`` lengths, and returns the ``(N,)`` total LM
+    log-probabilities as a float32 tensor on ``device``: one batched
+    forward, no loop over hypotheses.
+    """
+
+    def rescore(self, tokens, lens):
+        raise NotImplementedError
+
+    @staticmethod
+    def pad_topk(topk_hyps):
+        """The searcher's ``return_topk`` lists (list[batch] of list[k] of
+        token lists) packed into ``(B, K, L)`` int32 tokens and ``(B, K)``
+        lengths, numpy; rows with fewer than K hypotheses are padded with
+        empty ones.
+
+        Example
+        -------
+        >>> tokens, lens = BaseRescorerInterface.pad_topk([[[3, 4], [5]]])
+        >>> tokens.tolist(), lens.tolist()
+        ([[[3, 4], [5, 0]]], [[2, 1]])
+        """
+        B = len(topk_hyps)
+        K = max(len(row) for row in topk_hyps)
+        L = max((len(h) for row in topk_hyps for h in row), default=1) or 1
+        tokens = np.zeros((B, K, L), np.int32)
+        lens = np.zeros((B, K), np.int32)
+        for b, row in enumerate(topk_hyps):
+            for k, hyp in enumerate(row):
+                tokens[b, k, : len(hyp)] = hyp
+                lens[b, k] = len(hyp)
+        return tokens, lens
+
+
+class _TeacherForcedRescorer(BaseRescorerInterface):
+    """The sum over a hypothesis of ``log_softmax(logits / temperature)``
+    at its next token: the input is bos + tokens, the target tokens + pad
+    with eos written at each length, and the mask ``arange(L + 1) <= lens``
+    takes the eos slot in."""
+
+    def __init__(self, bos_index, eos_index, pad_index, temperature,
+                 device):
+        self.bos_index = bos_index
+        self.eos_index = eos_index
+        self.pad_index = pad_index
+        self.temperature = temperature
+        self.device = torch.device(device)
+
+    def _logits(self, inp):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def rescore(self, tokens, lens):
+        tokens = torch.as_tensor(tokens).to(self.device, torch.int32)
+        lens = torch.as_tensor(lens).to(self.device, torch.long)
+        N, L = tokens.shape
+        inp = torch.cat([tokens.new_full((N, 1), self.bos_index), tokens],
+                        dim=1)
+        tgt = torch.cat([tokens, tokens.new_full((N, 1), self.pad_index)],
+                        dim=1).long()
+        tgt[torch.arange(N, device=self.device), lens] = self.eos_index
+        logp = torch.log_softmax(self._logits(inp).float()
+                                 / self.temperature, dim=-1)
+        tok_lp = logp.gather(-1, tgt[..., None])[..., 0]
+        mask = torch.arange(L + 1, device=self.device)[None, :] <= lens[:, None]
+        return (tok_lp * mask).sum(dim=-1)
+
+
+class RNNLMRescorer(_TeacherForcedRescorer):
+    """N-best rescoring with an RNN LM: ``lm_fn(tokens (N, L), state)`` ->
+    ``(logits (N, L, V), state)`` over whole sequences (teacher-forced),
+    ``lm_init(n)`` -> the initial state (``None`` for a zero one)."""
+
+    def __init__(self, lm_fn, lm_init, bos_index, eos_index, pad_index=0,
+                 temperature=1.0, device="cuda"):
+        super().__init__(bos_index, eos_index, pad_index, temperature, device)
+        self.lm_fn = lm_fn
+        self.lm_init = lm_init
+
+    def _logits(self, inp):
+        logits, _ = self.lm_fn(inp, self.lm_init(inp.shape[0]))
+        return logits
+
+
+class TransformerLMRescorer(_TeacherForcedRescorer):
+    """N-best rescoring with a causal transformer LM: ``lm_fn(tokens (N,
+    L))`` -> logits ``(N, L, V)``."""
+
+    def __init__(self, lm_fn, bos_index, eos_index, pad_index=0,
+                 temperature=1.0, device="cuda"):
+        super().__init__(bos_index, eos_index, pad_index, temperature, device)
+        self.lm_fn = lm_fn
+
+    def _logits(self, inp):
+        return self.lm_fn(inp)
+
+
+class RescorerBuilder:
+    """First-pass beam scores combined with weighted second-pass rescorers,
+    and the n-best lists reranked.
+
+    ``rescore(topk_hyps, topk_scores)`` takes the beam searcher's
+    ``return_topk`` lists (list[B] of list[K] token lists, and their
+    scores) and returns ``(best hyps list[B], best scores list[B],
+    (reranked hyps, reranked scores))``. The combined score of a
+    hypothesis is its first-pass score plus ``weight * LM score`` for each
+    rescorer (weight 1.0 where ``weights`` names none), in float32 on the
+    host. Each row is reranked by ``np.argsort(-combined)``, numpy's
+    default (unstable) sort, as the JAX package ranks it: where two
+    hypotheses tie, their order is numpy's, not ``torch.argsort``'s. A row
+    of fewer than K hypotheses keeps only its own.
+
+    Example
+    -------
+    >>> class Flat:
+    ...     def rescore(self, tokens, lens):
+    ...         return -torch.as_tensor(lens, dtype=torch.float32)
+    >>> builder = RescorerBuilder({"lm": 1.0}, {"lm": Flat()})
+    >>> best, scores, _ = builder.rescore([[[1, 2, 3], [4]]], [[-1.0, -2.5]])
+    >>> best, scores
+    ([[4]], [-3.5])
+    """
+
+    def __init__(self, weights=None, rescorers=None):
+        self.weights = dict(weights or {})
+        self.rescorers = dict(rescorers or {})
+
+    def rescore(self, topk_hyps, topk_scores):
+        tokens, lens = BaseRescorerInterface.pad_topk(topk_hyps)
+        B, K, L = tokens.shape
+        flat_tokens = tokens.reshape(B * K, L)
+        flat_lens = lens.reshape(B * K)
+        combined = np.asarray(
+            [[float(s) for s in row] for row in topk_scores], np.float32)
+        for name, rescorer in self.rescorers.items():
+            lm_scores = rescorer.rescore(flat_tokens, flat_lens)
+            if isinstance(lm_scores, torch.Tensor):
+                lm_scores = lm_scores.detach().float().cpu().numpy()
+            lm_scores = np.asarray(lm_scores).reshape(B, K)
+            combined = combined + self.weights.get(name, 1.0) * lm_scores
+        order = np.argsort(-combined, axis=-1)
+        best_hyps, best_scores, rr_hyps, rr_scores = [], [], [], []
+        for b in range(B):
+            keep = [k for k in order[b] if k < len(topk_hyps[b])]
+            row = [topk_hyps[b][k] for k in keep]
+            srow = [float(combined[b, k]) for k in keep]
+            rr_hyps.append(row)
+            rr_scores.append(srow)
+            best_hyps.append(row[0])
+            best_scores.append(srow[0])
+        return best_hyps, best_scores, (rr_hyps, rr_scores)

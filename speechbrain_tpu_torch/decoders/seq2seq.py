@@ -52,6 +52,45 @@ def permute_ancestry(anc, index):
     return anc.reshape(B * K, L).index_select(0, index).reshape(B, K, L)
 
 
+def _materialize(leaf, n_bh):
+    """A tensor leaf with a leading dim of 1 broadcast to ``n_bh`` rows (a
+    copy, so that the rows can be written and gathered apart); other
+    leaves as they are."""
+    if (isinstance(leaf, torch.Tensor) and leaf.ndim >= 1
+            and leaf.shape[0] == 1 and n_bh > 1):
+        return leaf.expand(n_bh, *leaf.shape[1:]).contiguous()
+    return leaf
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _materialize_mem(mem, n_bh):
+    """The search's initial memory with every leading-dim-1 tensor
+    broadcast to ``batch * beam`` = ``n_bh`` rows, so that the predecessor
+    gather along axis 0 finds a row for every hypothesis. Exempt: the
+    beam-shared ``"cross"`` entries of a per-layer cache (never permuted;
+    at batch 1 their leading dim of 1 is the per-utterance layout), and
+    in ancestry mode the ``"anc"`` table (already ``(B, K, L)``; only the
+    wrapped ``"cache"`` is materialized)."""
+    if isinstance(mem, (list, tuple)) and all(
+            isinstance(layer, dict) for layer in mem):
+        return [
+            {k: (v if k == "cross"
+                 else _map_leaves(v, lambda t: _materialize(t, n_bh)))
+             for k, v in layer.items()}
+            for layer in mem
+        ]
+    if isinstance(mem, dict) and "anc" in mem:
+        return {**mem, "cache": _materialize_mem(mem["cache"], n_bh)}
+    return _map_leaves(mem, lambda t: _materialize(t, n_bh))
+
+
 class S2SBaseSearcher:
     """Base class: subclasses implement the three functions below.
 
@@ -318,6 +357,7 @@ class S2SBeamSearcher(S2SBaseSearcher):
             memory = self.reset_mem(n_bh, enc_states, wav_len)
         else:
             memory = self.reset_mem(n_bh, enc_inflated, lens_inflated)
+        memory = _materialize_mem(memory, n_bh)
         scorer_mem = None
         if self.scorer is not None:
             if self.reset_mem_uninflated:

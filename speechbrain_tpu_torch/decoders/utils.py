@@ -1,5 +1,6 @@
-"""Decoder helpers (port of ``speechbrain_tpu/decoders/utils.py``, plus
-the top-k the searchers share)."""
+"""Decoder helpers (port of ``speechbrain_tpu/decoders/utils.py``:
+``inflate_tensor``, ``mask_by_condition``, ``update_mem``; plus the top-k
+the searchers share)."""
 
 import torch
 
@@ -13,6 +14,32 @@ def inflate_tensor(tensor, times, dim):
     [[1, 2], [1, 2]]
     """
     return torch.repeat_interleave(tensor, times, dim=dim)
+
+
+def mask_by_condition(tensor, cond, fill_value):
+    """``tensor`` where ``cond`` holds, ``fill_value`` elsewhere.
+
+    Example
+    -------
+    >>> mask_by_condition(torch.tensor([1.0, 2.0]),
+    ...                   torch.tensor([True, False]), 0.0).tolist()
+    [1.0, 0.0]
+    """
+    return torch.where(cond, tensor, fill_value)
+
+
+def update_mem(inp_tokens, memory):
+    """Append the (B,) token column ``inp_tokens`` to a growing (B, t)
+    memory; ``None`` starts one.
+
+    Example
+    -------
+    >>> update_mem(torch.tensor([3, 4]), torch.tensor([[1], [2]])).tolist()
+    [[1, 3], [2, 4]]
+    """
+    if memory is None:
+        return inp_tokens[:, None]
+    return torch.cat([memory, inp_tokens[:, None]], dim=-1)
 
 
 def top_k_lowest_index(x, k):

@@ -1,7 +1,9 @@
 """Composed feature extractors (port of ``speechbrain_tpu/lobes/features.py``:
-``Fbank``, ``upalign_value``, ``Leaf`` and ``StreamingFeatureWrapper``). With
-``fused=True`` the whole chain runs as one hand-written CUDA kernel
-(``speechbrain_tpu_torch.ops.mel_frontend``).
+``Fbank``, ``MFCC``, ``upalign_value``, ``Leaf`` and
+``StreamingFeatureWrapper``). With ``fused=True`` Fbank's chain up to the
+log-mels runs as one hand-written CUDA kernel
+(``speechbrain_tpu_torch.ops.mel_frontend``); its deltas and context window
+follow in PyTorch.
 """
 
 import torch
@@ -16,16 +18,37 @@ from speechbrain_tpu_torch.ops.mel_frontend import (
 from speechbrain_tpu_torch.nnet.CNN import GaborConv1d
 from speechbrain_tpu_torch.nnet.normalization import PCEN
 from speechbrain_tpu_torch.nnet.pooling import GaussianLowpassPooling
-from speechbrain_tpu_torch.processing.features import STFT, Filterbank
+from speechbrain_tpu_torch.processing.features import (
+    DCT,
+    STFT,
+    ContextWindow,
+    Deltas,
+    Filterbank,
+)
 from speechbrain_tpu_torch.utils.autocast import fwd_default_precision
+
+
+def _deltas_and_context(extractor, feats):
+    """Features, then with ``extractor.deltas`` their first and second time
+    derivatives concatenated on the feature axis, then with
+    ``extractor.context`` each frame's neighbours (``Fbank``'s and
+    ``MFCC``'s last steps)."""
+    if extractor.deltas:
+        delta1 = extractor.compute_deltas(feats)
+        delta2 = extractor.compute_deltas(delta1)
+        feats = torch.cat([feats, delta1, delta2], dim=2)
+    if extractor.context:
+        feats = extractor.context_window(feats)
+    return feats
 
 
 class Fbank:
     """Log-mel filterbank features from raw waveforms:
-    STFT -> |.|^2 -> mel -> dB.
-
-    ``deltas`` and ``context`` are accepted for the JAX package's
-    signature; neither is ported yet, and asking for one raises.
+    STFT -> |.|^2 -> mel -> dB; with ``deltas``, the first and second
+    time derivatives (``Deltas``) joined on the feature axis; with
+    ``context``, each frame's ``left_frames`` and ``right_frames``
+    neighbours joined after it (``ContextWindow``). Both follow the fused
+    kernel (one launch a call) as they follow the unfused chain.
 
     Example
     -------
@@ -33,19 +56,23 @@ class Fbank:
     >>> fbank = Fbank(device="cpu")
     >>> fbank(torch.zeros(10, 16000)).shape
     torch.Size([10, 101, 40])
+    >>> Fbank(deltas=True, context=True, device="cpu")(
+    ...     torch.zeros(10, 16000)).shape
+    torch.Size([10, 101, 1320])
     """
 
     def __init__(self, deltas=False, context=False, sample_rate=16000,
                  f_min=0, f_max=None, n_fft=400, n_mels=40,
                  filter_shape="triangular", left_frames=5, right_frames=5,
                  win_length=25, hop_length=10, fused=False, device="cuda"):
-        if deltas or context:
-            raise NotImplementedError(
-                "Fbank(deltas=..., context=...) is not ported yet"
-            )
         if f_max is None:
             f_max = sample_rate // 2
+        self.deltas = deltas
+        self.context = context
         self.fused = fused
+        self.compute_deltas = Deltas(input_size=n_mels)
+        self.context_window = ContextWindow(left_frames=left_frames,
+                                            right_frames=right_frames)
         self.compute_STFT = STFT(
             sample_rate=sample_rate, n_fft=n_fft, win_length=win_length,
             hop_length=hop_length, device=device,
@@ -68,7 +95,7 @@ class Fbank:
         # float32 under autocast too: the kernel takes float32 only, and
         # the plain and unfused versions then compute as it does
         if self.fused:
-            return fused_fbank(
+            fbanks = fused_fbank(
                 wav,
                 window=self.compute_STFT.window,
                 fbank_matrix=self.compute_fbanks.fbank_matrix,
@@ -78,11 +105,51 @@ class Fbank:
                 tables=self._tables,
                 operands=self._operands,
             )
-        mag = self.compute_STFT.power(wav)
-        return self.compute_fbanks(mag)
+        else:
+            fbanks = self.compute_fbanks(self.compute_STFT.power(wav))
+        return _deltas_and_context(self, fbanks)
 
     def get_filter_properties(self):
         return self.compute_STFT.get_filter_properties()
+
+
+class MFCC:
+    """Mel-frequency cepstral coefficients from raw waveforms: STFT ->
+    |.|^2 -> mel -> dB -> ``DCT`` (``n_mfcc`` of ``n_mels``), then the
+    deltas and context window as in :class:`Fbank` (both on by default).
+    No kernel: the fused B3 kernel ends in log-mels.
+
+    Example
+    -------
+    >>> MFCC(device="cpu")(torch.zeros(10, 16000)).shape
+    torch.Size([10, 101, 660])
+    """
+
+    def __init__(self, deltas=True, context=True, sample_rate=16000,
+                 f_min=0, f_max=None, n_fft=400, n_mels=23, n_mfcc=20,
+                 filter_shape="triangular", left_frames=5, right_frames=5,
+                 win_length=25, hop_length=10, device="cuda"):
+        if f_max is None:
+            f_max = sample_rate // 2
+        self.deltas = deltas
+        self.context = context
+        self.compute_STFT = STFT(
+            sample_rate=sample_rate, n_fft=n_fft, win_length=win_length,
+            hop_length=hop_length, device=device,
+        )
+        self.compute_fbanks = Filterbank(
+            sample_rate=sample_rate, n_fft=n_fft, n_mels=n_mels, f_min=f_min,
+            f_max=f_max, filter_shape=filter_shape, device=device,
+        )
+        self.compute_dct = DCT(input_size=n_mels, n_out=n_mfcc, device=device)
+        self.compute_deltas = Deltas(input_size=n_mfcc)
+        self.context_window = ContextWindow(left_frames=left_frames,
+                                            right_frames=right_frames)
+
+    @fwd_default_precision
+    def __call__(self, wav):
+        fbanks = self.compute_fbanks(self.compute_STFT.power(wav))
+        return _deltas_and_context(self, self.compute_dct(fbanks))
 
 
 class Leaf(nn.Module):

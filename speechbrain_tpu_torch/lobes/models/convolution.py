@@ -9,7 +9,7 @@ import torch.nn.functional as F
 
 from speechbrain_tpu_torch.nnet.activations import get_activation
 from speechbrain_tpu_torch.nnet.CNN import Conv2d
-from speechbrain_tpu_torch.nnet.normalization import LayerNorm
+from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d, LayerNorm
 
 
 class ConvolutionFrontEnd(nn.Module):
@@ -17,8 +17,10 @@ class ConvolutionFrontEnd(nn.Module):
 
     Output is (batch, time/prod(strides), ceil(freq/prod(strides)) *
     out_channels[-1]) after flattening the channel axis — ready for a
-    Linear into d_model. Only ``norm="layernorm"`` (over the channel
-    axis, as in the JAX package) or ``None`` is ported.
+    Linear into d_model. ``norm`` is ``"layernorm"`` (over the channel
+    axis, as in the JAX package), ``"batchnorm"`` (``BatchNorm1d`` over the
+    channel axis: batch statistics in ``train()``, running ones in
+    ``eval()``) or ``None``.
 
     Example
     -------
@@ -31,12 +33,15 @@ class ConvolutionFrontEnd(nn.Module):
     def __init__(self, num_blocks=3, num_layers_per_block=1,
                  out_channels=(128, 200, 256), kernel_sizes=(3, 3, 3),
                  strides=(2, 2, 1), dilations=(1, 1, 1),
-                 activation="leaky_relu", norm="layernorm", dropout=0.1,
-                 in_channels=1, device="cuda", dtype=torch.float32,
-                 generator=None):
+                 residuals=(True, True, True), activation="leaky_relu",
+                 norm="layernorm", dropout=0.1, in_channels=1, device="cuda",
+                 dtype=torch.float32, generator=None):
         super().__init__()
-        if norm not in ("layernorm", None):
-            raise NotImplementedError(f"norm={norm!r} is not ported yet")
+        if norm not in ("layernorm", "batchnorm", None):
+            raise ValueError(f"Unknown norm {norm!r}")
+        # ``residuals`` is accepted and not read: the JAX module declares
+        # it and adds no residual connection
+        self.residuals = residuals
         self.num_blocks = num_blocks
         self.num_layers_per_block = num_layers_per_block
         self.act = get_activation(activation)
@@ -58,6 +63,10 @@ class ConvolutionFrontEnd(nn.Module):
                 )
             if norm == "layernorm":
                 self.norms[f"norm_{b}"] = LayerNorm(
+                    out_channels[b], device=device, dtype=dtype
+                )
+            elif norm == "batchnorm":
+                self.norms[f"norm_{b}"] = BatchNorm1d(
                     out_channels[b], device=device, dtype=dtype
                 )
             ch = out_channels[b]

@@ -1,6 +1,6 @@
 """Convolutional layers on (batch, time, [height,] channel) layouts
-(port of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d``, ``Conv2d``,
-``ConvTranspose1d`` and ``GaborConv1d``).
+(port of ``speechbrain_tpu/nnet/CNN.py``: ``SincConv``, ``Conv1d``,
+``Conv2d``, ``ConvTranspose1d`` and ``GaborConv1d``).
 
 The public surface keeps the JAX package's channels-last layouts (NWC /
 NHWC); inside, tensors are moved to PyTorch's channels-first layout for
@@ -42,6 +42,78 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+class SincConv(nn.Module):
+    """SincNet's band-pass filters on (batch, time[, 1]) waveforms ->
+    (batch, time', out_channels): filter ``c`` passes from ``min_low_hz +
+    |low_hz[c]|`` to that plus ``min_band_hz + |band_hz[c]|`` (clipped to
+    ``[min_low_hz, sample_rate / 2]``), a windowed sinc of odd
+    ``kernel_size`` taps rebuilt from the two learned cut-offs every call,
+    so that gradients reach them. The cut-offs start evenly spaced on the
+    mel scale from 30 Hz. Zero ``"same"`` padding or none (``"valid"``).
+
+    Example
+    -------
+    >>> conv = SincConv(out_channels=8, kernel_size=65, device="cpu")
+    >>> conv(torch.ones(4, 16000, 1)).shape
+    torch.Size([4, 16000, 8])
+    """
+
+    def __init__(self, out_channels, kernel_size, stride=1, dilation=1,
+                 padding="same", sample_rate=16000, min_low_hz=50.0,
+                 min_band_hz=50.0, device="cuda", dtype=torch.float32):
+        super().__init__()
+        if kernel_size % 2 == 0:
+            raise ValueError("SincConv kernel size must be odd")
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.dilation = dilation
+        self.padding = padding
+        self.sample_rate = sample_rate
+        self.min_low_hz = min_low_hz
+        self.min_band_hz = min_band_hz
+        high_hz = sample_rate / 2 - (min_low_hz + min_band_hz)
+        mel = np.linspace(2595 * np.log10(1 + 30.0 / 700),
+                          2595 * np.log10(1 + high_hz / 700),
+                          out_channels + 1)
+        hz = 700 * (10 ** (mel / 2595) - 1)
+        self.low_hz = nn.Parameter(torch.tensor(
+            hz[:-1, None], device=device, dtype=dtype))
+        self.band_hz = nn.Parameter(torch.tensor(
+            np.diff(hz)[:, None], device=device, dtype=dtype))
+
+    def filters(self):
+        """The (out_channels, kernel_size) band-pass taps."""
+        low = self.min_low_hz + torch.abs(self.low_hz)
+        high = torch.clamp(low + self.min_band_hz + torch.abs(self.band_hz),
+                           self.min_low_hz, self.sample_rate / 2)
+        K = self.kernel_size
+        n = (K - 1) // 2
+        dev, dt = low.device, low.dtype
+        n_ = (2 * math.pi * torch.arange(-n, 0.0, device=dev, dtype=dt)[None]
+              / self.sample_rate)
+        window = (0.54 - 0.46 * torch.cos(
+            2 * math.pi * torch.arange(K, device=dev, dtype=dt) / K))[:n]
+        left = ((torch.sin(high * n_) - torch.sin(low * n_)) / (n_ / 2)
+                ) * window
+        center = 2 * (high - low)
+        band_pass = torch.cat([left, center, left.flip(1)], dim=1)
+        return band_pass / (2 * (high - low))
+
+    def forward(self, x):
+        if x.ndim == 2:
+            x = x[..., None]
+        if self.padding == "same":
+            pads = _same_pad_1d(x.shape[1], self.kernel_size, self.stride,
+                                self.dilation)
+        else:
+            pads = (0, 0)
+        x = F.pad(x.transpose(1, 2), pads)
+        return F.conv1d(x, self.filters()[:, None].to(x.dtype),
+                        stride=self.stride,
+                        dilation=self.dilation).transpose(1, 2)
+
+
 class Conv1d(nn.Module):
     """1-D convolution on (batch, time, channel).
 
@@ -55,9 +127,12 @@ class Conv1d(nn.Module):
 
     def __init__(self, out_channels, kernel_size, in_channels, stride=1,
                  dilation=1, padding="same", groups=1, bias=True,
-                 padding_mode="reflect", device="cuda",
+                 padding_mode="reflect", weight_norm=False, device="cuda",
                  dtype=torch.float32, generator=None):
         super().__init__()
+        # ``weight_norm`` is accepted and not read: the JAX module declares
+        # it and normalises no weight
+        self.weight_norm = weight_norm
         self.out_channels = out_channels
         self.kernel_size = kernel_size
         self.stride = stride

@@ -30,7 +30,10 @@ def lecun_normal_(tensor, fan_in, generator=None):
 
 class Linear(nn.Module):
     """y = x W^T + b over the last axis; optionally flattens a trailing
-    channel axis first (``combine_dims``).
+    channel axis first (``combine_dims``). With ``max_norm`` each output
+    unit's weight row is scaled down, in the forward, to a norm of at most
+    ``max_norm`` (``min(1, max_norm / (norm + 1e-12))``); the stored weight
+    is left as it is.
 
     Example
     -------
@@ -40,11 +43,13 @@ class Linear(nn.Module):
     """
 
     def __init__(self, n_neurons, input_size, bias=True, combine_dims=False,
-                 device="cuda", dtype=torch.float32, generator=None):
+                 max_norm=None, device="cuda", dtype=torch.float32,
+                 generator=None):
         super().__init__()
         self.n_neurons = n_neurons
         self.input_size = input_size
         self.combine_dims = combine_dims
+        self.max_norm = max_norm
         self.weight = nn.Parameter(
             torch.empty(n_neurons, input_size, device=device, dtype=dtype)
         )
@@ -57,4 +62,9 @@ class Linear(nn.Module):
     def forward(self, x):
         if x.ndim == 4 and self.combine_dims:
             x = x.reshape(x.shape[0], x.shape[1], x.shape[2] * x.shape[3])
-        return F.linear(x, self.weight, self.bias)
+        weight = self.weight
+        if self.max_norm is not None:
+            norm = torch.linalg.vector_norm(weight, dim=1, keepdim=True)
+            weight = weight * torch.clamp(self.max_norm / (norm + 1e-12),
+                                          max=1.0)
+        return F.linear(x, weight, self.bias)

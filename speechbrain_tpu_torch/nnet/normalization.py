@@ -1,5 +1,5 @@
 """Normalization layers (port of ``LayerNorm``, ``BatchNorm1d``,
-``BatchNorm2d``, ``GroupNorm``, ``InstanceNorm1d``,
+``BatchNorm2d``, ``GroupNorm``, ``InstanceNorm1d``, ``InstanceNorm2d``,
 ``ExponentialMovingAverage`` and ``PCEN`` from
 ``speechbrain_tpu/nnet/normalization.py``).
 
@@ -201,6 +201,26 @@ class InstanceNorm1d(nn.Module):
 
     def forward(self, x):
         var, mean = torch.var_mean(x, dim=1, correction=0, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y
+
+
+class InstanceNorm2d(InstanceNorm1d):
+    """Per-sample, per-channel normalisation of (batch, time, feat,
+    channel) over time and feature together, as :class:`InstanceNorm1d`
+    normalises over time (biased variance, no running statistics, one
+    scale and bias a channel where ``affine``).
+
+    Example
+    -------
+    >>> InstanceNorm2d(4, affine=True, device="cpu")(torch.ones(2, 5, 3, 4)).shape
+    torch.Size([2, 5, 3, 4])
+    """
+
+    def forward(self, x):
+        var, mean = torch.var_mean(x, dim=(1, 2), correction=0, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight + self.bias

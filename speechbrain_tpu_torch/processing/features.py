@@ -1,12 +1,13 @@
 """Low-level feature pipeline (port of the part of
-``speechbrain_tpu/processing/features.py`` that ``Fbank`` and training
-need, and enhancement's resynthesis): windows, framing, ``STFT`` with
-its real power spectrogram, ``ISTFT``, the mel filter matrix,
-``Filterbank`` with dB compression and the per-sequence ``top_db`` clamp,
-``spectral_magnitude``, ``InputNormalization`` and ``GlobalNorm``.
-Constants are
-built in numpy, exactly as the JAX package builds them, and moved to the
-device once.
+``speechbrain_tpu/processing/features.py`` that ``Fbank``, ``MFCC``,
+training and enhancement's resynthesis need): windows, framing (zero,
+reflect or replicate centre padding), ``STFT`` (one- or two-sided, mono or
+multi-channel) with its real power spectrogram, ``ISTFT``, the mel filter
+matrix, ``Filterbank`` with dB compression and the per-sequence ``top_db``
+clamp, ``spectral_magnitude``, ``DCT``, ``Deltas``, ``ContextWindow``,
+``InputNormalization``, ``GlobalNorm``, ``MinLevelNorm`` and
+``DynamicRangeCompression``. Constants are built in numpy, exactly as the
+JAX package builds them, and moved to the device once.
 """
 
 import math
@@ -57,30 +58,50 @@ _WINDOWS = {
 }
 
 
-def frame_signal(x, frame_length, hop_length, center=True):
+_CENTER_PADS = ("constant", "reflect", "replicate")
+
+
+def frame_signal(x, frame_length, hop_length, center=True,
+                 pad_mode="constant"):
     """Slice a signal (..., time) into frames (..., n_frames,
-    frame_length); a strided view of the signal, zero-padded by half a
-    frame on both sides when ``center``."""
+    frame_length); a strided view of the signal, padded by half a frame on
+    both sides when ``center``: with zeros (``"constant"``), the signal
+    mirrored about its end samples (``"reflect"``) or its end samples
+    repeated (``"replicate"``)."""
     if center:
-        x = F.pad(x, (frame_length // 2, frame_length // 2))
+        pad = (frame_length // 2, frame_length // 2)
+        if pad_mode == "constant":
+            x = F.pad(x, pad)
+        else:
+            # F.pad mirrors and repeats along the last axis of 2-D/3-D
+            # inputs only
+            lead = x.shape[:-1]
+            x = F.pad(x.reshape(-1, 1, x.shape[-1]), pad, mode=pad_mode)
+            x = x.reshape(*lead, x.shape[-1])
     return x.unfold(-1, frame_length, hop_length)
 
 
 class STFT:
-    """Short-Term Fourier Transform; returns complex (batch, time, freq).
-    ``win_length`` and ``hop_length`` are in milliseconds; a window shorter
-    than ``n_fft`` sits centred in the frame, as ``torch.stft`` puts it.
+    """Short-Term Fourier Transform; returns complex (batch, time, freq),
+    or (batch, time, freq, channel) for a multi-channel (batch, samples,
+    channel) input. ``win_length`` and ``hop_length`` are in milliseconds;
+    a window shorter than ``n_fft`` sits centred in the frame, as
+    ``torch.stft`` puts it. ``pad_mode`` pads a centred signal (see
+    :func:`frame_signal`); ``onesided=False`` gives all ``n_fft`` bins of
+    the full FFT.
 
     Example
     -------
     >>> stft = STFT(sample_rate=16000, device="cpu")
     >>> stft(torch.zeros(2, 16000)).shape
     torch.Size([2, 101, 201])
+    >>> STFT(16000, onesided=False, device="cpu")(torch.zeros(2, 16000, 3)).shape
+    torch.Size([2, 101, 400, 3])
     """
 
     def __init__(self, sample_rate, win_length=25, hop_length=10, n_fft=400,
                  window_fn="hamming", normalized_stft=False, center=True,
-                 device="cuda"):
+                 pad_mode="constant", onesided=True, device="cuda"):
         self.sample_rate = sample_rate
         self.win_length = _ms_to_samples(sample_rate, win_length)
         self.hop_length = _ms_to_samples(sample_rate, hop_length)
@@ -88,26 +109,39 @@ class STFT:
         self.window_fn = window_fn
         self.normalized_stft = normalized_stft
         self.center = center
+        if pad_mode not in _CENTER_PADS:
+            raise ValueError(f"Unknown pad_mode {pad_mode!r}")
+        self.pad_mode = pad_mode
+        self.onesided = onesided
         self.window = torch.from_numpy(
             _frame_window(window_fn, self.win_length, n_fft)).to(device)
 
     def _windowed_frames(self, x):
-        frames = frame_signal(x, self.n_fft, self.hop_length, self.center)
+        frames = frame_signal(x, self.n_fft, self.hop_length, self.center,
+                              self.pad_mode)
         return frames * self.window
 
     def __call__(self, x):
-        stft = torch.fft.rfft(self._windowed_frames(x), n=self.n_fft, dim=-1)
+        multi_channel = x.ndim == 3
+        if multi_channel:
+            x = x.movedim(2, 1)  # (batch, channel, time)
+        fft = torch.fft.rfft if self.onesided else torch.fft.fft
+        stft = fft(self._windowed_frames(x), n=self.n_fft, dim=-1)
         if self.normalized_stft:
             stft = stft / math.sqrt(self.n_fft)
-        return stft
+        return stft.movedim(1, -1) if multi_channel else stft
 
     def power(self, x):
-        """Power spectrogram |STFT|^2, (batch, time, freq) real."""
+        """Power spectrogram |STFT|^2, (batch, time, freq[, channel]) real.
+        One-sided whatever ``onesided`` says, as the JAX package's."""
+        multi_channel = x.ndim == 3
+        if multi_channel:
+            x = x.movedim(2, 1)
         stft = torch.fft.rfft(self._windowed_frames(x), n=self.n_fft, dim=-1)
         ps = stft.real ** 2 + stft.imag ** 2
         if self.normalized_stft:
             ps = ps / self.n_fft
-        return ps
+        return ps.movedim(1, -1) if multi_channel else ps
 
     def inverse(self):
         """The ``ISTFT`` that inverts this transform: the same rate, frame,
@@ -300,10 +334,13 @@ class Filterbank:
         ).to(device)
 
     def __call__(self, spectrogram):
+        multi_channel = spectrogram.ndim == 4
+        if multi_channel:
+            spectrogram = spectrogram.movedim(3, 1)
         fbanks = torch.matmul(spectrogram, self.fbank_matrix)
         if self.log_mel:
             fbanks = self._amplitude_to_db(fbanks)
-        return fbanks
+        return fbanks.movedim(1, 3) if multi_channel else fbanks
 
     def _amplitude_to_db(self, x):
         x_db = self.multiplier * torch.log10(torch.clamp(x, min=self.amin))
@@ -311,6 +348,93 @@ class Filterbank:
         # per-sequence max over (time, mel), clamp to max - top_db
         maxes = torch.amax(x_db, dim=(-2, -1), keepdim=True)
         return torch.maximum(x_db, maxes - self.top_db)
+
+
+class DCT:
+    """Type-II DCT (ortho-normalised by default) of the last axis, as MFCCs
+    take it: ``(..., input_size)`` -> ``(..., n_out)``; a 4-D ``(batch,
+    time, feat, channel)`` input is transformed along ``feat``.
+
+    Example
+    -------
+    >>> DCT(input_size=40, n_out=20, device="cpu")(torch.ones(10, 101, 40)).shape
+    torch.Size([10, 101, 20])
+    """
+
+    def __init__(self, input_size, n_out=20, ortho_norm=True, device="cuda"):
+        if n_out > input_size:
+            raise ValueError("n_out cannot exceed input size")
+        n = np.arange(float(input_size))
+        k = np.arange(float(n_out))
+        dct = np.cos(np.pi / input_size * (n[None, :] + 0.5)
+                     * k[:, None]) * 2.0
+        if ortho_norm:
+            dct[0] *= 1.0 / math.sqrt(2.0)
+            dct *= math.sqrt(1.0 / (2.0 * input_size))
+        self.dct_mat = torch.from_numpy(
+            np.ascontiguousarray(dct.T.astype(np.float32))).to(device)
+
+    def __call__(self, x):
+        multi_channel = x.ndim == 4
+        if multi_channel:
+            x = x.movedim(3, 1)
+        out = torch.matmul(x, self.dct_mat)
+        return out.movedim(1, 3) if multi_channel else out
+
+
+class Deltas:
+    """Time derivatives by the standard regression over ``window_length``
+    frames: ``sum_k k * x[t + k] / (2 * sum_k k^2)`` for ``k`` in ``-n..n``,
+    the time axis (axis 1) padded by repeating its end frames. Works on
+    the input's device; ``input_size`` is accepted for the JAX package's
+    signature.
+
+    Example
+    -------
+    >>> Deltas(input_size=20)(torch.ones(10, 101, 20)).abs().max().item()
+    0.0
+    """
+
+    def __init__(self, input_size=None, window_length=5):
+        self.n = (window_length - 1) // 2
+        self.denom = self.n * (self.n + 1) * (2 * self.n + 1) / 3.0
+
+    def __call__(self, x):
+        n, T = self.n, x.shape[1]
+        xp = torch.cat([x[:, :1].expand(-1, n, *x.shape[2:]), x,
+                        x[:, -1:].expand(-1, n, *x.shape[2:])], dim=1)
+        out = torch.zeros_like(x)
+        # summed in the JAX package's order, k = -n .. n
+        for k in range(-n, n + 1):
+            if k:
+                out = out + k * xp[:, k + n: k + n + T]
+        return out / self.denom
+
+
+class ContextWindow:
+    """Each frame concatenated with its ``left_frames`` and
+    ``right_frames`` neighbours on the feature axis (axis 2), the time axis
+    zero-padded: ``(batch, time, feat[, channel])`` -> ``(batch, time,
+    (left + 1 + right) * feat[, channel])``, the earliest frame first.
+
+    Example
+    -------
+    >>> ContextWindow(2, 2)(torch.ones(10, 101, 20)).shape
+    torch.Size([10, 101, 100])
+    """
+
+    def __init__(self, left_frames=0, right_frames=0):
+        self.left_frames = left_frames
+        self.right_frames = right_frames
+
+    def __call__(self, x):
+        T = x.shape[1]
+        pad = [0, 0] * (x.ndim - 2) + [self.left_frames, self.right_frames]
+        xp = F.pad(x, pad)
+        return torch.cat(
+            [xp[:, k: k + T]
+             for k in range(self.left_frames + self.right_frames + 1)],
+            dim=2)
 
 
 @register_checkpoint_hooks
@@ -482,3 +606,42 @@ class GlobalNorm:
     def denormalize(self, x):
         x = (x - self.norm_mean) / self.norm_std
         return x * (self.running_std + 1e-8) + self.running_mean
+
+
+class MinLevelNorm:
+    """Power in dB mapped to [-1, 1] from a floor of ``min_level_db``:
+    ``clip((x - min) / -min, 0, 1) * 2 - 1``, and back.
+
+    Example
+    -------
+    >>> MinLevelNorm(-100.0)(torch.tensor([-100.0, -50.0, 0.0])).tolist()
+    [-1.0, 0.0, 1.0]
+    """
+
+    def __init__(self, min_level_db):
+        self.min_level_db = min_level_db
+
+    def __call__(self, x):
+        return torch.clamp((x - self.min_level_db) / -self.min_level_db,
+                           0.0, 1.0) * 2.0 - 1.0
+
+    def denormalize(self, x):
+        x = torch.clamp(x, -1.0, 1.0)
+        return (x + 1.0) / 2.0 * -self.min_level_db + self.min_level_db
+
+
+class DynamicRangeCompression:
+    """``log(max(x, clip_val) * multiplier)``.
+
+    Example
+    -------
+    >>> DynamicRangeCompression()(torch.tensor([1.0])).tolist()
+    [0.0]
+    """
+
+    def __init__(self, multiplier=1.0, clip_val=1e-5):
+        self.multiplier = multiplier
+        self.clip_val = clip_val
+
+    def __call__(self, x):
+        return torch.log(torch.clamp(x, min=self.clip_val) * self.multiplier)

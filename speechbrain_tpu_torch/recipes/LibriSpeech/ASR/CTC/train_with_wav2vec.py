@@ -11,10 +11,17 @@ and keeps a checkpoint by the lowest valid loss. ``W2VCTC.transcribe_batch``
 decodes a batch greedily. The DVoice twin runs this chain with its own
 corpus.
 
+N-best rescoring (``train_hf_wav2vec_{rnn,transformer}_rescoring.yaml``):
+where the YAML names a ``rescorer_lm``, :func:`build_rescorer` wraps it
+(``rescorer_type`` ``rnn`` or ``transformer``) in a ``RescorerBuilder`` at
+``rescorer_weight``, and each valid or test batch is also decoded by the
+YAML's ``test_beam_searcher`` (the host CTC beam search, ``topk``
+hypotheses), reranked by the LM, and its best hypotheses scored into the
+stage's CER. The LM's weights are its random init here; a real run pours a
+trained LM in.
+
 Not ported: the JAX script's input downsampler (the ``downsampled/`` YAMLs,
-ROADMAP item 16) and its n-best rescoring in ``evaluate_batch`` (the
-``*_rescoring`` YAMLs, item 4); no YAML of this folder's twins reaches
-them.
+ROADMAP item 16); no YAML of this folder's twins reaches it.
 
 Run from the repository's root (a synthetic corpus is made under
 ``--debug`` where the manifest is missing):
@@ -39,8 +46,15 @@ from speechbrain_tpu_torch.core import (
 from speechbrain_tpu_torch.dataio.dataio import length_to_mask, read_audio
 from speechbrain_tpu_torch.dataio.dataset import DynamicItemDataset
 from speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
+from speechbrain_tpu_torch.decoders.scorer import (
+    RescorerBuilder,
+    RNNLMRescorer,
+    TransformerLMRescorer,
+)
 from speechbrain_tpu_torch.nnet.losses import ctc_loss
 from speechbrain_tpu_torch.nnet.schedulers import update_learning_rate
+from speechbrain_tpu_torch.utils.autocast import autocast
+from speechbrain_tpu_torch.utils.metric_stats import ErrorRateStats
 from speechbrain_tpu_torch.recipes.LibriSpeech.ASR.transformer.train import (
     adamw,
 )
@@ -80,17 +94,68 @@ class W2VCTC(Brain):
         return ctc_greedy_decode(logp, batch["sig"][1],
                                  blank_id=self.hparams.blank_index)
 
+    def on_stage_start(self, stage, epoch=None):
+        if stage != Stage.TRAIN:
+            self.cer_metric = ErrorRateStats(space_token=" ")
+
+    @torch.no_grad()
+    def evaluate_batch(self, batch, stage):
+        """The loss of a valid or test batch; where the YAML wires a
+        ``test_beam_searcher`` and :func:`build_rescorer` a ``rescorer``,
+        also the CTC posteriors of the same forward decoded into ``topk``
+        hypotheses on the host, reranked by the LM, and the best of each
+        scored into ``cer_metric``."""
+        searcher = getattr(self.hparams, "test_beam_searcher", None)
+        rescorer = getattr(self.hparams, "rescorer", None)
+        if searcher is None or rescorer is None:
+            return super().evaluate_batch(batch, stage)
+        batch = self._prepare_batch(batch)
+        with autocast(self.run_opts.eval_precision, self.device):
+            logp = self.compute_forward(batch, stage)
+        loss, _ = self._objectives(logp, batch, stage)
+        topk = searcher(logp, batch["sig"][1])
+        hyps = [[list(beam.text) for beam in row] for row in topk]
+        scores = [[float(beam.score) for beam in row] for row in topk]
+        best, _, _ = rescorer.rescore(hyps, scores)
+        chars, char_lens = batch["char_encoded"]
+        self.cer_metric.append(batch["id"], [[int(t) for t in h]
+                                             for h in best],
+                               chars, target_len=char_lens)
+        return float(loss)
+
     def on_stage_end(self, stage, stage_loss, epoch=None):
         if stage != Stage.VALID:
             return
         old_lr, new_lr = self.hparams.lr_annealing(stage_loss)
         update_learning_rate(self.optimizer, new_lr)
+        valid_stats = {"loss": stage_loss}
+        if getattr(self, "cer_metric", None) and self.cer_metric.ids:
+            valid_stats["CER"] = self.cer_metric.summarize("error_rate")
         self.hparams.train_logger.log_stats(
             stats_meta={"epoch": epoch, "lr": old_lr},
             train_stats={"loss": self.train_loss},
-            valid_stats={"loss": stage_loss}, verbose=False,
+            valid_stats=valid_stats, verbose=False,
         )
         self.save_checkpoint(meta={"loss": stage_loss}, min_keys=["loss"])
+
+
+def build_rescorer(hparams):
+    """The YAML's ``rescorer_lm`` (in ``eval()``) as a ``RescorerBuilder``
+    of one rescorer ``"lm"`` at ``rescorer_weight`` (0.5 where unset): an
+    ``RNNLMRescorer`` from a zero state where ``rescorer_type`` is
+    ``"rnn"`` (the default), else a ``TransformerLMRescorer``; bos and eos
+    from the YAML, on the LM's device."""
+    lm = hparams["rescorer_lm"].eval()
+    device = next(lm.parameters()).device
+    ids = dict(bos_index=hparams["bos_index"],
+               eos_index=hparams["eos_index"], device=device)
+    if hparams.get("rescorer_type", "rnn") == "rnn":
+        impl = RNNLMRescorer(lambda tokens, state: lm(tokens, hx=state),
+                             lambda n: None, **ids)
+    else:
+        impl = TransformerLMRescorer(lm, **ids)
+    return RescorerBuilder(weights={"lm": hparams.get("rescorer_weight", 0.5)},
+                           rescorers={"lm": impl})
 
 
 def dataio_prepare(hparams):
@@ -139,6 +204,8 @@ def run(hparams, run_opts, brain_cls=W2VCTC, prepare=prepare_synthetic):
         prepare(hparams["data_folder"])
     Path(hparams["save_folder"]).mkdir(parents=True, exist_ok=True)
     datasets = dataio_prepare(hparams)
+    if "rescorer_lm" in hparams:
+        hparams["rescorer"] = build_rescorer(hparams)
     brain = brain_cls(
         modules=hparams["modules"],
         opt_class=adamw(hparams["lr"]),

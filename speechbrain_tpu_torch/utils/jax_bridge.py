@@ -47,6 +47,11 @@ the way:
   ``LayerNorm_0`` scope); ``cls_token``, ``pos_embed``, the layer scales
   ``gamma1``/``gamma2`` and ``tanh_scale`` go over as they are, and a
   flax depthwise kernel ``(k, 1, dim)`` becomes ``(dim, 1, k)``;
+* ``SincConv``: ``low_hz``/``band_hz`` ``(out, 1)`` as they are;
+  ``InstanceNorm2d``: ``scale``/``bias`` in its own scope, as
+  ``InstanceNorm1d``'s; a one-hot ``Embedding`` takes no key;
+  ``ConvolutionFrontEnd(norm="batchnorm")``: each ``norm_{b}`` as a
+  ``BatchNorm1d``, its ``mean``/``var`` from ``batch_stats``;
 * ``GroupNorm``: ``scale``/``bias`` inside flax's ``GroupNorm_0`` scope;
   ``ConvTranspose1d``: kernel ``(K, out, in/groups)`` -> weight ``(in,
   out/groups, K)``, group by group, with no flip (both hold the same
@@ -154,6 +159,7 @@ from speechbrain_tpu_torch.nnet.CNN import (
     Conv2d,
     ConvTranspose1d,
     GaborConv1d,
+    SincConv,
 )
 from speechbrain_tpu_torch.nnet.embedding import Embedding
 from speechbrain_tpu_torch.nnet.hypermixing import HyperMixing, HyperNetwork
@@ -165,6 +171,7 @@ from speechbrain_tpu_torch.nnet.normalization import (
     ExponentialMovingAverage,
     GroupNorm,
     InstanceNorm1d,
+    InstanceNorm2d,
     LayerNorm,
 )
 from speechbrain_tpu_torch.nnet.pooling import (
@@ -296,7 +303,10 @@ def load_conv_transpose1d(module, scope):
 
 
 def load_embedding(module, scope):
-    _copy(module.weight, scope.take("embedding"), f"{scope.path}/embedding")
+    # a one-hot Embedding holds no weight, and flax no table for it
+    if module.weight is not None:
+        _copy(module.weight, scope.take("embedding"),
+              f"{scope.path}/embedding")
     scope.done()
 
 
@@ -666,6 +676,9 @@ _LOADERS = {
     conv_tasnet.BinauralConvTasNetWrapper: load_named_children,
     InstanceNorm1d: lambda module, scope: _load_scale_bias(module, scope,
                                                            None),
+    InstanceNorm2d: lambda module, scope: _load_scale_bias(module, scope,
+                                                           None),
+    SincConv: _own("low_hz", "band_hz"),
     masking_se.WaveFCNMapper: load_named_children,
     masking_se.BLSTMMasker: load_named_children,
     masking_se.FCN2DMasker: load_named_children,

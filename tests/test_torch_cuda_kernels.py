@@ -309,6 +309,26 @@ def test_fused_fbank_kernel_at_the_bestrq_batch(card, case):
     _one_launch_within_5e_3_db(card, *_BESTRQ_FBANK_CASES[case])
 
 
+@pytest.mark.parametrize("kind", ["noise", "chirp"])
+def test_fused_fbank_with_deltas_and_context(card, kind):
+    """``Fbank(deltas=True, context=True, fused=True)``: one launch, and
+    against the unfused Fbank the log-mels within 5e-3 dB, their deltas
+    within 0.6 of it and the second deltas within 0.36 (a delta's weights
+    sum to 6/10 in absolute value), in every context block."""
+    wav = torch.from_numpy(make_check_signal(kind, 4, 48000, seed=7))
+    wav = wav.to(card)
+    kw = dict(n_mels=80, deltas=True, context=True, device=card)
+    fused = Fbank(fused=True, **kw)
+    before = mel_frontend.launches
+    out = fused(wav)
+    assert mel_frontend.launches == before + 1
+    unfused = Fbank(**kw)(wav)
+    assert out.shape == unfused.shape == (4, 301, 11 * 3 * 80)
+    err = (out - unfused).abs().reshape(4, 301, 11, 3, 80)
+    for i, bound in enumerate((5e-3, 3e-3, 1.8e-3)):
+        assert float(err[..., i, :].max()) <= bound
+
+
 @pytest.mark.parametrize("hop", [161, 100, 320, 441, 1000])
 def test_fused_fbank_kernel_odd_and_long_hops(card, hop):
     """Through ``fused_fbank`` itself: hops that take the span's 4-byte
